@@ -7,5 +7,8 @@ and never ``jax`` or ``mixgrpo_tpu``.  Entry points take an explicit
 
 Ported so far: the FLUX.1-dev serving path (``serve.py`` -> ``sample.py`` ->
 ``sampler.py`` -> ``solvers/rollout.py`` -> ``models/flux/model.py`` ->
-``ops/attention.py`` -> the CUDA flash-attention forward -> VAE decode).
+``ops/attention.py`` -> the CUDA flash-attention forward -> VAE decode), and
+one GRPO iteration on one card (``train.py`` -> ``sampler.chunked_rollout``,
+VAE decode, ``rl/``, ``trainer.py`` -> the CUDA forward with logsumexp and
+backward kernels under ``torch.autograd``).
 """

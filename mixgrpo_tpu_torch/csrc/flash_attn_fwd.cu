@@ -1,16 +1,23 @@
-// Flash attention forward (no logsumexp) for Hopper, sm_90a.
+// Flash attention forward for Hopper, sm_90a, with an optional logsumexp.
 //
 // Replaces the TPU kernel `_fwd_kernel` of mixgrpo_tpu/ops/flash_attention.py
-// (lines 61-120, launched by `_fwd_impl` and reached from `_flash`) in its
-// variant without the logsumexp output: the forward that every DiT block of
-// the sampling path runs.  Contract, identical to the TPU kernel:
+// (lines 61-120, launched by `_fwd_impl`) in both its variants: without the
+// logsumexp (`_flash`, the forward that every DiT block of the sampling path
+// runs) and with it (`_flash_fwd`, the PPO update's forward, whose lse the
+// backward kernels of flash_attn_bwd.cu read).  One kernel serves both: a
+// null `lse` pointer is the variant without it.  Contract, identical to the
+// TPU kernel:
 //   q arrives pre-scaled by 1/sqrt(D) in its own dtype (the wrapper folds the
 //   scale in), so the kernel applies no scale;
 //   s = q.k^T in f32, plus an optional (B, Sk) f32 key bias (0 or -1e30),
 //   then s = -1e30 where col >= kv_len;
 //   online softmax with a running max m and sum l (both f32);
 //   acc += p.v with p cast to v's dtype and f32 accumulation;
-//   o = acc / max(l, 1e-30), written in q's dtype.
+//   o = acc / max(l, 1e-30), written in q's dtype;
+//   lse = m + log(max(l, 1e-30)) in f32, one value per (b, h, row), stored
+//   as a contiguous (B, H, S) array (the TPU kernel broadcast it over 128
+//   lanes; the extra 4 bytes per row are negligible here, so nothing is
+//   broadcast).
 //
 // Bound on an H100 at FLUX shapes: compute.  The two products cost
 // 4*B*H*S*Sk*D FLOP against (3*S + S)*D*2 bytes per head, about S/2
@@ -40,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;
@@ -52,45 +61,12 @@ struct Strides {
   int64_t qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-// Four 8x8 b16 matrices from shared memory, each delivered transposed: the
-// B operand of P.V read from a row-major (key, d) V tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     const float* __restrict__ kbias, Strides st, int H, int S,
-                     int Sk, int kv_len) {
+                     float* __restrict__ lse, const float* __restrict__ kbias,
+                     Strides st, int H, int S, int Sk, int kv_len) {
   constexpr int LD = D + 8;       // padded shared-memory row, in elements
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -251,6 +227,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + r0 + g + 8 * half;
     if (row >= S) continue;
     const float l = fmaxf(l_run[half], 1e-30f);
+    if (lse != nullptr && tig == 0)  // the row's four lanes hold equal m, l
+      lse[static_cast<int64_t>(bh) * S + row] = m_run[half] + logf(l);
     T* orow = ob + row * st.os + 2 * tig;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
@@ -262,8 +240,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const float* kbias, const Strides& st, int B, int H, int S,
-                   int Sk, int kv_len, cudaStream_t stream) {
+                   float* lse, const float* kbias, const Strides& st, int B,
+                   int H, int S, int Sk, int kv_len, cudaStream_t stream) {
   // 52 KB at D = 128: above the 48 KB default, so opt in (per device, per
   // call: the call costs far less than the launch).
   constexpr int smem = (kBlockQ + 2 * kBlockK) * (D + 8) * sizeof(T);
@@ -273,22 +251,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kbias, st, H, S, Sk,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, kbias, st, H, S, Sk,
       kv_len);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, const float* kbias, const Strides& st, int B,
-                       int H, int S, int Sk, int kv_len, cudaStream_t stream) {
+                       void* o, float* lse, const float* kbias,
+                       const Strides& st, int B, int H, int S, int Sk,
+                       int kv_len, cudaStream_t stream) {
   using T = __nv_bfloat16;
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, kbias, st, B, H, S, Sk, kv_len, stream);
+      return launch<T, 32>(q, k, v, o, lse, kbias, st, B, H, S, Sk, kv_len,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, kbias, st, B, H, S, Sk, kv_len, stream);
+      return launch<T, 64>(q, k, v, o, lse, kbias, st, B, H, S, Sk, kv_len,
+                           stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, kbias, st, B, H, S, Sk, kv_len,
+      return launch<T, 128>(q, k, v, o, lse, kbias, st, B, H, S, Sk, kv_len,
                             stream);
     default:
       return cudaErrorInvalidValue;
@@ -298,13 +279,13 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, const void* kbias, int64_t qb,
+                              void* o, void* lse, const void* kbias, int64_t qb,
                               int64_t qh, int64_t qs, int64_t kb, int64_t kh,
                               int64_t ks, int64_t vb, int64_t vh, int64_t vs,
                               int64_t ob, int64_t oh, int64_t os, int B, int H,
                               int S, int Sk, int D, int kv_len, void* stream) {
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-  return static_cast<int>(dispatch_d(D, q, k, v, o,
+  return static_cast<int>(dispatch_d(D, q, k, v, o, static_cast<float*>(lse),
                                      static_cast<const float*>(kbias), st, B,
                                      H, S, Sk, kv_len,
                                      static_cast<cudaStream_t>(stream)));

@@ -7,12 +7,22 @@ guidance-distilled).  Kept from JAX: the parameter layout (dicts of tensors,
 joint [text | image] sequence order, RoPE tables computed once per
 resolution, the fused single-block projections, and the ``pad_seq_multiple``
 lane alignment with its static ``attn_valid`` key prefix.  JAX's ``lax.scan``
-over the stacks is a Python loop over the depth axis here.
+over the stacks is a Python loop over the depth axis here, over per-block
+views made once by ``torch.unbind`` (so a block stack's gradient is gathered
+in one tensor, not one full-size zero-padded tensor per block).
+
+``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant): JAX's ``"dots"`` policy, which
+let XLA keep some matmul results, maps to the same full per-block recompute.
+``virtual_depth=(DD, DS)`` applies DD double and DS single blocks, cycling
+the resident stacks (block i runs weights i % depth): a full-depth forward's
+and backward's compute on a stack cut to fit one card.  JAX's
+``utils/cycle_scan.py`` exists only for JAX's autodiff of that scan and has
+no counterpart here: autograd accumulates the reused blocks' gradients.
 
 ``MIXGRPO_ATTN_LAYOUT=bshd`` keeps q/k/v as (B, S, H, D) (the head split is a
 free reshape and the attention kernel reads per-head strides); the default
-is bhsd, as in JAX.  ``remat`` and ``virtual_depth`` belong to training and
-benchmarking and wait for those slices.
+is bhsd, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mixgrpo_tpu_torch.models.flux import layers as L
 from mixgrpo_tpu_torch.models.flux.rope import apply_rope
@@ -136,11 +147,25 @@ def init_flux(cfg: FluxConfig, *, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _block(stack, i):
-    """Block ``i`` of a stacked parameter tree (views, no copies)."""
+def _unstack(stack):
+    """Every block of a stacked parameter tree, as views from one
+    ``torch.unbind`` per leaf."""
     if isinstance(stack, dict):
-        return {k: _block(v, i) for k, v in stack.items()}
-    return stack[i]
+        per = {k: _unstack(v) for k, v in stack.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return stack.unbind(0)
+
+
+def param_leaves(params):
+    """The tensors of a parameter tree, dict keys in sorted order (the order
+    of ``jax.tree.leaves``), so that optimizer state and checkpoints do not
+    depend on the order in which a tree was built."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in param_leaves(params[k])]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in param_leaves(v)]
+    return [params]
 
 
 # ----------------------------------------------------------------------------
@@ -254,12 +279,18 @@ def flux_forward(
     *,
     dtype=torch.bfloat16,
     attn_impl: str = "auto",
+    remat=False,
+    virtual_depth: Optional[tuple] = None,
     pad_seq_multiple: int = 128,
 ) -> torch.Tensor:
     """Predict rectified-flow velocity for packed image tokens (f32).
 
     timestep/guidance are scaled by 1000 before the sinusoidal embedding;
     the conditioning vector is time + guidance + pooled projections.
+
+    ``remat``: recompute each block in the backward (any true value; JAX's
+    ``"dots"`` included).  ``virtual_depth=(DD, DS)``: DD double and DS
+    single block applications cycling the resident stacks.
 
     ``pad_seq_multiple``: pad the image-token tail so the joint sequence is a
     multiple (identity-RoPE pad positions, key-masked in attention through
@@ -303,17 +334,26 @@ def flux_forward(
     if layout == "bshd":  # (S, 1, D): S lines up with the token axis
         rope_cos, rope_sin = rope_cos[:, None, :], rope_sin[:, None, :]
 
-    for i in range(cfg.depth_double):
-        x, c = _double_block(
-            _block(params["double"], i), cfg, x, c, vec, rope_cos, rope_sin,
-            attn_impl, dtype, layout, attn_valid=attn_valid,
-        )
+    def double(x, c, p):
+        return _double_block(p, cfg, x, c, vec, rope_cos, rope_sin, attn_impl, dtype,
+                             layout, attn_valid=attn_valid)
+
+    def single(joint, p):
+        return _single_block(p, cfg, joint, vec, rope_cos, rope_sin, attn_impl, dtype,
+                             layout, attn_valid=attn_valid)
+
+    def run(body, *args):
+        if remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+        return body(*args)
+
+    doubles, singles = _unstack(params["double"]), _unstack(params["single"])
+    n_double, n_single = virtual_depth or (len(doubles), len(singles))
+    for i in range(n_double):
+        x, c = run(double, x, c, doubles[i % len(doubles)])
     joint = torch.cat([c, x], dim=1)
-    for i in range(cfg.depth_single):
-        joint = _single_block(
-            _block(params["single"], i), cfg, joint, vec, rope_cos, rope_sin,
-            attn_impl, dtype, layout, attn_valid=attn_valid,
-        )
+    for i in range(n_single):
+        joint = run(single, joint, singles[i % len(singles)])
     x = joint[:, L_txt : L_txt + L_img]
 
     scale, shift = L.modulation(params["final_mod"], vec, 2, dtype)

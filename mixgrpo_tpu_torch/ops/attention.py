@@ -3,11 +3,13 @@
 Port of mixgrpo_tpu/ops/attention.py.  Backends:
   - ``"eager"``: torch einsum with an fp32 softmax, the counterpart of JAX's
     ``_xla_attention`` (the reference and CPU path);
-  - ``"flash"``: ``ops/flash_attention.py`` (the hand-written CUDA forward on
-    CUDA tensors, its plain version on CPU tensors);
+  - ``"flash"``: ``ops/flash_attention.py`` (the hand-written CUDA kernels on
+    CUDA tensors, their plain versions on CPU tensors; under autograd the
+    forward with logsumexp and the backward kernels);
   - ``"auto"``: flash for CUDA tensors, eager for CPU tensors.
-The sequence-parallel impls (``"ulysses"``, ``"ring"``) wait for the port of
-``parallel/``.
+Gradients flow through both ``"eager"`` (autograd of the torch ops) and
+``"flash"``.  The sequence-parallel impls (``"ulysses"``, ``"ring"``) wait for
+the port of ``parallel/``.
 """
 
 from __future__ import annotations

@@ -1,9 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one source ``mixgrpo_tpu_torch/csrc/<name>.cu`` with a plain C
-interface.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library under ``mixgrpo_tpu_torch/csrc/build/`` (named by a hash of the
-source, so an edited source is rebuilt) and loaded with ``ctypes``.  The JAX
+Each kernel library is one source ``mixgrpo_tpu_torch/csrc/<name>.cu`` with a
+plain C interface (it may include the shared ``csrc/*.cuh`` headers).  At
+first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+under ``mixgrpo_tpu_torch/csrc/build/`` (named by a hash of the source and the
+headers, so an edited file is rebuilt) and loaded with ``ctypes``.  ptxas's
+report (registers, shared memory, spills per kernel) of a build made in this
+process is kept in ``reports``.  The JAX
 package has no counterpart: XLA compiled its Pallas kernels.
 
 Nothing here runs at import time: the CPU tests import every module, and a
@@ -28,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+reports: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -44,15 +48,17 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for path in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _compile(name: str, out: str) -> None:
     """nvcc the source into ``out``; on failure raise with nvcc's and
-    ptxas's full report."""
+    ptxas's full report, on success keep it in ``reports``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -64,6 +70,7 @@ def _compile(name: str, out: str) -> None:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
     os.replace(tmp, out)
+    reports[name] = proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

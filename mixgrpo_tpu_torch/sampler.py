@@ -3,13 +3,15 @@
 Port of mixgrpo_tpu/sampler.py.  The whole generation group is batched into
 one rollout; the sigma schedule, the ODE/SDE mask and the step count are
 arguments.  Timestep quantization is kept: the DiT is fed
-``int(sigma*1000)/1000``, sigma floored to 1e-3.
-``chunked_rollout`` belongs to training and waits for that slice.
+``int(sigma*1000)/1000``, sigma floored to 1e-3.  ``chunked_rollout`` runs
+the training group as several rollouts of ``chunk`` rows, on one device, in
+row order; each chunk draws its SDE noise from its own generator (JAX folds
+the chunk index into its key).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +37,7 @@ def make_model_fn(
     *,
     dtype=torch.bfloat16,
     attn_impl: str = "auto",
+    virtual_depth=None,
 ):
     """Close FLUX over conditioning -> ``(z, sigma) -> velocity``."""
 
@@ -46,6 +49,7 @@ def make_model_fn(
         return flux_forward(
             params, flux_cfg, z.to(dtype), txt, pooled, t, g,
             rope_cos, rope_sin, dtype=dtype, attn_impl=attn_impl,
+            virtual_depth=virtual_depth,
         )
 
     return model_fn
@@ -65,10 +69,12 @@ class FluxSampler:
         guidance_scale: float = 3.5,
         dtype=torch.bfloat16,
         attn_impl: str = "auto",
+        virtual_depth=None,  # benchmark aid: see flux_forward's docstring
         device="cuda",
     ):
         self.flux_cfg = flux_cfg
         self.sampler_cfg = sampler_cfg
+        self.virtual_depth = virtual_depth
         self.height, self.width = height, width
         self.latent_h, self.latent_w = height // 8, width // 8
         self.guidance_scale = guidance_scale
@@ -108,10 +114,47 @@ class FluxSampler:
         model_fn = make_model_fn(
             params, self.flux_cfg, txt, pooled, self.guidance_scale,
             self.rope_cos, self.rope_sin, dtype=self.dtype,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, virtual_depth=self.virtual_depth,
         )
         return run_rollout(
             self.sampler_cfg, model_fn, z0,
             sigmas=sigmas, deterministic=deterministic,
             num_steps=num_steps, generator=generator, noise_fn=noise_fn,
+        )
+
+    def chunked_rollout(
+        self, params, z0, txt, pooled, sigmas, deterministic, num_steps,
+        generators: Optional[Sequence[torch.Generator]] = None,
+        *, chunk: Optional[int] = None, noise_fn: Optional[Callable] = None,
+    ) -> RolloutOutput:
+        """Group rollout in chunks of ``chunk`` images, rows [j*chunk,
+        (j+1)*chunk) in call j; the merged output keeps the input's row
+        order.  One call for the whole group when ``chunk`` is unset or does
+        not split it.
+
+        Chunk j draws its SDE noise from ``generators[j]`` (one per chunk;
+        None draws from torch's default generator), or from
+        ``noise_fn(j, i, shape)`` for step i; in the single-call case j is
+        None."""
+        B = z0.shape[0]
+        if not chunk or chunk <= 0 or B <= chunk or B % chunk:
+            fn = None if noise_fn is None else (lambda i, shape: noise_fn(None, i, shape))
+            gen = generators[0] if generators else None
+            return self.rollout(params, z0, txt, pooled, sigmas, deterministic, num_steps,
+                                generator=gen, noise_fn=fn)
+        nc = B // chunk
+        if generators is not None and len(generators) != nc:
+            raise ValueError(f"{len(generators)} generators for {nc} chunks")
+        outs = []
+        for j in range(nc):
+            rows = slice(j * chunk, (j + 1) * chunk)
+            fn = None if noise_fn is None else (lambda i, shape, j=j: noise_fn(j, i, shape))
+            outs.append(self.rollout(
+                params, z0[rows], txt[rows], pooled[rows], sigmas, deterministic, num_steps,
+                generator=None if generators is None else generators[j], noise_fn=fn))
+        return RolloutOutput(
+            final_latents=torch.cat([o.final_latents for o in outs]),
+            all_latents=torch.cat([o.all_latents for o in outs]),
+            all_log_probs=torch.cat([o.all_log_probs for o in outs]),
+            step_valid=outs[0].step_valid,
         )

@@ -1,0 +1,65 @@
+"""Printing and training metrics.
+
+Port of mixgrpo_tpu/utils/logging.py: ``main_print`` and ``MetricLogger``
+(a JSONL file of metrics per step, a rolling step-time average over the last
+100 steps, and wandb when the package is present and a key is given).  The
+port runs one process, so the process-0 gates of JAX are always open.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import time
+from typing import Dict, Optional
+
+
+def main_print(*args, **kwargs) -> None:
+    print(*args, **kwargs)
+
+
+class MetricLogger:
+    def __init__(self, output_dir: str, run_name: str = "run",
+                 wandb_key: Optional[str] = None, wandb_project: str = "mixgrpo_tpu",
+                 resume_id: Optional[str] = None):
+        self._wandb = None
+        self._step_times = collections.deque(maxlen=100)
+        self._last_tick: Optional[float] = None
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, f"{run_name}_metrics.jsonl")
+        self._f = open(self.path, "a")
+        if wandb_key:
+            try:
+                import wandb
+            except ImportError:
+                print("wandb disabled: the package is not installed")
+            else:
+                wandb.login(key=wandb_key)
+                self._wandb = wandb.init(project=wandb_project, name=run_name, id=resume_id,
+                                         resume="allow" if resume_id else None)
+
+    def tick(self) -> Dict[str, float]:
+        """Record a step boundary; returns step_time / avg_step_time."""
+        now = time.time()
+        out = {}
+        if self._last_tick is not None:
+            dt = now - self._last_tick
+            self._step_times.append(dt)
+            out = {"step_time": dt,
+                   "avg_step_time": sum(self._step_times) / len(self._step_times)}
+        self._last_tick = now
+        return out
+
+    def log(self, step: int, metrics: Dict) -> None:
+        clean = {k: (float(v) if hasattr(v, "__float__") else v) for k, v in metrics.items()}
+        clean["step"] = step
+        self._f.write(json.dumps(clean) + "\n")
+        self._f.flush()
+        if self._wandb is not None:
+            self._wandb.log(clean, step=step)
+
+    def close(self) -> None:
+        self._f.close()
+        if self._wandb is not None:
+            self._wandb.finish()

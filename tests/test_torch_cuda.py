@@ -1,5 +1,7 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
-plain PyTorch versions, and the model path through them.
+plain PyTorch versions (the forward with and without lse, the fused, dkv and
+dq backward kernels), what they refuse, and the model and update paths
+through them.
 
 Every test carries the ``cuda`` marker and skips without a card.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -12,7 +14,14 @@ import torch
 
 from mixgrpo_tpu_torch.models.flux import model as M
 from mixgrpo_tpu_torch.ops import flash_attention as FA
+from mixgrpo_tpu_torch.rl.ppo import PPOConfig
 from mixgrpo_tpu_torch.sample import DualFluxPipeline
+from mixgrpo_tpu_torch.sampler import FluxSampler, quantized_timestep
+from mixgrpo_tpu_torch.solvers.rollout import SamplerConfig
+from mixgrpo_tpu_torch.solvers.schedule import sigma_schedule
+from mixgrpo_tpu_torch.trainer import (
+    UpdateBatch, make_optimizer, make_update_fns, recompute_log_prob,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +116,154 @@ def test_kernel_reads_projection_views(dev, layout):
     got = FA.flash_attention(q, k, v, layout=layout)
     want = FA.flash_attention_reference(q, k, v, layout=layout)
     assert_close_bf16(got, want, S)
+
+
+def assert_close_grad(got, want):
+    """A backward kernel's bf16 output against its plain version: both round
+    p and ds to bf16 before their products and the outputs to bf16, so they
+    differ by p landing on another bf16 neighbour after exp and by sums in
+    another order: relative L2 <= 1e-2 and |got - want| <= 5e-2 max|want|
+    (as in chip_smoke.py; measured on an H100 about 2e-4 relative L2)."""
+    diff = got.float() - want.float()
+    assert torch.isfinite(got).all()
+    assert diff.norm() / want.float().norm() <= 1e-2
+    assert diff.abs().max() <= 5e-2 * want.float().abs().max()
+
+
+def _training_inputs(dev, layout, D, B=2, H=3, S=130, Sk=201, seed=1):
+    g = torch.Generator(dev).manual_seed(seed)
+    shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
+    q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16() for s in (S, Sk, Sk))
+    do = torch.randn(shp(S), generator=g, device=dev).bfloat16()
+    mask = torch.rand((B, Sk), generator=g, device=dev) > 0.3
+    mask[:, 0] = True
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_training_kernels_match_plain(dev, layout, D):
+    """The forward with lse, and the fused, dkv and dq backward kernels
+    (each fed the kernel forward's o and lse, as is its plain version),
+    ragged S/Sk, with no mask, a key mask and kv_valid; lse within 1e-3,
+    o by ``assert_close_bf16``, dq/dk/dv by ``assert_close_grad``."""
+    q, k, v, do, mask = _training_inputs(dev, layout, D)
+    B, Sk = q.shape[0], k.shape[1 if layout == "bshd" else 2]
+    qs = FA._scaled_q(q)
+    for kbias, kv_len in ((None, None), (FA._key_bias(mask, B, Sk), None), (None, 150)):
+        kw = dict(kbias=kbias, kv_len=kv_len, layout=layout)
+        o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
+        o_ref, lse_ref = FA.flash_attention_fwd_lse_reference(qs, k, v, **kw)
+        assert_close_bf16(o, o_ref, kv_len or Sk)
+        assert (lse - lse_ref).abs().max() <= 1e-3
+        want = FA.flash_attention_bwd_reference(qs, k, v, o, lse, do, **kw)
+        fused = FA.flash_attn_bwd_fused(qs, k, v, o, lse, do, **kw)
+        dk, dv = FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw)
+        dq = FA.flash_attn_bwd_dq(qs, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for got, w in zip((*fused, dq, dk, dv), (*want, *want)):
+            assert_close_grad(got, w)
+
+
+def test_dkv_writes_zeros_past_kv_len(dev):
+    """Key tiles at or past kv_len get zero dk and dv (the outputs come from
+    torch.empty, so the kernel must write them)."""
+    q, k, v, do, _ = _training_inputs(dev, "bhsd", 64, S=100, Sk=300)
+    qs = FA._scaled_q(q)
+    o, lse = FA.flash_attn_fwd_lse(qs, k, v, kv_len=70)
+    for dk, dv in (FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, kv_len=70),
+                   FA.flash_attn_bwd_fused(qs, k, v, o, lse, do, kv_len=70)[1:]):
+        assert (dk[:, :, 70:] == 0).all() and (dv[:, :, 70:] == 0).all()
+        assert dk[:, :, :70].abs().sum() > 0
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_autograd_through_kernels(dev, bwd):
+    """``flash_attention`` under autograd launches the lse forward and the
+    ``bwd`` kernels, and its q, k, v grads match the plain backward (dq
+    carrying the 1/sqrt(D) scale, applied in bf16 as the wrapper's multiply
+    does)."""
+    q, k, v, do, _ = _training_inputs(dev, "bhsd", 128, S=160, Sk=160)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+    FA.flash_attention(qg, kg, vg, kv_valid=150, bwd=bwd).backward(do)
+    used = {n for n, f in FA.KERNEL_WRAPPERS.items() if f.launches != before[n]}
+    assert used == ({"flash_attn_fwd_lse", "flash_attn_bwd_fused"} if bwd == "fused" else
+                    {"flash_attn_fwd_lse", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"})
+    qs = FA._scaled_q(q)
+    o, lse = FA.flash_attention_fwd_lse_reference(qs, k, v, kv_len=150)
+    dqs, dk, dv = FA.flash_attention_bwd_reference(qs, k, v, o, lse, do, kv_len=150)
+    dq = dqs * torch.tensor(1.0 / 128 ** 0.5, dtype=q.dtype).item()
+    for got, want in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)):
+        assert_close_grad(got, want)
+
+
+def test_training_kernels_refuse_what_they_do_not_take(dev):
+    """No fallback in the backward either: wrong dtypes, head dims, lse
+    shapes or strides raise before any launch."""
+    q, k, v, do, _ = _training_inputs(dev, "bhsd", 64)
+    qs = FA._scaled_q(q)
+    o, lse = FA.flash_attn_fwd_lse(qs, k, v)
+    before = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+    bad = [
+        (TypeError, (qs.float(), k, v, o, lse, do)),  # fp32 q
+        (ValueError, (qs, k, v, o, lse[:, :, :-1], do)),  # lse of the wrong shape
+        (ValueError, (qs, k, v, o, lse.double(), do)),  # lse not f32
+        (ValueError, (qs, k, v, o, lse, do[..., ::2].contiguous())),  # do of another shape
+        (ValueError, (qs, k, v, o, lse, torch.cat([do, do], -1)[..., ::2])),  # strided
+        (ValueError, (qs.cpu(), k, v, o, lse, do)),  # two devices
+    ]
+    for fn in (FA.flash_attn_bwd_fused, FA.flash_attn_bwd_dkv, FA.flash_attn_bwd_dq):
+        for err, args in bad:
+            with pytest.raises(err):
+                fn(*args)
+    x = torch.randn((1, 2, 64, 80), device=dev).bfloat16()
+    with pytest.raises(ValueError):
+        FA.flash_attn_fwd_lse(x, x, x)  # head dim 80
+    assert {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()} == before
+
+
+def test_tiny_update_step_kernel_path_matches_eager(dev):
+    """One bf16 ``update_step`` of a tiny FLUX at a padded joint sequence
+    (S = 8 + 1024 -> 1152, kv_valid 1032) through the kernels vs through
+    eager attention, from the same weights, old log-probs recomputed by the
+    eager model (so the ratio is near 1): grad norms within 5e-2 relative
+    (bf16 attention in two different orders), finite losses, and both steps
+    move the parameters."""
+    cfg = M.FluxConfig.tiny()
+    sampler = FluxSampler(cfg, SamplerConfig(num_steps_max=4), height=512, width=512,
+                          text_len=8, device=dev)
+    g = torch.Generator(dev).manual_seed(3)
+    N, L = 2, sampler.num_image_tokens
+    x = torch.randn((N, L, cfg.in_channels), generator=g, device=dev)
+    nxt = x + 0.05 * torch.randn(x.shape, generator=g, device=dev)
+    txt = torch.randn((N, 8, cfg.context_dim), generator=g, device=dev).bfloat16()
+    pooled = torch.randn((N, cfg.pooled_dim), generator=g, device=dev).bfloat16()
+    t_index = torch.tensor([0, 2], device=dev)
+    sig = torch.as_tensor(sigma_schedule(4, 3.0), device=dev)
+    make = lambda: M.init_flux(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    with torch.no_grad():
+        t = quantized_timestep(sig[t_index])
+        pred = M.flux_forward(make(), cfg, x.bfloat16(), txt, pooled, t,
+                              torch.full((N,), 3.5, device=dev), sampler.rope_cos,
+                              sampler.rope_sin, attn_impl="eager")
+        old = recompute_log_prob(sampler.sampler_cfg, pred, x, nxt, sig, t_index)
+    batch = UpdateBatch(latents=x, next_latents=nxt, t_index=t_index, old_log_probs=old,
+                        advantages=torch.tensor([1.0, -1.0], device=dev), txt=txt,
+                        pooled=pooled)
+    out = {}
+    for impl in ("flash", "eager"):
+        params = make()
+        before = M.param_leaves(params)[0].detach().clone()
+        opt = make_optimizer(learning_rate=1e-4)
+        step, _, _ = make_update_fns(cfg, sampler.sampler_cfg, PPOConfig(clip_range=0.2), opt,
+                                     sampler.rope_cos, sampler.rope_sin, attn_impl=impl,
+                                     remat=True)
+        launched = FA.flash_attn_bwd_fused.launches
+        params, _, m = step(params, opt.init(params), batch, sig)
+        assert (FA.flash_attn_bwd_fused.launches > launched) == (impl == "flash")
+        assert not torch.equal(before, M.param_leaves(params)[0])
+        out[impl] = {k: float(v) for k, v in m.items()}
+    assert all(torch.isfinite(torch.tensor(list(o.values()))).all() for o in out.values())
+    assert abs(out["flash"]["grad_norm"] - out["eager"]["grad_norm"]) <= \
+        5e-2 * out["eager"]["grad_norm"]

@@ -22,7 +22,9 @@ def _port_files():
 def test_port_package_is_present():
     files = _port_files()
     assert os.path.exists(os.path.join(ROOT, "chip_smoke.py"))
-    assert "mixgrpo_tpu_torch/ops/flash_attention.py" in files
+    for module in ("ops/flash_attention.py", "trainer.py", "train.py", "config.py",
+                   "rl/advantage.py", "utils/checkpoint.py", "data/dataset.py"):
+        assert f"mixgrpo_tpu_torch/{module}" in files
 
 
 @pytest.mark.parametrize("path", _port_files())
