@@ -38,9 +38,11 @@ Exits 2 without a CUDA card; without the package beside it the import fails.
 
 from __future__ import annotations
 
+import ctypes
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -87,6 +89,37 @@ def attention_bound_ms(B, H, S, Sk, kv_len, D, bias):
     nbytes = 2 * B * H * D * (2 * S + 2 * Sk) + (4 * B * Sk if bias else 0)
     by_ops, by_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(by_ops, by_bytes) * 1e3, ("operations" if by_ops >= by_bytes else "bytes")
+
+
+# ptxas report lines kept in the build record: registers, spills, the
+# function being compiled, and any wgmma serialisation or performance warning
+PTXAS_KEEP = ("registers", "spill", "Compiling", "wgmma", "Performance Loss", "serializ")
+
+
+def check_ptxas(report, kernel):
+    """Raise unless ptxas compiled ``kernel`` (a substring of its mangled
+    name) with no spill and no wgmma serialisation or performance-loss
+    warning.  Warnings that name a function are charged to it, others to the
+    function being compiled when they appear."""
+    lines, cur = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        named = re.search(r"(?:for|function) '?(_Z\w+)", ln)
+        key = named.group(1) if named else cur
+        if key is not None and any(w in ln for w in PTXAS_KEEP):
+            lines.setdefault(key, []).append(ln.strip())
+    mine = {n: ls for n, ls in lines.items() if kernel in n}
+    bad = [ln for ls in mine.values() for ln in ls
+           if "Performance Loss" in ln or "serializ" in ln
+           or re.search(r"[1-9]\d* bytes spill", ln)]
+    emit({"phase": "ptxas_check", "kernel": kernel, "functions": len(mine),
+          "findings": bad, "ok": bool(mine) and not bad})
+    if not mine or bad:
+        raise AssertionError(f"ptxas: {kernel} missing from the report, or it spills or "
+                             f"serialises wgmma: {bad}")
 
 
 def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=False,
@@ -190,14 +223,16 @@ def train_bound_ms(kind, B, H, S, Sk, kv_len, D, bias):
 
 
 def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
-                           mask=False, kv_valid=None, timed=(), seed=0, cb=None):
+                           mask=False, kv_valid=None, timed=(), seed=0, cb=None,
+                           backward=True):
     """The forward with lse, the fused backward and the split backward (dkv,
     dq) against their plain versions on one bf16 shape; raises on
     disagreement.  Each backward kernel gets the kernel forward's o and lse,
     as does its plain version, so each comparison isolates one kernel.
     Tolerances: o as in ``check_attention``; lse within 1e-3 (f32, exp
     approximated by ex2.approx); dq, dk, dv by ``close_bf16``.  ``timed``
-    names the kernels to time at this shape."""
+    names the kernels to time at this shape; ``backward=False`` checks the
+    forward with lse alone."""
     g = torch.Generator(dev).manual_seed(seed)
     shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
     q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16() for s in (S, Sk, Sk))
@@ -228,6 +263,11 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
                                       max_abs_err=diff.abs().max().item(), rel_l2=rel,
                                       lse_max_abs_err=lse_err)
     del o_ref, lse_ref, diff
+    if not backward:
+        emit(recs["flash_attn_fwd_lse"])
+        if not ok:
+            raise AssertionError(f"kernel disagrees with its plain version: {recs}")
+        return recs
 
     args = (qs, k, v, o, lse, do)
     kw = dict(kbias=kbias, kv_len=kv_len, layout=layout)
@@ -446,7 +486,8 @@ def profile_forward(torch, M, params, cfg, dev, card):
 
 def kernel_phase(torch, FA, F, dev, rows):
     """Every kernel against its plain version: small ragged shapes (D 32, 64,
-    128; both layouts; a key mask; kv_valid; S != Sk), then the shapes of the
+    128; both layouts; a key mask; kv_valid; S != Sk) and the forward's tile
+    edges (with and without lse), then the shapes of the
     main paths, timed: the forward without lse at the serving shape (B=2,
     S=4608), the forward with lse and the fused backward at the 720px update
     (B=12, S=2560, kv_valid 2537), dkv and dq at the 1024px update (B=2,
@@ -460,6 +501,18 @@ def kernel_phase(torch, FA, F, dev, rows):
             B, H, S, Sk = (kw.pop(n) for n in ("B", "H", "S", "Sk"))
             check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
             check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, **kw)
+        # the forward's tile edges (128-row q tiles, 128-key tiles): one query
+        # row, one key, fewer keys than a tile, kv_valid one key into a tile
+        # (129), S not a multiple of the q tile
+        for kw in (dict(B=1, H=2, S=1, Sk=77), dict(B=1, H=1, S=1, Sk=1),
+                   dict(B=2, H=2, S=65, Sk=40, layout="bshd"),
+                   dict(B=2, H=2, S=65, Sk=40, mask=True),
+                   dict(B=1, H=2, S=70, Sk=200, kv_valid=129),
+                   dict(B=2, H=3, S=191, Sk=130, layout="bshd", kv_valid=65)):
+            kw = dict(kw)
+            B, H, S, Sk = (kw.pop(n) for n in ("B", "H", "S", "Sk"))
+            check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
+            check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, backward=False, **kw)
     full = []
     for B in (1, 2):
         for S, kv_valid in ((1536, None), (2560, 2537), (4608, None)):
@@ -853,10 +906,15 @@ def main() -> int:
         emit({"phase": "build", "library": name, "source": f"mixgrpo_tpu_torch/csrc/{name}.cu",
               "seconds_all": time.perf_counter() - t0,
               "ptxas": [ln.strip() for ln in report.splitlines()
-                        if "registers" in ln or "spill" in ln or "Compiling" in ln]})
+                        if any(w in ln for w in PTXAS_KEEP)]})
+    smem = build.load(FA.KERNEL).flash_attn_fwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    emit({"phase": "kernel_resources", "kernel": FA.KERNEL,
+          "smem_bytes_per_block": {D: smem(D) for D in (32, 64, 128)}})
     rows = {}
 
     if "kernels" in only:
+        check_ptxas(build.reports.get(FA.KERNEL, ""), "flash_fwd_kernelILi128E")
         kernel_phase(torch, FA, F, dev, rows)
     if "serve" in only:
         serve_phase(torch, FA, F, M, dev, card, rows)

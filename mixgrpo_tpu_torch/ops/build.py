@@ -5,8 +5,9 @@ plain C interface (it may include the shared ``csrc/*.cuh`` headers).  At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 under ``mixgrpo_tpu_torch/csrc/build/`` (named by a hash of the source and the
 headers, so an edited file is rebuilt) and loaded with ``ctypes``.  ptxas's
-report (registers, shared memory, spills per kernel) of a build made in this
-process is kept in ``reports``.  The JAX
+report (registers, shared memory, spills and wgmma warnings per kernel) is
+written beside the library as ``<library>.ptxas.txt`` and kept in ``reports``
+once the library is loaded.  The JAX
 package has no counterpart: XLA compiled its Pallas kernels.
 
 Nothing here runs at import time: the CPU tests import every module, and a
@@ -58,7 +59,7 @@ def library_path(name: str) -> str:
 
 def _compile(name: str, out: str) -> None:
     """nvcc the source into ``out``; on failure raise with nvcc's and
-    ptxas's full report, on success keep it in ``reports``."""
+    ptxas's full report, on success write it beside ``out``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -69,8 +70,9 @@ def _compile(name: str, out: str) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
+    with open(out + ".ptxas.txt", "w") as f:
+        f.write(proc.stdout)
     os.replace(tmp, out)
-    reports[name] = proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -83,4 +85,7 @@ def load(name: str) -> ctypes.CDLL:
                 _compile(name, out)
             lib = ctypes.CDLL(out)
             _loaded[name] = lib
+            if os.path.exists(out + ".ptxas.txt"):
+                with open(out + ".ptxas.txt") as f:
+                    reports[name] = f.read()
         return lib

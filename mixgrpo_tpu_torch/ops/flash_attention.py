@@ -15,8 +15,10 @@ The kernels are ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
 designs and the bounds.  Each wrapper counts its launches in ``.launches``.
 
 Contract (as in the JAX package):
-  - layouts ``"bhsd"`` (B, H, S, D) and ``"bshd"`` (B, S, H, D); the kernels
-    take element strides, so neither layout is transposed or padded;
+  - layouts ``"bhsd"`` (B, H, S, D) and ``"bshd"`` (B, S, H, D); the forward
+    reads q, k and v through TMA tensor maps over (D, S, H, B) with the
+    tensors' byte strides (``_tma_geometry``), the backward through element
+    strides, so neither layout is transposed or padded;
   - the 1/sqrt(D) softmax scale is folded into q in q's dtype before the
     kernels, which apply none; the backward's dq is taken with respect to the
     scaled q, and autograd of ``_scaled_q``'s multiply restores the scale;
@@ -46,6 +48,7 @@ KERNEL = "flash_attn_fwd"  # the forward's library (both variants)
 BWD_KERNEL = "flash_attn_bwd"  # the backward's library (fused, dkv, dq)
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _BWD_MODES = {"dkv": 0, "fused": 1, "dq": 2}
+_ENCODE_ERROR = 10000  # the forward returns this + the CUresult of a failed map encode
 
 
 def _shape_of(x, layout):
@@ -273,6 +276,28 @@ def _aligned(t, layout):
     return t.stride(-1) == 1 and all(st % 8 == 0 for st in used) and t.data_ptr() % 16 == 0
 
 
+def _tma_geometry(t, layout):
+    """The forward kernel's TMA view of ``t``: its dims (D, S, H, B),
+    innermost first, and the byte strides of the S, H and B axes.
+
+    TMA needs a 16-byte-aligned base, a contiguous last axis and strides that
+    are multiples of 16 bytes.  A size-1 axis is never stepped along, and
+    torch leaves its stride free, so it gets the stride a contiguous (B, H,
+    S, D) tensor would have.  Raises ValueError on anything else."""
+    B, H, S, D = _shape_of(t, layout)
+    dims = (D, S, H, B)
+    item = t.element_size()
+    packed, strides = D * item, []
+    for n, st in zip((S, H, B), _strides_of(t, layout)[::-1]):
+        strides.append(st * item if n > 1 else packed)
+        packed *= n
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(st % 16 or st <= 0 for st in strides):
+        raise ValueError(f"TMA needs a contiguous last axis, a 16-byte-aligned base and "
+                         f"16-byte-multiple strides; got strides {t.stride()} at "
+                         f"offset {t.data_ptr() % 16} mod 16")
+    return dims, tuple(strides)
+
+
 def _check_kernel_inputs(name, layout, kbias, kv_len, **tensors):
     """Raise on anything the kernels do not take: non-CUDA tensors or tensors
     on two devices, another dtype than bf16, a head dim outside 32/64/128,
@@ -319,14 +344,17 @@ def _launch_fwd(name, q, k, v, kbias, kv_len, layout, with_lse):
                                                   q=q, k=k, v=v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+    geom = [x for t in (q, k, v) for part in _tma_geometry(t, layout) for x in part]
     lib = _library(KERNEL)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), _ptr(kbias),
-            *_strides_of(q, layout), *_strides_of(k, layout),
-            *_strides_of(v, layout), *_strides_of(o, layout),
+            (ctypes.c_int64 * 21)(*geom), *_strides_of(o, layout),
             B, H, S, Sk, D, kv_len, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{err - _ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return o, lse
@@ -415,8 +443,8 @@ def _library(name):
     lib = build.load(name)
     if name == KERNEL:
         fn = lib.flash_attn_fwd
-        argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 12
-                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int64)]
+                    + [ctypes.c_int64] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     else:
         fn = lib.flash_attn_bwd
         argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10

@@ -48,22 +48,33 @@ def dev():
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_kernel_matches_plain(dev, layout, D):
-    """bf16 kernel vs its plain version, ragged S/Sk, with no mask, a key
-    mask and kv_valid; tolerance of ``assert_close_bf16``."""
+    """bf16 forward kernel, without and with lse, vs its plain version at
+    ragged S/Sk and at the edges of its 128-row query and 128-key tiles (S = 1,
+    Sk below one key tile, kv_valid one key into a tile, S not a multiple of
+    the q tile), with no mask, a key mask and kv_valid; o by
+    ``assert_close_bf16``, lse within 1e-3."""
     g = torch.Generator(dev).manual_seed(0)
-    B, H, S, Sk = 2, 3, 130, 201
+    B, H = 2, 3
     shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
-    q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16()
-               for s in (S, Sk, Sk))
-    mask = torch.rand((B, Sk), generator=g, device=dev) > 0.3
-    mask[:, 0] = True
-    for kw in ({}, {"mask": mask}, {"kv_valid": 150}):
-        before = FA.flash_attn_fwd.launches
-        got = FA.flash_attention(q, k, v, layout=layout, **kw)
-        torch.cuda.synchronize()
-        assert FA.flash_attn_fwd.launches == before + 1
-        want = FA.flash_attention_reference(q, k, v, layout=layout, **kw)
-        assert_close_bf16(got, want, kw.get("kv_valid", Sk))
+    for S, Sk, kv_valid in ((130, 201, 150), (1, 77, 65), (65, 40, 1), (70, 200, 129)):
+        q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16()
+                   for s in (S, Sk, Sk))
+        mask = torch.rand((B, Sk), generator=g, device=dev) > 0.3
+        mask[:, 0] = True
+        for kw in ({}, {"mask": mask}, {"kv_valid": kv_valid}):
+            before = FA.flash_attn_fwd.launches
+            got = FA.flash_attention(q, k, v, layout=layout, **kw)
+            torch.cuda.synchronize()
+            assert FA.flash_attn_fwd.launches == before + 1
+            want = FA.flash_attention_reference(q, k, v, layout=layout, **kw)
+            kv_len = kw.get("kv_valid", Sk)
+            assert_close_bf16(got, want, kv_len)
+            kbias = FA._key_bias(mask, B, Sk) if "mask" in kw else None
+            lw = dict(kbias=kbias, kv_len=kv_len, layout=layout)
+            o, lse = FA.flash_attn_fwd_lse(FA._scaled_q(q), k, v, **lw)
+            o_ref, lse_ref = FA.flash_attention_fwd_lse_reference(FA._scaled_q(q), k, v, **lw)
+            assert_close_bf16(o, o_ref, kv_len)
+            assert (lse - lse_ref).abs().max() <= 1e-3
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):

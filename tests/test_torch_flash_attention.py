@@ -142,3 +142,67 @@ def test_kernel_strides_follow_layout():
     bhsd = q.transpose(1, 2)
     assert FA._strides_of(bhsd, "bhsd") == (S * 3 * H * D, D, 3 * H * D)
 
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_tma_geometry_contiguous(layout):
+    """A contiguous tensor of either layout: dims (D, S, H, B) and the byte
+    strides of its S, H and B axes, in bf16."""
+    B, H, S, D = 2, 3, 5, 64
+    shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
+    t = torch.zeros(shape, dtype=torch.bfloat16)
+    dims, strides = FA._tma_geometry(t, layout)
+    assert dims == (D, S, H, B)
+    if layout == "bshd":
+        assert strides == (2 * H * D, 2 * D, 2 * S * H * D)
+    else:
+        assert strides == (2 * D, 2 * S * D, 2 * H * S * D)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_tma_geometry_projection_view(layout):
+    """q as the model makes it: a view into one packed qkv projection (and,
+    in the single block, into the wider qkv+mlp one): the sequence stride is
+    the packed row, no copy."""
+    B, S, H, D, mlp = 2, 7, 4, 128, 3 * 4 * 128
+    proj = torch.zeros((B, S, 3 * H * D + mlp), dtype=torch.bfloat16)
+    row = 3 * H * D + mlp
+    for i in range(3):
+        t = proj[..., i * H * D:(i + 1) * H * D].reshape(B, S, H, D)
+        if layout == "bhsd":
+            t = t.transpose(1, 2)
+        dims, strides = FA._tma_geometry(t, layout)
+        assert dims == (D, S, H, B)
+        assert strides == (2 * row, 2 * D, 2 * S * row)
+
+
+def test_tma_geometry_size_one_axis():
+    """A size-1 axis is never stepped along and torch leaves its stride free:
+    it gets the stride of a packed (B, H, S, D) tensor, which TMA accepts."""
+    B, H, S, D = 1, 1, 1, 32
+    t = torch.zeros((B, S, H, 3 * D), dtype=torch.bfloat16)[..., :D]
+    weird = t.as_strided((B, H, S, D), (7, 3, 5, 1))
+    for x, layout in ((t.transpose(1, 2), "bhsd"), (t, "bshd"), (weird, "bhsd")):
+        dims, strides = FA._tma_geometry(x, layout)
+        assert dims == (D, 1, 1, 1)
+        assert strides == (2 * D, 2 * D, 2 * D)
+    # only the size-1 axes are replaced
+    x = torch.zeros((1, 2, 1, 3 * D), dtype=torch.bfloat16)[..., :D]  # (B, H, S, D), S = 1
+    assert FA._tma_geometry(x, "bhsd") == ((D, 1, 2, 1), (2 * D, 2 * 3 * D, 2 * 2 * D))
+
+
+@pytest.mark.parametrize("case", ["offset", "row_stride", "strided_last"])
+def test_tma_geometry_refuses_misaligned(case):
+    """TMA's rules: a 16-byte-aligned base, byte strides that are multiples
+    of 16 and a contiguous last axis; anything else raises, and the forward's
+    wrapper raises before any launch."""
+    D = 64
+    flat = torch.zeros(2 * 3 * 8 * 2 * D + 8, dtype=torch.bfloat16)
+    if case == "offset":  # base 2 bytes past an aligned address
+        t = flat[1:1 + 2 * 3 * 8 * D].view(2, 3, 8, D)
+    elif case == "row_stride":  # rows of D + 1 elements: 130 bytes apart
+        t = flat[:2 * 3 * 8 * (D + 1)].view(2, 3, 8, D + 1)[..., :D]
+    else:
+        t = flat[:2 * 3 * 8 * 2 * D].view(2, 3, 8, 2 * D)[..., ::2]
+    with pytest.raises(ValueError, match="TMA"):
+        FA._tma_geometry(t, "bhsd")
