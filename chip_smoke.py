@@ -10,13 +10,16 @@ a non-zero exit code.  Phases:
 2. build: every hand-written kernel library compiled from
    ``mixgrpo_tpu_torch/csrc`` (one ``nvcc`` per source, all started
    together), with ptxas's register and spill report;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   small ragged shapes and at the shapes of the main paths (the forward
+3. kernels: ptxas's report of the D = 128 forward and dkv kernels (no
+   spill, no wgmma serialisation); each kernel against its plain PyTorch
+   version on the card, at small ragged shapes, at the tile edges of the
+   forward and dkv, and at the shapes of the main paths (the forward
    without lse at the serving shape, the forward with lse and the fused
-   backward at the 720px update, dkv and dq at the 1024px update), with its
-   time, the plain version's time, the card's bound for the same work and
-   one PyTorch library call's time as a yardstick (never used by the port);
-   then autograd through the kernels;
+   backward at the 720px update, where the split pair is timed too, dkv
+   and dq at the 1024px update), with its time, the plain version's time,
+   the card's bound for the same work and one PyTorch library call's time
+   as a yardstick (never used by the port); dkv launched twice must give
+   identical outputs; then autograd through the kernels;
 4. serve: the first slice's path at full FLUX.1-dev width and depth with
    random bf16 weights (``DualFluxPipeline`` at 1024x1024, 4 steps, behind
    ``RequestBatcher`` and ``InferenceServer``; then one 720px call), the
@@ -178,17 +181,25 @@ def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=Fa
     return rec
 
 
-def close_bf16(got, want, rel_lim=1e-2, frac=5e-2):
+def close_bf16(got, want, rel_lim=1e-2, frac=5e-2, zero_atol=1e-4):
     """(ok, max_abs_err, rel_l2) of a kernel's bf16 output against its plain
     version: relative L2 <= ``rel_lim`` and |got - want| <= ``frac`` *
     max|want| everywhere.  Both versions round p and ds to bf16 before their
     products, and the outputs to bf16; the residue is p rounding to another
     bf16 neighbour after exp and sums in another order (a few ulps on some
-    terms), so the expected relative L2 is a few 1e-3, as in the forward."""
+    terms), so the expected relative L2 is a few 1e-3, as in the forward.
+
+    Where the plain version is itself no larger than ``zero_atol`` (dk with
+    a single key: a softmax over one key has no gradient, and ds = p (dp -
+    delta) is the difference of two equal sums of D products), both are
+    f32 rounding noise (about D * 2^-24 * |q|, some 1e-7) with no relative
+    error, so |got - want| <= ``zero_atol``."""
     diff = got.float() - want.float()
     err = diff.abs().max().item()
     scale = want.float().abs().max().item()
-    rel = (diff.norm() / want.float().norm().clamp_min(1e-30)).item()
+    if scale <= zero_atol:
+        return bool(got.isfinite().all()) and err <= zero_atol, err, 0.0
+    rel = (diff.norm() / want.float().norm()).item()
     ok = bool(got.isfinite().all()) and rel <= rel_lim and err <= frac * scale
     return ok, err, rel
 
@@ -222,17 +233,22 @@ def train_bound_ms(kind, B, H, S, Sk, kv_len, D, bias):
     return max(by_ops, by_bytes) * 1e3, ("operations" if by_ops >= by_bytes else "bytes")
 
 
+BWD_KERNELS = ("flash_attn_bwd_fused", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+
+
 def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
                            mask=False, kv_valid=None, timed=(), seed=0, cb=None,
-                           backward=True):
-    """The forward with lse, the fused backward and the split backward (dkv,
-    dq) against their plain versions on one bf16 shape; raises on
-    disagreement.  Each backward kernel gets the kernel forward's o and lse,
-    as does its plain version, so each comparison isolates one kernel.
-    Tolerances: o as in ``check_attention``; lse within 1e-3 (f32, exp
-    approximated by ex2.approx); dq, dk, dv by ``close_bf16``.  ``timed``
-    names the kernels to time at this shape; ``backward=False`` checks the
-    forward with lse alone."""
+                           backward=BWD_KERNELS):
+    """The forward with lse and the backward kernels named in ``backward``
+    (default: the fused one and the split pair, dkv and dq) against their
+    plain versions on one bf16 shape; raises on disagreement.  Each backward
+    kernel gets the kernel forward's o and lse, as does its plain version,
+    so each comparison isolates one kernel.  Tolerances: o as in
+    ``check_attention``; lse within 1e-3 (f32, exp approximated by
+    ex2.approx); dq, dk, dv by ``close_bf16``.  dkv has no atomics, so a
+    second launch on the same inputs must give identical dk and dv
+    (``repeat_identical``).  ``timed`` names the kernels to time at this
+    shape; ``backward=()`` checks the forward with lse alone."""
     g = torch.Generator(dev).manual_seed(seed)
     shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
     q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16() for s in (S, Sk, Sk))
@@ -274,9 +290,11 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
     bwd_ref = lambda q_, k_, v_, o_, l_, d_, b_: FA.flash_attention_bwd_reference(
         q_, k_, v_, o_, l_, d_, kbias=b_, kv_len=kv_len, layout=layout)
     want = batch_chunks(torch, bwd_ref, B, cb, *args, kbias)
-    got = {"flash_attn_bwd_fused": FA.flash_attn_bwd_fused(*args, **kw),
-           "flash_attn_bwd_dkv": (None, *FA.flash_attn_bwd_dkv(*args, **kw)),
-           "flash_attn_bwd_dq": (FA.flash_attn_bwd_dq(*args, **kw), None, None)}
+    launch = {"flash_attn_bwd_fused": lambda: FA.flash_attn_bwd_fused(*args, **kw),
+              "flash_attn_bwd_dkv": lambda: (None, *FA.flash_attn_bwd_dkv(*args, **kw)),
+              "flash_attn_bwd_dq": lambda: (FA.flash_attn_bwd_dq(*args, **kw), None, None)}
+    got = {name: launch[name]() for name in backward}
+    repeat = launch["flash_attn_bwd_dkv"]()[1:] if "flash_attn_bwd_dkv" in got else None
     torch.cuda.synchronize()
     for name, outs in got.items():
         rec = dict(base, kernel=name, ok=True, max_abs_err=0.0, rel_l2=0.0)
@@ -289,7 +307,12 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
             rec["rel_l2"] = max(rec["rel_l2"], rel)
             rec[f"{label}_rel_l2"] = rel
         recs[name] = rec
-    del got, want
+    if repeat is not None:
+        rec = recs["flash_attn_bwd_dkv"]
+        rec["repeat_identical"] = all(torch.equal(x, y) for x, y in
+                                      zip(got["flash_attn_bwd_dkv"][1:], repeat))
+        rec["ok"] &= rec["repeat_identical"]
+    del got, want, repeat
 
     if timed:
         bias = kbias is not None
@@ -486,12 +509,13 @@ def profile_forward(torch, M, params, cfg, dev, card):
 
 def kernel_phase(torch, FA, F, dev, rows):
     """Every kernel against its plain version: small ragged shapes (D 32, 64,
-    128; both layouts; a key mask; kv_valid; S != Sk) and the forward's tile
-    edges (with and without lse), then the shapes of the
+    128; both layouts; a key mask; kv_valid; S != Sk) and the tile edges of
+    the forward (with and without lse) and of dkv, then the shapes of the
     main paths, timed: the forward without lse at the serving shape (B=2,
-    S=4608), the forward with lse and the fused backward at the 720px update
-    (B=12, S=2560, kv_valid 2537), dkv and dq at the 1024px update (B=2,
-    S=4608); then autograd through the kernels on the card."""
+    S=4608), the forward with lse, the fused backward and, to compare with
+    it, the split pair (dkv, dq) at the 720px update (B=12, S=2560, kv_valid
+    2537), dkv and dq at the 1024px update (B=2, S=4608); then autograd
+    through the kernels on the card."""
     for D in (32, 64, 128):
         for kw in (dict(B=1, H=2, S=100, Sk=77), dict(B=2, H=3, S=130, Sk=201, layout="bshd"),
                    dict(B=1, H=2, S=130, Sk=200, mask=True),
@@ -501,18 +525,22 @@ def kernel_phase(torch, FA, F, dev, rows):
             B, H, S, Sk = (kw.pop(n) for n in ("B", "H", "S", "Sk"))
             check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
             check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, **kw)
-        # the forward's tile edges (128-row q tiles, 128-key tiles): one query
-        # row, one key, fewer keys than a tile, kv_valid one key into a tile
-        # (129), S not a multiple of the q tile
+        # the tile edges of the forward (128-row q tiles, 128-key tiles) and
+        # of dkv (128-key blocks, 64-row q tiles): one query row, one key,
+        # fewer keys than a tile, kv_valid one key into a tile (129), S not a
+        # multiple of the q tile, key blocks wholly past kv_valid (zeros out)
         for kw in (dict(B=1, H=2, S=1, Sk=77), dict(B=1, H=1, S=1, Sk=1),
                    dict(B=2, H=2, S=65, Sk=40, layout="bshd"),
                    dict(B=2, H=2, S=65, Sk=40, mask=True),
                    dict(B=1, H=2, S=70, Sk=200, kv_valid=129),
-                   dict(B=2, H=3, S=191, Sk=130, layout="bshd", kv_valid=65)):
+                   dict(B=2, H=3, S=191, Sk=130, layout="bshd", kv_valid=65),
+                   dict(B=1, H=2, S=100, Sk=300, mask=True),
+                   dict(B=2, H=2, S=129, Sk=300, kv_valid=100)):
             kw = dict(kw)
             B, H, S, Sk = (kw.pop(n) for n in ("B", "H", "S", "Sk"))
             check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
-            check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, backward=False, **kw)
+            check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D,
+                                   backward=("flash_attn_bwd_dkv",), **kw)
     full = []
     for B in (1, 2):
         for S, kv_valid in ((1536, None), (2560, 2537), (4608, None)):
@@ -524,9 +552,15 @@ def kernel_phase(torch, FA, F, dev, rows):
                       and r["layout"] == "bhsd")
     rows["flash_attn_fwd"] = dict(main_shape, max_abs_err=max(r["max_abs_err"] for r in full))
     t720 = check_training_kernels(torch, FA, F, dev, 12, 24, 2560, 2560, 128, kv_valid=2537,
-                                  timed=("flash_attn_fwd_lse", "flash_attn_bwd_fused"), cb=2)
+                                  timed=("flash_attn_fwd_lse", *BWD_KERNELS), cb=2)
+    split = t720["flash_attn_bwd_dkv"]["ms"] + t720["flash_attn_bwd_dq"]["ms"]
+    emit({"phase": "fused_vs_split", "B": 12, "H": 24, "S": 2560, "kv_valid": 2537, "D": 128,
+          "fused_ms": t720["flash_attn_bwd_fused"]["ms"],
+          "dkv_ms": t720["flash_attn_bwd_dkv"]["ms"], "dq_ms": t720["flash_attn_bwd_dq"]["ms"],
+          "split_ms": split, "default_bwd": FA.default_bwd(2560, 2560)})
     t1024 = check_training_kernels(torch, FA, F, dev, 2, 24, 4608, 4608, 128,
                                    timed=("flash_attn_bwd_dkv", "flash_attn_bwd_dq"), cb=1)
+    # each kernel's row is at its main path's shape: dkv and dq at 1024px
     for name, rec in (*t720.items(), *t1024.items()):
         if "ms" in rec:
             rows[name] = dict(rec)
@@ -907,14 +941,18 @@ def main() -> int:
               "seconds_all": time.perf_counter() - t0,
               "ptxas": [ln.strip() for ln in report.splitlines()
                         if any(w in ln for w in PTXAS_KEEP)]})
-    smem = build.load(FA.KERNEL).flash_attn_fwd_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    emit({"phase": "kernel_resources", "kernel": FA.KERNEL,
-          "smem_bytes_per_block": {D: smem(D) for D in (32, 64, 128)}})
+    for kernel, lib, fn in (("flash_attn_fwd", FA.KERNEL, "flash_attn_fwd_smem_bytes"),
+                            ("flash_attn_bwd_dkv", FA.BWD_KERNEL,
+                             "flash_attn_bwd_dkv_smem_bytes")):
+        smem = getattr(build.load(lib), fn)
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        emit({"phase": "kernel_resources", "kernel": kernel,
+              "smem_bytes_per_block": {D: smem(D) for D in (32, 64, 128)}})
     rows = {}
 
     if "kernels" in only:
         check_ptxas(build.reports.get(FA.KERNEL, ""), "flash_fwd_kernelILi128E")
+        check_ptxas(build.reports.get(FA.BWD_KERNEL, ""), "flash_dkv_kernelILi128E")
         kernel_phase(torch, FA, F, dev, rows)
     if "serve" in only:
         serve_phase(torch, FA, F, M, dev, card, rows)

@@ -68,9 +68,8 @@
 // ping-pong of the two warpgroups and the overlap of one tile's softmax with
 // the next tile's Q.K^T inside a warpgroup.
 //
-// cuTensorMapEncodeTiled is a driver API function: it is fetched at first use
-// with cudaGetDriverEntryPoint (its form with a cudaDriverEntryPointQueryResult
-// argument), so the library links only the CUDA runtime.
+// The tile geometry, mbarrier, TMA and wgmma helpers and the tensor-map
+// encoding are shared with the DKV backward kernel (flash_hopper.cuh).
 //
 // Plain C interface for ctypes: flash_attn_fwd(...) launches on `stream`,
 // allocates nothing, does not synchronise, and returns cudaGetLastError(),
@@ -82,6 +81,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -93,207 +93,17 @@ constexpr int kBlockN = 128;                   // keys per tile
 constexpr int kStages = 2;                     // depth of the K/V ring
 constexpr int kConsumers = 128 * kConsumerWGs;
 constexpr int kThreads = kConsumers + 128;     // + the producer warpgroup
-// setmaxnreg budgets: 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kEncodeError = 10000;
 static_assert(kBlockQ == kBlockN, "Q and K/V tiles share one box shape");
 
-// Shared-memory geometry of a 128-row, D-wide bf16 tile (Q, K or V) as TMA
-// writes it: kParts boxes of 128 rows x kBox columns, each row kRowBytes
-// long and swizzled in atoms of 8 rows.
 template <int D>
-struct Tile {
-  static constexpr int kBox = D < 64 ? D : 64;
-  static constexpr int kParts = D / kBox;
-  static constexpr int kRowBytes = kBox * 2;        // 128, or 64 at D = 32
-  static constexpr int kAtom = 8 * kRowBytes;       // 8 rows
-  static constexpr int kPartBytes = kBlockN * kRowBytes;
-  static constexpr int kBytes = kParts * kPartBytes;
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128 / B64
-  static constexpr CUtensorMapSwizzle kSwizzle =
-      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-};
+using KVTile = Tile<D, kBlockN>;  // Q, K and V tiles: 128 rows
 
 template <int D>
 constexpr int smem_bytes() {
   // 1024 bytes of slack to align the tiles to the swizzle atom, then
   // Q, K[kStages], V[kStages], then the barriers
-  return 1024 + (1 + 2 * kStages) * Tile<D>::kBytes + 8 * (1 + 3 * kStages);
-}
-
-// ---- mbarrier, TMA, wgmma ---------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map (coordinates innermost first) into shared
-// memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
-                                         int c1, int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle mode.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-// K-major operand (Q as A, K as B of S = Q.K^T), k16 step kk along D: inside
-// a swizzled row the step advances the start address by 32 bytes; past the
-// first 64 columns it moves to the next box.  SBO = one 8-row atom; LBO is
-// not used by swizzled K-major layouts.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  using T = Tile<D>;
-  const int e = kk * 16;
-  return make_desc(tile + (e / T::kBox) * T::kPartBytes + (e % T::kBox) * 2, 16, T::kAtom,
-                   T::kLayout);
-}
-
-// MN-major operand (V as B of O = P.V: k = keys, n = D contiguous), k16 step
-// t over keys: 16 keys are two 8-row atoms.  LBO = the next 64-column box
-// along D (N = 128 spans two); SBO = the next 8 keys.
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int t) {
-  using T = Tile<D>;
-  return make_desc(tile + t * 2 * T::kAtom, T::kPartBytes, T::kAtom, T::kLayout);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accesses to wgmma's registers across the
-// fence, commit and wait.
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define D8(i)                                                                    \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S (64 x 128, f32) = A (64 x 16) . B (128 x 16)^T, both K-major in shared
-// memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// O (64 x N, f32) += A (64 x 16, bf16 registers) . B (16 x N), B MN-major in
-// shared memory (transpose bit set).
-template <int N>
-struct WgmmaRS;
-
-template <>
-struct WgmmaRS<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : D8(0), D8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : D8(0), D8(8), D8(16), D8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-#undef D8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+  return 1024 + (1 + 2 * kStages) * KVTile<D>::kBytes + 8 * (1 + 3 * kStages);
 }
 
 // ---- the online softmax of one key tile ------------------------------------
@@ -360,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      float* __restrict__ lse, const float* __restrict__ kbias,
                      int64_t ob, int64_t oh, int64_t os, int H, int S, int Sk,
                      int kv_len) {
-  using T = Tile<D>;
+  using T = KVTile<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -448,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(s, kmajor_desc<D>(sq_wg, kk), kmajor_desc<D>(sk + st * T::kBytes, kk),
+      wgmma_ss_n128(s, kmajor_desc<T>(sq_wg, kk), kmajor_desc<T>(sk + st * T::kBytes, kk),
                     kk > 0);
     wgmma_commit();
     wgmma_wait();
@@ -491,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < kBlockN / 16; ++t)
-      WgmmaRS<D>::run(acc, pa[t], mnmajor_desc<D>(sv + st * T::kBytes, t));
+      WgmmaRS<D>::run(acc, pa[t], mnmajor_desc<T>(sv + st * T::kBytes, t));
     wgmma_commit();
     wgmma_wait();
     fence_operands(acc);
@@ -517,45 +327,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side -------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 4-D map over (D, S, H, B): geom = the four dims, then the byte strides
-// of S, H and B (the wrapper's _tma_geometry).  Box: kBox columns x 128 rows.
-template <int D>
-int encode(CUtensorMap* map, const void* ptr, const int64_t* geom) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(geom[0]), static_cast<cuuint64_t>(geom[1]),
-                              static_cast<cuuint64_t>(geom[2]), static_cast<cuuint64_t>(geom[3])};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(geom[4]),
-                                 static_cast<cuuint64_t>(geom[5]),
-                                 static_cast<cuuint64_t>(geom[6])};
-  const cuuint32_t box[4] = {Tile<D>::kBox, kBlockN, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<D>::kSwizzle,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const float* kbias, const int64_t* geom, int64_t ob, int64_t oh, int64_t os,
@@ -563,7 +334,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int err = encode<D>(&maps[i], ptrs[i], geom + 7 * i);
+    const int err = encode<KVTile<D>>(&maps[i], ptrs[i], geom + 7 * i);
     if (err != 0) return err;
   }
   // 161 KB at D = 128: above the 48 KB default, so opt in (per device, per

@@ -16,9 +16,10 @@ designs and the bounds.  Each wrapper counts its launches in ``.launches``.
 
 Contract (as in the JAX package):
   - layouts ``"bhsd"`` (B, H, S, D) and ``"bshd"`` (B, S, H, D); the forward
-    reads q, k and v through TMA tensor maps over (D, S, H, B) with the
-    tensors' byte strides (``_tma_geometry``), the backward through element
-    strides, so neither layout is transposed or padded;
+    and the dkv backward read their operands through TMA tensor maps over
+    (D, S, H, B) with the tensors' byte strides (``_tma_geometries``), the
+    fused and dq backward through element strides, so neither layout is
+    transposed or padded;
   - the 1/sqrt(D) softmax scale is folded into q in q's dtype before the
     kernels, which apply none; the backward's dq is taken with respect to the
     scaled q, and autograd of ``_scaled_q``'s multiply restores the scale;
@@ -48,7 +49,8 @@ KERNEL = "flash_attn_fwd"  # the forward's library (both variants)
 BWD_KERNEL = "flash_attn_bwd"  # the backward's library (fused, dkv, dq)
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _BWD_MODES = {"dkv": 0, "fused": 1, "dq": 2}
-_ENCODE_ERROR = 10000  # the forward returns this + the CUresult of a failed map encode
+_ENCODE_ERROR = 10000  # a kernel returns this + the CUresult of a failed map encode
+_DKV_BLOCK_Q = 64  # q rows per stage of the dkv kernel's ring (its stats scratch is per tile)
 
 
 def _shape_of(x, layout):
@@ -268,16 +270,18 @@ def flash_attention(q, k, v, mask=None, layout="bhsd", kv_valid=None, bwd=None):
 
 
 def _aligned(t, layout):
-    """What the kernels read through strides: a contiguous last axis, the
-    other used strides and the pointer 16-byte aligned."""
+    """What the kernels read through strides or TMA: a contiguous last axis,
+    the other used strides positive (no expanded axis) and, like the
+    pointer, 16-byte aligned."""
     B, H, S, _ = _shape_of(t, layout)
     used = [st for n, st in zip((B, H, S), _strides_of(t, layout)) if n > 1]
     # a stride of an axis of size 1 is never used, and torch leaves it free
-    return t.stride(-1) == 1 and all(st % 8 == 0 for st in used) and t.data_ptr() % 16 == 0
+    return (t.stride(-1) == 1 and all(st > 0 and st % 8 == 0 for st in used)
+            and t.data_ptr() % 16 == 0)
 
 
 def _tma_geometry(t, layout):
-    """The forward kernel's TMA view of ``t``: its dims (D, S, H, B),
+    """A kernel's TMA view of ``t``: its dims (D, S, H, B),
     innermost first, and the byte strides of the S, H and B axes.
 
     TMA needs a 16-byte-aligned base, a contiguous last axis and strides that
@@ -296,6 +300,14 @@ def _tma_geometry(t, layout):
                          f"16-byte-multiple strides; got strides {t.stride()} at "
                          f"offset {t.data_ptr() % 16} mod 16")
     return dims, tuple(strides)
+
+
+def _tma_geometries(layout, *tensors):
+    """The TMA views of ``tensors`` as one flat tuple, seven int64 values for
+    each tensor in the order given (``_tma_geometry``'s dims, then its
+    strides): what a kernel's ``geom`` argument reads.  Raises ValueError
+    for a tensor TMA cannot read."""
+    return tuple(x for t in tensors for part in _tma_geometry(t, layout) for x in part)
 
 
 def _check_kernel_inputs(name, layout, kbias, kv_len, **tensors):
@@ -344,7 +356,7 @@ def _launch_fwd(name, q, k, v, kbias, kv_len, layout, with_lse):
                                                   q=q, k=k, v=v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
-    geom = [x for t in (q, k, v) for part in _tma_geometry(t, layout) for x in part]
+    geom = _tma_geometries(layout, q, k, v)
     lib = _library(KERNEL)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -352,12 +364,16 @@ def _launch_fwd(name, q, k, v, kbias, kv_len, layout, with_lse):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), _ptr(kbias),
             (ctypes.c_int64 * 21)(*geom), *_strides_of(o, layout),
             B, H, S, Sk, D, kv_len, stream)
+    _raise_on(name, err)
+    return o, lse
+
+
+def _raise_on(name, err):
     if err >= _ENCODE_ERROR:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult "
                            f"{err - _ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return o, lse
 
 
 def flash_attn_fwd(q, k, v, kbias=None, kv_len=None, layout="bhsd"):
@@ -386,15 +402,20 @@ def _launch_bwd(name, mode, q, k, v, o, lse, do, kbias, kv_len, layout, dq):
     outs = [t if t is not None else q for t in (dq, dk, dv)]  # unused strides: any
     strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, o, do, *outs)
                                       for st in _strides_of(t, layout)))
+    geom = scratch = None
+    if mode == "dkv":
+        # q, k, v, do through TMA; lse*log2(e) and delta per q tile of the ring
+        geom = (ctypes.c_int64 * 28)(*_tma_geometries(layout, q, k, v, do))
+        scratch = torch.empty((B * H, -(-S // _DKV_BLOCK_Q), 2, _DKV_BLOCK_Q),
+                              dtype=torch.float32, device=q.device)
     lib = _library(BWD_KERNEL)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_bwd(
             _BWD_MODES[mode], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), _ptr(kbias), _ptr(dq), _ptr(dk), _ptr(dv),
-            strides, B, H, S, Sk, D, kv_len, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            strides, geom, _ptr(scratch), B, H, S, Sk, D, kv_len, stream)
+    _raise_on(name, err)
     return dk, dv
 
 
@@ -410,7 +431,9 @@ def flash_attn_bwd_fused(q, k, v, o, lse, do, kbias=None, kv_len=None, layout="b
 
 
 def flash_attn_bwd_dkv(q, k, v, o, lse, do, kbias=None, kv_len=None, layout="bhsd"):
-    """Launch the dk/dv backward kernel: (dk, dv) in k's layout and dtype."""
+    """Launch the dk/dv backward (the kernel's lse/delta pre-pass, then the
+    kernel, in one C call; their f32 scratch comes from ``torch.empty``):
+    (dk, dv) in k's layout and dtype."""
     out = _launch_bwd("flash_attn_bwd_dkv", "dkv", q, k, v, o, lse, do, kbias, kv_len,
                       layout, None)
     flash_attn_bwd_dkv.launches += 1
@@ -448,8 +471,8 @@ def _library(name):
     else:
         fn = lib.flash_attn_bwd
         argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                    + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 6
-                    + [ctypes.c_void_p])
+                    + [ctypes.POINTER(ctypes.c_int64)] * 2 + [ctypes.c_void_p]
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes

@@ -188,6 +188,48 @@ def test_dkv_writes_zeros_past_kv_len(dev):
         assert dk[:, :, :70].abs().sum() > 0
 
 
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_dkv_tile_edges(dev, layout, D):
+    """The dkv kernel at the edges of its 128-key blocks and 64-row q tiles:
+    S = 1, Sk = 1, Sk below one key block, kv_valid one key into a block,
+    S not a multiple of the q tile, key blocks wholly past kv_valid (zeros),
+    and a key mask; dk, dv by ``assert_close_grad``.  With a single key dk
+    is 0 (a softmax over one key has no gradient): both versions give the
+    f32 rounding noise of dp - delta (about 1e-7 here), which has no
+    relative error, so both must be within 1e-4 of 0."""
+    for S, Sk, kv_valid, mask in ((1, 77, None, False), (1, 1, None, False),
+                                  (65, 40, None, True), (70, 200, 129, False),
+                                  (191, 130, 65, False), (129, 300, 100, False),
+                                  (100, 300, None, True)):
+        q, k, v, do, m = _training_inputs(dev, layout, D, S=S, Sk=Sk)
+        qs = FA._scaled_q(q)
+        kw = dict(kbias=FA._key_bias(m, q.shape[0], Sk) if mask else None, kv_len=kv_valid,
+                  layout=layout)
+        o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
+        _, dk_ref, dv_ref = FA.flash_attention_bwd_reference(qs, k, v, o, lse, do, **kw)
+        dk, dv = FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if Sk == 1:
+            assert torch.isfinite(dk).all()
+            assert dk.float().abs().max() <= 1e-4 and dk_ref.float().abs().max() <= 1e-4
+        else:
+            assert_close_grad(dk, dk_ref)
+        assert_close_grad(dv, dv_ref)
+
+
+def test_dkv_repeat_is_bit_identical(dev):
+    """dkv has no atomics: two launches on the same inputs (ragged S and Sk,
+    a key mask, bshd) give identical dk and dv."""
+    q, k, v, do, m = _training_inputs(dev, "bshd", 128, S=700, Sk=650)
+    qs = FA._scaled_q(q)
+    kw = dict(kbias=FA._key_bias(m, q.shape[0], 650), layout="bshd")
+    o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
+    first = FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw)
+    second = FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("bwd", ["fused", "split"])
 def test_autograd_through_kernels(dev, bwd):
     """``flash_attention`` under autograd launches the lse forward and the

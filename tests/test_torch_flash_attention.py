@@ -206,3 +206,61 @@ def test_tma_geometry_refuses_misaligned(case):
         t = flat[:2 * 3 * 8 * 2 * D].view(2, 3, 8, 2 * D)[..., ::2]
     with pytest.raises(ValueError, match="TMA"):
         FA._tma_geometry(t, "bhsd")
+
+
+@pytest.mark.parametrize("view", ["bhsd", "bshd", "projection"])
+def test_dkv_tma_geometry(view):
+    """The dkv kernel's ``geom``: seven values for each of q, k, v and do, in
+    that order (the order the C side encodes its tensor maps), for
+    contiguous tensors of both layouts and for projection views of a packed
+    qkv (the sequence stride is the packed row); do of its own shape, with
+    S != Sk."""
+    B, H, S, Sk, D = 2, 3, 5, 9, 64
+    if view == "projection":
+        layout = "bshd"
+        proj = torch.zeros((B, Sk, 3 * H * D), dtype=torch.bfloat16)
+        q = torch.zeros((B, S, 3 * H * D), dtype=torch.bfloat16)[..., :H * D].reshape(B, S, H, D)
+        k, v = (proj[..., i * H * D:(i + 1) * H * D].reshape(B, Sk, H, D) for i in (1, 2))
+        do = torch.zeros((B, S, H, D), dtype=torch.bfloat16)
+        want = [((D, S, H, B), (2 * 3 * H * D, 2 * D, 2 * S * 3 * H * D)),
+                ((D, Sk, H, B), (2 * 3 * H * D, 2 * D, 2 * Sk * 3 * H * D)),
+                ((D, Sk, H, B), (2 * 3 * H * D, 2 * D, 2 * Sk * 3 * H * D)),
+                ((D, S, H, B), (2 * H * D, 2 * D, 2 * S * H * D))]
+    else:
+        layout = view
+        shp = (lambda s: (B, s, H, D)) if view == "bshd" else (lambda s: (B, H, s, D))
+        q, k, v, do = (torch.zeros(shp(s), dtype=torch.bfloat16) for s in (S, Sk, Sk, S))
+        strides = ((lambda s: (2 * H * D, 2 * D, 2 * s * H * D)) if view == "bshd"
+                   else (lambda s: (2 * D, 2 * s * D, 2 * H * s * D)))
+        want = [((D, s, H, B), strides(s)) for s in (S, Sk, Sk, S)]
+    geom = FA._tma_geometries(layout, q, k, v, do)
+    assert len(geom) == 28
+    assert geom == tuple(x for dims, st in want for x in (*dims, *st))
+    for i, t in enumerate((q, k, v, do)):
+        assert geom[7 * i:7 * i + 7] == tuple(x for p in FA._tma_geometry(t, layout) for x in p)
+
+
+def test_dkv_tma_geometry_refuses_misaligned_do():
+    """A do whose rows are not 16-byte multiples apart cannot be read by TMA:
+    the dkv geometry raises (and so does the dkv wrapper, before any launch);
+    q, k and v alone are fine."""
+    B, H, S, D = 1, 2, 8, 64
+    q, k, v = (torch.zeros((B, H, S, D), dtype=torch.bfloat16) for _ in range(3))
+    do = torch.zeros((B, H, S, D + 1), dtype=torch.bfloat16)[..., :D]
+    FA._tma_geometries("bhsd", q, k, v)
+    with pytest.raises(ValueError, match="TMA"):
+        FA._tma_geometries("bhsd", q, k, v, do)
+
+
+def test_aligned_refuses_expanded_axis():
+    """A gradient expanded along a used axis (stride 0) is not what TMA reads,
+    so ``_aligned`` says no and the autograd backward makes it contiguous
+    before the dkv kernel; a size-1 axis keeps any stride."""
+    B, H, S, D = 2, 3, 8, 32
+    do = torch.zeros((1, H, S, D), dtype=torch.bfloat16)
+    assert FA._aligned(do, "bhsd")
+    expanded = do.expand(B, H, S, D)
+    assert not FA._aligned(expanded, "bhsd")
+    assert FA._aligned(expanded.contiguous(), "bhsd")
+    with pytest.raises(ValueError, match="TMA"):
+        FA._tma_geometry(expanded, "bhsd")
