@@ -10,16 +10,18 @@ a non-zero exit code.  Phases:
 2. build: every hand-written kernel library compiled from
    ``mixgrpo_tpu_torch/csrc`` (one ``nvcc`` per source, all started
    together), with ptxas's register and spill report;
-3. kernels: ptxas's report of the D = 128 forward and dkv kernels (no
-   spill, no wgmma serialisation); each kernel against its plain PyTorch
+3. kernels: ptxas's report of the D = 128 forward, dkv and fused kernels
+   (no spill, no wgmma serialisation); each kernel against its plain PyTorch
    version on the card, at small ragged shapes, at the tile edges of the
-   forward and dkv, and at the shapes of the main paths (the forward
+   forward, dkv and fused, and at the shapes of the main paths (the forward
    without lse at the serving shape, the forward with lse and the fused
    backward at the 720px update, where the split pair is timed too, dkv
    and dq at the 1024px update), with its time, the plain version's time,
    the card's bound for the same work and one PyTorch library call's time
-   as a yardstick (never used by the port); dkv launched twice must give
-   identical outputs; then autograd through the kernels;
+   as a yardstick (never used by the port); dkv and fused launched twice
+   must give identical dk and dv (fused's dq, summed in an order that
+   changes from run to run, within ``close_bf16``); then autograd through
+   the kernels;
 4. serve: the first slice's path at full FLUX.1-dev width and depth with
    random bf16 weights (``DualFluxPipeline`` at 1024x1024, 4 steps, behind
    ``RequestBatcher`` and ``InferenceServer``; then one 720px call), the
@@ -245,10 +247,12 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
     kernel gets the kernel forward's o and lse, as does its plain version,
     so each comparison isolates one kernel.  Tolerances: o as in
     ``check_attention``; lse within 1e-3 (f32, exp approximated by
-    ex2.approx); dq, dk, dv by ``close_bf16``.  dkv has no atomics, so a
-    second launch on the same inputs must give identical dk and dv
-    (``repeat_identical``).  ``timed`` names the kernels to time at this
-    shape; ``backward=()`` checks the forward with lse alone."""
+    ex2.approx); dq, dk, dv by ``close_bf16``.  dkv and fused write dk and
+    dv with no atomics, so a second launch on the same inputs must give
+    identical dk and dv (``repeat_identical``); fused's second dq, whose
+    key blocks add in another order, must be within ``close_bf16`` of its
+    first.  ``timed`` names the kernels to time at this shape;
+    ``backward=()`` checks the forward with lse alone."""
     g = torch.Generator(dev).manual_seed(seed)
     shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
     q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16() for s in (S, Sk, Sk))
@@ -294,7 +298,8 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
               "flash_attn_bwd_dkv": lambda: (None, *FA.flash_attn_bwd_dkv(*args, **kw)),
               "flash_attn_bwd_dq": lambda: (FA.flash_attn_bwd_dq(*args, **kw), None, None)}
     got = {name: launch[name]() for name in backward}
-    repeat = launch["flash_attn_bwd_dkv"]()[1:] if "flash_attn_bwd_dkv" in got else None
+    repeats = {name: launch[name]() for name in ("flash_attn_bwd_fused", "flash_attn_bwd_dkv")
+               if name in got}
     torch.cuda.synchronize()
     for name, outs in got.items():
         rec = dict(base, kernel=name, ok=True, max_abs_err=0.0, rel_l2=0.0)
@@ -307,12 +312,15 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
             rec["rel_l2"] = max(rec["rel_l2"], rel)
             rec[f"{label}_rel_l2"] = rel
         recs[name] = rec
-    if repeat is not None:
-        rec = recs["flash_attn_bwd_dkv"]
-        rec["repeat_identical"] = all(torch.equal(x, y) for x, y in
-                                      zip(got["flash_attn_bwd_dkv"][1:], repeat))
+    for name, again in repeats.items():
+        rec = recs[name]
+        rec["repeat_identical"] = all(torch.equal(x, y)
+                                      for x, y in zip(got[name][1:], again[1:]))
         rec["ok"] &= rec["repeat_identical"]
-    del got, want, repeat
+        if again[0] is not None:
+            dq_ok, rec["repeat_dq_max_abs_diff"], _ = close_bf16(again[0], got[name][0])
+            rec["ok"] &= dq_ok
+    del got, want, repeats
 
     if timed:
         bias = kbias is not None
@@ -510,12 +518,12 @@ def profile_forward(torch, M, params, cfg, dev, card):
 def kernel_phase(torch, FA, F, dev, rows):
     """Every kernel against its plain version: small ragged shapes (D 32, 64,
     128; both layouts; a key mask; kv_valid; S != Sk) and the tile edges of
-    the forward (with and without lse) and of dkv, then the shapes of the
-    main paths, timed: the forward without lse at the serving shape (B=2,
-    S=4608), the forward with lse, the fused backward and, to compare with
-    it, the split pair (dkv, dq) at the 720px update (B=12, S=2560, kv_valid
-    2537), dkv and dq at the 1024px update (B=2, S=4608); then autograd
-    through the kernels on the card."""
+    the forward (with and without lse) and of dkv and fused, then the shapes
+    of the main paths, timed: the forward without lse at the serving shape
+    (B=2, S=4608), the forward with lse, the fused backward and, to compare
+    with it, the split pair (dkv, dq) at the 720px update (B=12, S=2560,
+    kv_valid 2537), dkv and dq at the 1024px update (B=2, S=4608); then
+    autograd through the kernels on the card."""
     for D in (32, 64, 128):
         for kw in (dict(B=1, H=2, S=100, Sk=77), dict(B=2, H=3, S=130, Sk=201, layout="bshd"),
                    dict(B=1, H=2, S=130, Sk=200, mask=True),
@@ -526,9 +534,10 @@ def kernel_phase(torch, FA, F, dev, rows):
             check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
             check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, **kw)
         # the tile edges of the forward (128-row q tiles, 128-key tiles) and
-        # of dkv (128-key blocks, 64-row q tiles): one query row, one key,
-        # fewer keys than a tile, kv_valid one key into a tile (129), S not a
-        # multiple of the q tile, key blocks wholly past kv_valid (zeros out)
+        # of dkv and fused (128-key blocks, 64-row q tiles): one query row,
+        # one key, fewer keys than a tile, kv_valid one key into a tile (129),
+        # S not a multiple of the q tile (fused: dq rows past S never
+        # written), key blocks wholly past kv_valid (zeros out)
         for kw in (dict(B=1, H=2, S=1, Sk=77), dict(B=1, H=1, S=1, Sk=1),
                    dict(B=2, H=2, S=65, Sk=40, layout="bshd"),
                    dict(B=2, H=2, S=65, Sk=40, mask=True),
@@ -540,7 +549,8 @@ def kernel_phase(torch, FA, F, dev, rows):
             B, H, S, Sk = (kw.pop(n) for n in ("B", "H", "S", "Sk"))
             check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
             check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D,
-                                   backward=("flash_attn_bwd_dkv",), **kw)
+                                   backward=("flash_attn_bwd_fused", "flash_attn_bwd_dkv"),
+                                   **kw)
     full = []
     for B in (1, 2):
         for S, kv_valid in ((1536, None), (2560, 2537), (4608, None)):
@@ -941,10 +951,10 @@ def main() -> int:
               "seconds_all": time.perf_counter() - t0,
               "ptxas": [ln.strip() for ln in report.splitlines()
                         if any(w in ln for w in PTXAS_KEEP)]})
-    for kernel, lib, fn in (("flash_attn_fwd", FA.KERNEL, "flash_attn_fwd_smem_bytes"),
-                            ("flash_attn_bwd_dkv", FA.BWD_KERNEL,
-                             "flash_attn_bwd_dkv_smem_bytes")):
-        smem = getattr(build.load(lib), fn)
+    for kernel, lib in (("flash_attn_fwd", FA.KERNEL), ("flash_attn_bwd_fused", FA.BWD_KERNEL),
+                        ("flash_attn_bwd_dkv", FA.BWD_KERNEL),
+                        ("flash_attn_bwd_dq", FA.BWD_KERNEL)):
+        smem = getattr(build.load(lib), f"{kernel}_smem_bytes")
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         emit({"phase": "kernel_resources", "kernel": kernel,
               "smem_bytes_per_block": {D: smem(D) for D in (32, 64, 128)}})
@@ -952,7 +962,9 @@ def main() -> int:
 
     if "kernels" in only:
         check_ptxas(build.reports.get(FA.KERNEL, ""), "flash_fwd_kernelILi128E")
-        check_ptxas(build.reports.get(FA.BWD_KERNEL, ""), "flash_dkv_kernelILi128E")
+        # flash_bwd_kernel<128, false> is dkv, <128, true> fused
+        for kernel in ("flash_bwd_kernelILi128ELb0E", "flash_bwd_kernelILi128ELb1E"):
+            check_ptxas(build.reports.get(FA.BWD_KERNEL, ""), kernel)
         kernel_phase(torch, FA, F, dev, rows)
     if "serve" in only:
         serve_phase(torch, FA, F, M, dev, card, rows)

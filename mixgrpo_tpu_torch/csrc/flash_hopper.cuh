@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma flash-attention kernels
-// (flash_attn_fwd.cu, and the DKV mode of flash_attn_bwd.cu): the shared-memory
-// geometry of a TMA tile, mbarriers, TMA loads, wgmma and its shared-memory
-// descriptors, and, on the host, the encoding of a 4-D tensor map.
+// (flash_attn_fwd.cu, and the DKV and FUSED modes of flash_attn_bwd.cu): the
+// shared-memory geometry of a TMA tile, mbarriers, named barriers, TMA loads
+// and reduce-adds, wgmma and its shared-memory descriptors, and, on the host,
+// the encoding of a 4-D tensor map.
 //
 // A tile is ROWS rows of a D-wide bf16 matrix (Q, K, V or dO of one head) as
 // TMA writes it: kParts boxes of ROWS rows x kBox columns, each row kRowBytes
@@ -12,9 +13,12 @@
 //   advances the start by 32 bytes inside a row and jumps to the next box
 //   after kBox columns; SBO = one 8-row atom; LBO is unused by swizzled
 //   K-major layouts.
-//   MN-major (k runs over the tile's rows, n over D, read with the transpose
-//   bit): a k16 step is two 8-row atoms; LBO = the next box along n (the part
-//   size, which depends on ROWS); SBO = the next 8 rows.
+//   MN-major (k runs over the tile's rows, m or n over D, read with the
+//   transpose bit): a k16 step is two 8-row atoms; LBO = the next box along
+//   m or n (the part size, which depends on ROWS); SBO = the next 8 rows.
+//   An operand narrower than a box starts inside the row: the swizzle is a
+//   function of the address bits, so the start moves by the column's bytes.
+// An f32 tile (F32Tile) is the same with 32-float rows (16 at COLS = 16).
 
 #pragma once
 
@@ -41,9 +45,32 @@ struct Tile {
   static constexpr int kPartBytes = ROWS * kRowBytes;
   static constexpr int kBytes = kParts * kPartBytes;
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128 / B64
+  static constexpr CUtensorMapDataType kDataType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapSwizzle kSwizzle =
       kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
 };
+
+// ROWS rows x COLS columns of an f32 matrix as TMA reads it for a reduce-add.
+template <int COLS, int ROWS>
+struct F32Tile {
+  static constexpr int kRows = ROWS;
+  static constexpr int kBox = COLS < 32 ? COLS : 32;
+  static constexpr int kParts = COLS / kBox;
+  static constexpr int kRowBytes = kBox * 4;  // 128, or 64 at COLS = 16
+  static constexpr int kPartBytes = ROWS * kRowBytes;
+  static constexpr int kBytes = kParts * kPartBytes;
+  static constexpr CUtensorMapDataType kDataType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+// Where byte `o` of a tile of ROW_BYTES-long rows lands under TMA's swizzle:
+// the 16-byte chunk index is XORed with address bits 7-9 (128-byte swizzle)
+// or 7-8 (64-byte), so row r's chunk c sits at c ^ (r % 8) in 128-byte rows.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t swizzled(uint32_t o) {
+  return o ^ (((o >> 7) & (ROW_BYTES == 128 ? 7u : 3u)) << 4);
+}
 
 // ---- mbarrier, TMA, wgmma ---------------------------------------------------
 
@@ -88,6 +115,45 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// Adds one box of f32 values in shared memory to a 4-D tensor map's
+// elements (coordinates innermost first), in the issuing thread's bulk
+// group; elements outside the map are skipped.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int c0,
+                                               int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Waits until this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's generic-proxy shared-memory stores visible to the
+// async proxy (wgmma and TMA reads); then a barrier hands them on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
@@ -185,6 +251,54 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D (64 x N, f32) = A (64 x 16) . B (16 x N), both MN-major in shared memory
+// (both transpose bits set: A's m and B's n run along a tile row); scale_d =
+// 0 overwrites d.
+template <int N>
+struct WgmmaSST;
+
+template <>
+struct WgmmaSST<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+        : D8(0)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSST<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 1, 1;\n}\n"
+        : D8(0), D8(8)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSST<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 1, 1;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 // D (64 x N, f32) += A (64 x 16, bf16 registers) . B (16 x N), B MN-major in
 // shared memory (transpose bit set).  A is the accumulator fragment of an
 // earlier product packed to bf16: for k16 step t, the accumulators of column
@@ -272,8 +386,9 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map over (D, S, H, B) whose box is one part of tile type T (kBox
-// columns x T::kRows rows): geom = the four dims, then the byte strides of
-// S, H and B (the wrapper's _tma_geometry).  Rows past S read as zeros.
+// columns x T::kRows rows of T::kDataType): geom = the four dims, then the
+// byte strides of S, H and B (the wrapper's _tma_geometry).  Rows past S
+// read as zeros, and a reduce-add skips them.
 template <class T>
 int encode(CUtensorMap* map, const void* ptr, const int64_t* geom) {
   const EncodeTiled fn = encode_tiled();
@@ -286,7 +401,7 @@ int encode(CUtensorMap* map, const void* ptr, const int64_t* geom) {
   const cuuint32_t box[4] = {T::kBox, T::kRows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+      fn(map, T::kDataType, 4, const_cast<void*>(ptr), dims, strides, box,
          unit, CU_TENSOR_MAP_INTERLEAVE_NONE, T::kSwizzle,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);

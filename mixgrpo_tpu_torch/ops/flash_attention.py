@@ -16,10 +16,11 @@ designs and the bounds.  Each wrapper counts its launches in ``.launches``.
 
 Contract (as in the JAX package):
   - layouts ``"bhsd"`` (B, H, S, D) and ``"bshd"`` (B, S, H, D); the forward
-    and the dkv backward read their operands through TMA tensor maps over
-    (D, S, H, B) with the tensors' byte strides (``_tma_geometries``), the
-    fused and dq backward through element strides, so neither layout is
-    transposed or padded;
+    and the dkv and fused backward read their operands through TMA tensor
+    maps over (D, S, H, B) with the tensors' byte strides
+    (``_tma_geometries``; the fused kernel also adds its dq through one), the
+    dq backward through element strides, so neither layout is transposed or
+    padded;
   - the 1/sqrt(D) softmax scale is folded into q in q's dtype before the
     kernels, which apply none; the backward's dq is taken with respect to the
     scaled q, and autograd of ``_scaled_q``'s multiply restores the scale;
@@ -50,7 +51,7 @@ BWD_KERNEL = "flash_attn_bwd"  # the backward's library (fused, dkv, dq)
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _BWD_MODES = {"dkv": 0, "fused": 1, "dq": 2}
 _ENCODE_ERROR = 10000  # a kernel returns this + the CUresult of a failed map encode
-_DKV_BLOCK_Q = 64  # q rows per stage of the dkv kernel's ring (its stats scratch is per tile)
+_RING_BLOCK_Q = 64  # q rows per ring stage of dkv and fused (their stats scratch is per tile)
 
 
 def _shape_of(x, layout):
@@ -246,8 +247,9 @@ def flash_attention(q, k, v, mask=None, layout="bhsd", kv_valid=None, bwd=None):
     launch the kernels (bf16, D in 32/64/128) or raise.
 
     Under differentiation the forward also writes lse and the backward runs
-    ``bwd``: ``"fused"`` (one pass, dq by atomics) or ``"split"`` (dkv then
-    dq); None takes JAX's choice at its default blocks (``default_bwd``)."""
+    ``bwd``: ``"fused"`` (one pass, dq summed by TMA reduce-adds) or
+    ``"split"`` (dkv then dq); None takes JAX's choice at its default blocks
+    (``default_bwd``)."""
     B, H, S, D, Sk, kv_valid = _check(q, k, v, mask, kv_valid, layout)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
@@ -308,6 +310,16 @@ def _tma_geometries(layout, *tensors):
     strides): what a kernel's ``geom`` argument reads.  Raises ValueError
     for a tensor TMA cannot read."""
     return tuple(x for t in tensors for part in _tma_geometry(t, layout) for x in part)
+
+
+def _bwd_geometry(mode, layout, q, k, v, do, dq=None):
+    """The ``geom`` argument of a backward mode: the TMA views of q, k, v
+    and do for ``"dkv"`` (28 values), and of the f32 dq accumulator after
+    them for ``"fused"`` (35); None for ``"dq"``, which reads through element
+    strides.  Raises ValueError for a tensor TMA cannot read."""
+    if mode == "dq":
+        return None
+    return _tma_geometries(layout, q, k, v, do, *((dq,) if mode == "fused" else ()))
 
 
 def _check_kernel_inputs(name, layout, kbias, kv_len, **tensors):
@@ -402,11 +414,12 @@ def _launch_bwd(name, mode, q, k, v, o, lse, do, kbias, kv_len, layout, dq):
     outs = [t if t is not None else q for t in (dq, dk, dv)]  # unused strides: any
     strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, o, do, *outs)
                                       for st in _strides_of(t, layout)))
-    geom = scratch = None
-    if mode == "dkv":
-        # q, k, v, do through TMA; lse*log2(e) and delta per q tile of the ring
-        geom = (ctypes.c_int64 * 28)(*_tma_geometries(layout, q, k, v, do))
-        scratch = torch.empty((B * H, -(-S // _DKV_BLOCK_Q), 2, _DKV_BLOCK_Q),
+    geom = _bwd_geometry(mode, layout, q, k, v, do, dq)
+    scratch = None
+    if geom is not None:
+        geom = (ctypes.c_int64 * len(geom))(*geom)
+        # lse*log2(e) and delta per q tile of the ring
+        scratch = torch.empty((B * H, -(-S // _RING_BLOCK_Q), 2, _RING_BLOCK_Q),
                               dtype=torch.float32, device=q.device)
     lib = _library(BWD_KERNEL)
     with torch.cuda.device(q.device):
@@ -420,9 +433,10 @@ def _launch_bwd(name, mode, q, k, v, o, lse, do, kbias, kv_len, layout, dq):
 
 
 def flash_attn_bwd_fused(q, k, v, o, lse, do, kbias=None, kv_len=None, layout="bhsd"):
-    """Launch the fused backward kernel: (dq, dk, dv) in q's dtype, dq with
-    respect to the pre-scaled q.  dq is summed by f32 atomics into a zeroed
-    buffer of q's shape and then cast."""
+    """Launch the fused backward (the kernel's lse/delta pre-pass, then the
+    kernel, in one C call): (dq, dk, dv) in q's dtype, dq with respect to the
+    pre-scaled q.  Every key block adds its dq partial into a zeroed f32
+    buffer of q's shape by TMA reduce-adds; the buffer is then cast."""
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = _launch_bwd("flash_attn_bwd_fused", "fused", q, k, v, o, lse, do, kbias,
                          kv_len, layout, dq32)

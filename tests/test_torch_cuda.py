@@ -177,15 +177,56 @@ def test_training_kernels_match_plain(dev, layout, D):
 
 
 def test_dkv_writes_zeros_past_kv_len(dev):
-    """Key tiles at or past kv_len get zero dk and dv (the outputs come from
-    torch.empty, so the kernel must write them)."""
-    q, k, v, do, _ = _training_inputs(dev, "bhsd", 64, S=100, Sk=300)
-    qs = FA._scaled_q(q)
-    o, lse = FA.flash_attn_fwd_lse(qs, k, v, kv_len=70)
-    for dk, dv in (FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, kv_len=70),
-                   FA.flash_attn_bwd_fused(qs, k, v, o, lse, do, kv_len=70)[1:]):
-        assert (dk[:, :, 70:] == 0).all() and (dv[:, :, 70:] == 0).all()
-        assert dk[:, :, :70].abs().sum() > 0
+    """Key tiles at or past kv_len get zero dk and dv from dkv and fused (the
+    outputs come from torch.empty, so the kernels must write them), in both
+    layouts and at D = 128; fused's dq gets nothing from them and matches
+    its plain version."""
+    for layout, D in (("bhsd", 64), ("bshd", 128)):
+        q, k, v, do, _ = _training_inputs(dev, layout, D, S=100, Sk=300)
+        qs = FA._scaled_q(q)
+        kw = dict(kv_len=70, layout=layout)
+        o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
+        dq, dk_f, dv_f = FA.flash_attn_bwd_fused(qs, k, v, o, lse, do, **kw)
+        for dk, dv in (FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw), (dk_f, dv_f)):
+            if layout == "bshd":
+                dk, dv = dk.transpose(1, 2), dv.transpose(1, 2)
+            assert (dk[:, :, 70:] == 0).all() and (dv[:, :, 70:] == 0).all()
+            assert dk[:, :, :70].abs().sum() > 0
+        assert_close_grad(dq, FA.flash_attention_bwd_reference(qs, k, v, o, lse, do, **kw)[0])
+
+
+# (S, Sk, kv_valid, mask) at the edges of the dkv and fused kernels' 128-key
+# blocks and 64-row q tiles
+TILE_EDGES = ((1, 77, None, False), (1, 1, None, False), (65, 40, None, True),
+              (70, 200, 129, False), (191, 130, 65, False), (129, 300, 100, False),
+              (100, 300, None, True))
+
+
+def _tile_edge_runs(dev, layout, D, kernel):
+    """For each tile edge: ``kernel``'s outputs and the plain backward's
+    (dq, dk, dv), on the kernel forward's o and lse, and Sk."""
+    for S, Sk, kv_valid, mask in TILE_EDGES:
+        q, k, v, do, m = _training_inputs(dev, layout, D, S=S, Sk=Sk)
+        qs = FA._scaled_q(q)
+        kw = dict(kbias=FA._key_bias(m, q.shape[0], Sk) if mask else None, kv_len=kv_valid,
+                  layout=layout)
+        o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
+        want = FA.flash_attention_bwd_reference(qs, k, v, o, lse, do, **kw)
+        got = kernel(qs, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        yield got, want, Sk
+
+
+def assert_grad_or_noise(got, want, Sk):
+    """``assert_close_grad``, except with a single key: a softmax over one key
+    has no gradient, so dk and dq are 0 and both versions give the f32
+    rounding noise of dp - delta (about 1e-7 here), which has no relative
+    error; both must then be within 1e-4 of 0."""
+    if Sk == 1:
+        assert torch.isfinite(got).all()
+        assert got.float().abs().max() <= 1e-4 and want.float().abs().max() <= 1e-4
+    else:
+        assert_close_grad(got, want)
 
 
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
@@ -194,27 +235,25 @@ def test_dkv_tile_edges(dev, layout, D):
     """The dkv kernel at the edges of its 128-key blocks and 64-row q tiles:
     S = 1, Sk = 1, Sk below one key block, kv_valid one key into a block,
     S not a multiple of the q tile, key blocks wholly past kv_valid (zeros),
-    and a key mask; dk, dv by ``assert_close_grad``.  With a single key dk
-    is 0 (a softmax over one key has no gradient): both versions give the
-    f32 rounding noise of dp - delta (about 1e-7 here), which has no
-    relative error, so both must be within 1e-4 of 0."""
-    for S, Sk, kv_valid, mask in ((1, 77, None, False), (1, 1, None, False),
-                                  (65, 40, None, True), (70, 200, 129, False),
-                                  (191, 130, 65, False), (129, 300, 100, False),
-                                  (100, 300, None, True)):
-        q, k, v, do, m = _training_inputs(dev, layout, D, S=S, Sk=Sk)
-        qs = FA._scaled_q(q)
-        kw = dict(kbias=FA._key_bias(m, q.shape[0], Sk) if mask else None, kv_len=kv_valid,
-                  layout=layout)
-        o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
-        _, dk_ref, dv_ref = FA.flash_attention_bwd_reference(qs, k, v, o, lse, do, **kw)
-        dk, dv = FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        if Sk == 1:
-            assert torch.isfinite(dk).all()
-            assert dk.float().abs().max() <= 1e-4 and dk_ref.float().abs().max() <= 1e-4
-        else:
-            assert_close_grad(dk, dk_ref)
+    and a key mask; dk, dv by ``assert_close_grad`` (dk with one key by
+    ``assert_grad_or_noise``)."""
+    for (dk, dv), (_, dk_ref, dv_ref), Sk in _tile_edge_runs(dev, layout, D,
+                                                             FA.flash_attn_bwd_dkv):
+        assert_grad_or_noise(dk, dk_ref, Sk)
+        assert_close_grad(dv, dv_ref)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_fused_tile_edges(dev, layout, D):
+    """The fused kernel at the same edges: dq (summed across key blocks by TMA
+    reduce-adds; rows past S never written), dk and dv by
+    ``assert_close_grad`` (dq and dk with one key by
+    ``assert_grad_or_noise``)."""
+    for (dq, dk, dv), (dq_ref, dk_ref, dv_ref), Sk in _tile_edge_runs(dev, layout, D,
+                                                                      FA.flash_attn_bwd_fused):
+        assert_grad_or_noise(dq, dq_ref, Sk)
+        assert_grad_or_noise(dk, dk_ref, Sk)
         assert_close_grad(dv, dv_ref)
 
 
@@ -228,6 +267,21 @@ def test_dkv_repeat_is_bit_identical(dev):
     first = FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw)
     second = FA.flash_attn_bwd_dkv(qs, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_repeat(dev):
+    """fused writes dk and dv with no atomics: two launches on the same inputs
+    (ragged S and Sk, a key mask, bshd) give identical dk and dv; dq is summed
+    across key blocks in an order that changes from run to run, so the two
+    dq agree to f32 rounding before the cast (``assert_close_grad``)."""
+    q, k, v, do, m = _training_inputs(dev, "bshd", 128, S=700, Sk=650)
+    qs = FA._scaled_q(q)
+    kw = dict(kbias=FA._key_bias(m, q.shape[0], 650), layout="bshd")
+    o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
+    first = FA.flash_attn_bwd_fused(qs, k, v, o, lse, do, **kw)
+    second = FA.flash_attn_bwd_fused(qs, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first[1:], second[1:]))
+    assert_close_grad(second[0], first[0])
 
 
 @pytest.mark.parametrize("bwd", ["fused", "split"])

@@ -252,6 +252,47 @@ def test_dkv_tma_geometry_refuses_misaligned_do():
         FA._tma_geometries("bhsd", q, k, v, do)
 
 
+@pytest.mark.parametrize("view", ["bhsd", "bshd", "projection"])
+def test_fused_tma_geometry(view):
+    """The fused kernel's ``geom``: q, k, v and do as for dkv, then the f32 dq
+    accumulator the wrapper allocates (q's shape, contiguous), whose byte
+    strides count 4-byte elements; 35 values.  dkv takes the first 28 and
+    dq none."""
+    B, H, S, Sk, D = 2, 3, 5, 9, 128
+    layout = "bhsd" if view == "bhsd" else "bshd"
+    shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
+    if view == "projection":
+        proj = torch.zeros((B, Sk, 3 * H * D), dtype=torch.bfloat16)
+        q = torch.zeros((B, S, 3 * H * D), dtype=torch.bfloat16)[..., :H * D].reshape(shp(S))
+        k, v = (proj[..., i * H * D:(i + 1) * H * D].reshape(shp(Sk)) for i in (1, 2))
+        do = torch.zeros(shp(S), dtype=torch.bfloat16)
+    else:
+        q, k, v, do = (torch.zeros(shp(s), dtype=torch.bfloat16) for s in (S, Sk, Sk, S))
+    dq32 = torch.zeros(q.shape, dtype=torch.float32)
+    geom = FA._bwd_geometry("fused", layout, q, k, v, do, dq32)
+    assert len(geom) == 35
+    assert geom[:28] == FA._bwd_geometry("dkv", layout, q, k, v, do)
+    assert geom[:28] == FA._tma_geometries(layout, q, k, v, do)
+    want_dq = ((4 * H * D, 4 * D, 4 * S * H * D) if layout == "bshd"
+               else (4 * D, 4 * S * D, 4 * H * S * D))
+    assert geom[28:] == (D, S, H, B, *want_dq)
+    assert FA._bwd_geometry("dq", layout, q, k, v, do, dq32) is None
+
+
+@pytest.mark.parametrize("operand", ["k", "do"])
+def test_fused_tma_geometry_refuses_misaligned(operand):
+    """A k or do whose rows are not 16-byte multiples apart cannot be read by
+    TMA: the fused geometry raises (and so does the fused wrapper, before
+    any launch), while aligned operands pass."""
+    B, H, S, D = 1, 2, 8, 64
+    t = {n: torch.zeros((B, H, S, D), dtype=torch.bfloat16) for n in ("q", "k", "v", "do")}
+    dq32 = torch.zeros((B, H, S, D), dtype=torch.float32)
+    FA._bwd_geometry("fused", "bhsd", t["q"], t["k"], t["v"], t["do"], dq32)
+    t[operand] = torch.zeros((B, H, S, D + 1), dtype=torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match="TMA"):
+        FA._bwd_geometry("fused", "bhsd", t["q"], t["k"], t["v"], t["do"], dq32)
+
+
 def test_aligned_refuses_expanded_axis():
     """A gradient expanded along a used axis (stride 0) is not what TMA reads,
     so ``_aligned`` says no and the autograd backward makes it contiguous
