@@ -10,17 +10,20 @@ a non-zero exit code.  Phases:
 2. build: every hand-written kernel library compiled from
    ``mixgrpo_tpu_torch/csrc`` (one ``nvcc`` per source, all started
    together), with ptxas's register and spill report;
-3. kernels: ptxas's report of the D = 128 forward, dkv and fused kernels
-   (no spill, no wgmma serialisation); each kernel against its plain PyTorch
-   version on the card, at small ragged shapes, at the tile edges of the
-   forward, dkv and fused, and at the shapes of the main paths (the forward
-   without lse at the serving shape, the forward with lse and the fused
-   backward at the 720px update, where the split pair is timed too, dkv
-   and dq at the 1024px update), with its time, the plain version's time,
-   the card's bound for the same work and one PyTorch library call's time
-   as a yardstick (never used by the port); dkv and fused launched twice
-   must give identical dk and dv (fused's dq, summed in an order that
-   changes from run to run, within ``close_bf16``); then autograd through
+3. kernels: ptxas's report of the D = 128 forward, dkv, fused and dq
+   kernels (no spill, no wgmma serialisation); each kernel against its plain
+   PyTorch version on the card, at small ragged shapes, at the tile edges of
+   the forward and of the three backward kernels, and at the shapes of the
+   main paths (the forward without lse at the serving shape, the forward
+   with lse and the fused backward at the 720px update, dkv and dq at the
+   1024px update; at both updates the fused kernel and the split pair are
+   timed side by side), with its time, the plain version's time, the card's
+   bound for the same work and one PyTorch library call's time as a
+   yardstick (never used by the port), and the card's SM clock sampled right
+   after each timing; dkv, dq and fused launched twice must give identical
+   dk, dv and dq (fused's dq, summed in an order that changes from run to
+   run, within ``close_bf16``); the profiler's device time of each kernel of
+   the split pair at 1024px (pre-passes included); then autograd through
    the kernels;
 4. serve: the first slice's path at full FLUX.1-dev width and depth with
    random bf16 weights (``DualFluxPipeline`` at 1024x1024, 4 steps, behind
@@ -84,6 +87,14 @@ def time_ms(torch, fn, n, warmup=2):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def sm_clock_mhz():
+    """The card's SM clock now, in MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.split()[0])
 
 
 def attention_bound_ms(B, H, S, Sk, kv_len, D, bias):
@@ -247,12 +258,13 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
     kernel gets the kernel forward's o and lse, as does its plain version,
     so each comparison isolates one kernel.  Tolerances: o as in
     ``check_attention``; lse within 1e-3 (f32, exp approximated by
-    ex2.approx); dq, dk, dv by ``close_bf16``.  dkv and fused write dk and
-    dv with no atomics, so a second launch on the same inputs must give
-    identical dk and dv (``repeat_identical``); fused's second dq, whose
-    key blocks add in another order, must be within ``close_bf16`` of its
-    first.  ``timed`` names the kernels to time at this shape;
-    ``backward=()`` checks the forward with lse alone."""
+    ex2.approx); dq, dk, dv by ``close_bf16``.  The backward kernels write
+    with no atomics, so a second launch on the same inputs must give
+    identical outputs (``repeat_identical``), except fused's dq, whose key
+    blocks add in another order: it must be within ``close_bf16`` of its
+    first.  ``timed`` names the kernels to time at this shape, each with the
+    SM clock sampled right after; ``backward=()`` checks the forward with
+    lse alone."""
     g = torch.Generator(dev).manual_seed(seed)
     shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
     q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16() for s in (S, Sk, Sk))
@@ -298,8 +310,7 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
               "flash_attn_bwd_dkv": lambda: (None, *FA.flash_attn_bwd_dkv(*args, **kw)),
               "flash_attn_bwd_dq": lambda: (FA.flash_attn_bwd_dq(*args, **kw), None, None)}
     got = {name: launch[name]() for name in backward}
-    repeats = {name: launch[name]() for name in ("flash_attn_bwd_fused", "flash_attn_bwd_dkv")
-               if name in got}
+    repeats = {name: launch[name]() for name in backward}
     torch.cuda.synchronize()
     for name, outs in got.items():
         rec = dict(base, kernel=name, ok=True, max_abs_err=0.0, rel_l2=0.0)
@@ -314,10 +325,12 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
         recs[name] = rec
     for name, again in repeats.items():
         rec = recs[name]
-        rec["repeat_identical"] = all(torch.equal(x, y)
-                                      for x, y in zip(got[name][1:], again[1:]))
+        fused = name == "flash_attn_bwd_fused"
+        rec["repeat_identical"] = all(torch.equal(x, y) for i, (x, y) in
+                                      enumerate(zip(got[name], again))
+                                      if x is not None and not (fused and i == 0))
         rec["ok"] &= rec["repeat_identical"]
-        if again[0] is not None:
+        if fused:
             dq_ok, rec["repeat_dq_max_abs_diff"], _ = close_bf16(again[0], got[name][0])
             rec["ok"] &= dq_ok
     del got, want, repeats
@@ -362,6 +375,7 @@ def check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd",
             fn, plain_ms, lib_ms = calls[name]
             rec = recs[name]
             rec["ms"] = time_ms(torch, fn, 10)
+            rec["sm_clock_mhz"] = sm_clock_mhz()
             rec["plain_ms"] = plain_ms
             rec["plain"] = ("flash_attention_fwd_lse_reference" if name.endswith("lse")
                             else "flash_attention_bwd_reference (dq, dk and dv)")
@@ -454,6 +468,53 @@ def post(port, payload, timeout=900):
     return status, ctype, body, time.perf_counter() - t0
 
 
+def device_kernels(prof):
+    """(name, device ms, count) of every CUDA kernel a ``torch.profiler``
+    run recorded."""
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            kernels.append((e.key, us / 1e3, e.count))
+    return kernels
+
+
+def profile_split(torch, FA, dev, card, B=2, H=24, S=4608, D=128, calls=3):
+    """Device time per call of each kernel the split backward launches at the
+    1024px update's shape (torch.profiler): the stats pre-pass, which dkv and
+    dq each run, dq's key-term pre-pass, and the two main kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(dev).manual_seed(41)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device=dev).bfloat16()
+                   for _ in range(4))
+    qs = FA._scaled_q(q)
+    o, lse = FA.flash_attn_fwd_lse(qs, k, v)
+    args = (qs, k, v, o, lse, do)
+    FA.flash_attn_bwd_dkv(*args)  # warm-up
+    FA.flash_attn_bwd_dq(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            FA.flash_attn_bwd_dkv(*args)
+            FA.flash_attn_bwd_dq(*args)
+        torch.cuda.synchronize()
+    ms = {}
+    for name, t, _ in device_kernels(prof):
+        for short in ("bwd_stats_kernel", "key_term_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_kernel"):
+            if short in name:
+                ms[short] = ms.get(short, 0.0) + t / calls
+                break
+    total = sum(ms.values())
+    emit({"phase": "split_profile", "B": B, "H": H, "S": S, "D": D,
+          "ms_per_call": ms or None, "split_ms": total or None,
+          "prepass_share": (ms.get("bwd_stats_kernel", 0) + ms.get("key_term_kernel", 0))
+          / total if total else None, "device": card})
+
+
 def profile_forward(torch, M, params, cfg, dev, card):
     """Where one DiT forward's device time goes at the serving shape (B=2,
     1024px: S = 512 + 4096): torch.profiler kernel times summed by class,
@@ -487,13 +548,7 @@ def profile_forward(torch, M, params, cfg, dev, card):
         t0 = time.perf_counter()
         fwd()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and str(e.device_type).endswith("CUDA"):
-            kernels.append((e.key, us / 1e3, e.count))
+    kernels = device_kernels(prof)
     classes = {"flash_attn_fwd": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
@@ -515,15 +570,17 @@ def profile_forward(torch, M, params, cfg, dev, card):
           "device": card})
 
 
-def kernel_phase(torch, FA, F, dev, rows):
+def kernel_phase(torch, FA, F, dev, card, rows):
     """Every kernel against its plain version: small ragged shapes (D 32, 64,
     128; both layouts; a key mask; kv_valid; S != Sk) and the tile edges of
-    the forward (with and without lse) and of dkv and fused, then the shapes
-    of the main paths, timed: the forward without lse at the serving shape
-    (B=2, S=4608), the forward with lse, the fused backward and, to compare
-    with it, the split pair (dkv, dq) at the 720px update (B=12, S=2560,
-    kv_valid 2537), dkv and dq at the 1024px update (B=2, S=4608); then
-    autograd through the kernels on the card."""
+    the forward (with and without lse) and of the three backward kernels,
+    then the shapes of the main paths, timed: the forward without lse at the
+    serving shape (B=2, S=4608), the forward with lse and the fused backward
+    at the 720px update (B=12, S=2560, kv_valid 2537), dkv and dq at the
+    1024px update (B=2, S=4608), and at both updates the fused kernel beside
+    the split pair (dkv, dq); the device time of each kernel of the split
+    pair at 1024px (``profile_split``); then autograd through the kernels on
+    the card."""
     for D in (32, 64, 128):
         for kw in (dict(B=1, H=2, S=100, Sk=77), dict(B=2, H=3, S=130, Sk=201, layout="bshd"),
                    dict(B=1, H=2, S=130, Sk=200, mask=True),
@@ -533,24 +590,26 @@ def kernel_phase(torch, FA, F, dev, rows):
             B, H, S, Sk = (kw.pop(n) for n in ("B", "H", "S", "Sk"))
             check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
             check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, **kw)
-        # the tile edges of the forward (128-row q tiles, 128-key tiles) and
-        # of dkv and fused (128-key blocks, 64-row q tiles): one query row,
-        # one key, fewer keys than a tile, kv_valid one key into a tile (129),
-        # S not a multiple of the q tile (fused: dq rows past S never
-        # written), key blocks wholly past kv_valid (zeros out)
+        # the tile edges of the forward (128-row q tiles, 128-key tiles), of
+        # dkv and fused (128-key blocks, 64-row q tiles) and of dq (128-row
+        # q blocks of two 64-row warpgroups, 64-key tiles): one query row,
+        # one key, fewer keys than a tile, kv_valid one key into a tile (129,
+        # 65), S not a multiple of the q tile (65: dq's second warpgroup has
+        # one row; fused: dq rows past S never written), dq's second
+        # warpgroup wholly past S (64), key blocks wholly past kv_valid
+        # (zeros out)
         for kw in (dict(B=1, H=2, S=1, Sk=77), dict(B=1, H=1, S=1, Sk=1),
                    dict(B=2, H=2, S=65, Sk=40, layout="bshd"),
                    dict(B=2, H=2, S=65, Sk=40, mask=True),
                    dict(B=1, H=2, S=70, Sk=200, kv_valid=129),
                    dict(B=2, H=3, S=191, Sk=130, layout="bshd", kv_valid=65),
                    dict(B=1, H=2, S=100, Sk=300, mask=True),
-                   dict(B=2, H=2, S=129, Sk=300, kv_valid=100)):
+                   dict(B=2, H=2, S=129, Sk=300, kv_valid=100),
+                   dict(B=2, H=2, S=64, Sk=193, mask=True)):
             kw = dict(kw)
             B, H, S, Sk = (kw.pop(n) for n in ("B", "H", "S", "Sk"))
             check_attention(torch, FA, F, dev, B, H, S, Sk, D, **kw)
-            check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D,
-                                   backward=("flash_attn_bwd_fused", "flash_attn_bwd_dkv"),
-                                   **kw)
+            check_training_kernels(torch, FA, F, dev, B, H, S, Sk, D, **kw)
     full = []
     for B in (1, 2):
         for S, kv_valid in ((1536, None), (2560, 2537), (4608, None)):
@@ -563,17 +622,23 @@ def kernel_phase(torch, FA, F, dev, rows):
     rows["flash_attn_fwd"] = dict(main_shape, max_abs_err=max(r["max_abs_err"] for r in full))
     t720 = check_training_kernels(torch, FA, F, dev, 12, 24, 2560, 2560, 128, kv_valid=2537,
                                   timed=("flash_attn_fwd_lse", *BWD_KERNELS), cb=2)
-    split = t720["flash_attn_bwd_dkv"]["ms"] + t720["flash_attn_bwd_dq"]["ms"]
-    emit({"phase": "fused_vs_split", "B": 12, "H": 24, "S": 2560, "kv_valid": 2537, "D": 128,
-          "fused_ms": t720["flash_attn_bwd_fused"]["ms"],
-          "dkv_ms": t720["flash_attn_bwd_dkv"]["ms"], "dq_ms": t720["flash_attn_bwd_dq"]["ms"],
-          "split_ms": split, "default_bwd": FA.default_bwd(2560, 2560)})
     t1024 = check_training_kernels(torch, FA, F, dev, 2, 24, 4608, 4608, 128,
-                                   timed=("flash_attn_bwd_dkv", "flash_attn_bwd_dq"), cb=1)
-    # each kernel's row is at its main path's shape: dkv and dq at 1024px
-    for name, rec in (*t720.items(), *t1024.items()):
-        if "ms" in rec:
-            rows[name] = dict(rec)
+                                   timed=BWD_KERNELS, cb=1)
+    # measurement only: default_bwd takes JAX's choice whatever these say
+    for recs, B, S, kv_valid in ((t720, 12, 2560, 2537), (t1024, 2, 4608, None)):
+        ms = {name: recs[name]["ms"] for name in BWD_KERNELS}
+        emit({"phase": "fused_vs_split", "B": B, "H": 24, "S": S, "kv_valid": kv_valid,
+              "D": 128, "fused_ms": ms["flash_attn_bwd_fused"],
+              "dkv_ms": ms["flash_attn_bwd_dkv"], "dq_ms": ms["flash_attn_bwd_dq"],
+              "split_ms": ms["flash_attn_bwd_dkv"] + ms["flash_attn_bwd_dq"],
+              "default_bwd": FA.default_bwd(S, S)})
+    # each kernel's row is at its main path's shape: the lse forward and
+    # fused at 720px, dkv and dq at 1024px
+    for name, recs in (("flash_attn_fwd_lse", t720), ("flash_attn_bwd_fused", t720),
+                       ("flash_attn_bwd_dkv", t1024), ("flash_attn_bwd_dq", t1024)):
+        rows[name] = dict(recs[name])
+    del t720, t1024
+    profile_split(torch, FA, dev, card)
     for bwd in ("fused", "split"):
         for layout in ("bhsd", "bshd"):
             check_autograd(torch, FA, dev, bwd, layout)
@@ -963,9 +1028,10 @@ def main() -> int:
     if "kernels" in only:
         check_ptxas(build.reports.get(FA.KERNEL, ""), "flash_fwd_kernelILi128E")
         # flash_bwd_kernel<128, false> is dkv, <128, true> fused
-        for kernel in ("flash_bwd_kernelILi128ELb0E", "flash_bwd_kernelILi128ELb1E"):
+        for kernel in ("flash_bwd_kernelILi128ELb0E", "flash_bwd_kernelILi128ELb1E",
+                       "flash_bwd_dq_kernelILi128E"):
             check_ptxas(build.reports.get(FA.BWD_KERNEL, ""), kernel)
-        kernel_phase(torch, FA, F, dev, rows)
+        kernel_phase(torch, FA, F, dev, card, rows)
     if "serve" in only:
         serve_phase(torch, FA, F, M, dev, card, rows)
     if "train" in only:

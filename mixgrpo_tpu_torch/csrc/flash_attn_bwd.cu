@@ -20,16 +20,18 @@
 // bf16 traffic per (row, d) element: hundreds of FLOP per byte at S = 2560,
 // far above the card's ~295 FLOP/byte ridge.  So every product runs on the
 // tensor cores and no S x Sk matrix ever reaches device memory.  At H = 24,
-// D = 128 and 989 TFLOP/s: DKV's bound is 1.055 ms at B = 2, S = 4608, and
-// FUSED's 2.421 ms at B = 12, S = 2560, kv_len = 2537.
+// D = 128 and 989 TFLOP/s: DKV's bound is 1.055 ms and DQ's 0.791 ms at
+// B = 2, S = 4608, and FUSED's 2.421 ms at B = 12, S = 2560, kv_len = 2537.
+//
+// Every mode starts with a pre-pass (`bwd_stats_kernel`) that writes, per
+// 64-row q tile, the 64 values lse*log2(e) and the 64 values delta =
+// rowsum(o * do) into an f32 scratch buffer that the wrapper allocates; rows
+// past S get lse = +inf, so their p is exactly 0 with no compare.
 //
 // DKV and FUSED (`flash_bwd_kernel<D, kFused>`, wgmma fed by a TMA ring; the
-// FA3-style dk/dv and dq/dk/dv passes).  A pre-pass (`bwd_stats_kernel`)
-// writes, per 64-row q tile, the 64 values lse*log2(e) and the 64 values
-// delta = rowsum(o * do) into an f32 scratch buffer that the wrapper
-// allocates; rows past S get lse = +inf, so their p is exactly 0 with no
-// compare.  Then one block per (batch*head, 128-key tile), warp-specialised
-// as the forward: one producer warpgroup (setmaxnreg 24) and two consumer
+// FA3-style dk/dv and dq/dk/dv passes): one block per (batch*head, 128-key
+// tile), warp-specialised as the forward: one producer warpgroup (setmaxnreg
+// 24) and two consumer
 // warpgroups (240), each owning 64 keys and keeping their dk and dv rows in
 // f32 registers (64 + 64 a thread at D = 128).  One lane of the producer
 // loads the block's K and V tiles once and walks the 64-row tiles of q and
@@ -89,20 +91,47 @@
 // atomicAdd per element, 16 columns at a time -> one TMA reduce-add per
 // 64 x 32 f32 box.
 //
-// DQ (`flash_bwd_dq_kernel`, mma.sync): one block of 4 warps per
-// (batch*head, 64-row q tile), each warp 16 rows with f32 dq rows in
-// registers; a loop walks the 64-key tiles below kv_len (K and V in shared
-// memory), recomputes s and p in the forward's orientation, and dp =
-// do.v^T; ds is the A fragment of dq += ds.k, k entering as B through
-// ldmatrix.trans.  It takes element strides (in elements) for the batch,
-// head and sequence axes of every tensor, so (B, H, S, D) and (B, S, H, D)
-// run the same code with no transposes; the last axis must be contiguous.
-// Its ragged S and Sk tails are handled with predicates.
+// DQ (`flash_bwd_dq_kernel<D>`, wgmma fed by a TMA ring over key tiles; the
+// forward's orientation: q rows stay, keys stream past).  Its pre-pass writes
+// the stats of two 64-row q tiles per block (an even tile count; rows past S
+// as above), then (`key_term_kernel`) one additive term per key, padded to
+// whole 64-key tiles: log2(e) * bias, 0, or -inf past kv_len.  Then one
+// block per (batch*head, 128-row q tile), blockIdx.x the q tile: one
+// producer warpgroup (setmaxnreg 24) and two consumer warpgroups (240) of 64
+// q rows each, which keep their dq rows in f32 registers (64 a thread at
+// D = 128).  One lane of the producer loads the block's Q and dO tiles and
+// their 1 KB of stats once, then walks the 64-key tiles of K and V below
+// kv_len, each with its 256 bytes of key terms (one bulk copy), through a
+// 4-stage ring with full/empty mbarriers; both consumer warpgroups read every
+// stage.  Each thread reads the lse*log2e and delta of its two rows into
+// registers once.  Per key tile, three wgmma products:
+//   (1) s = q.k^T, m64n64k16 with q and k both K-major in shared memory;
+//   (2) dp = do.v^T, the same, issued right behind (1), so that it runs
+//       under the softmax of (1);
+//   (3) dq += ds.k, m64nDk16 with ds from registers (the s accumulator, now
+//       p (dp - delta), packed to bf16 is wgmma's A fragment) and k read
+//       MN-major from the same resident stage.
+// p = ex2(s*log2e + kterm - lse*log2e) takes each thread's 16 key terms of
+// the tile from the stage (8-byte shared loads), so no tile compares.  The
+// stage goes back to the producer once (3) is done; the two consumer
+// warpgroups run unsynchronised, so one's softmax overlaps the other's
+// products.  dq is written once, in bf16, from registers through its element
+// strides; rows past S are skipped.  No atomics: two launches give identical
+// dq.  199,752 B of shared memory at D = 128.
+// Against the limits of the mma.sync design it replaced (4 warps per 64-row
+// q tile, 64-key tiles): (1) mma.sync m16n8k16 -> wgmma; (2) K and V loaded
+// through registers into padded tiles with two __syncthreads per key tile
+// and nothing in flight -> TMA from one thread through a 4-stage ring;
+// (3) fragments read by scalar 32-bit shared loads and ldmatrix.trans ->
+// wgmma reads q, do, k and v from swizzled shared memory, k both ways; (4)
+// delta recomputed from o by every q block -> read from the pre-pass; (5) a
+// kv_len compare and a bias load on every element -> one additive term per
+// key from the stage.
 //
 // Plain C interface for ctypes: flash_attn_bwd(mode, ...) launches on
 // `stream`, allocates nothing, does not synchronise, and returns
-// cudaGetLastError(), or kEncodeError + the CUresult when a tensor map of
-// mode DKV or FUSED cannot be encoded.
+// cudaGetLastError(), or kEncodeError + the CUresult when a tensor map
+// cannot be encoded.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -118,10 +147,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using M = Mma<bf16>;
 
-constexpr int kThreads = 128;  // 4 warps (DQ)
-constexpr int kDqBlockQ = 64;  // q rows per DQ block, 16 per warp
-constexpr int kDqBlockK = 64;  // keys per step of the DQ loop
-
 enum Mode { kDkv = 0, kFused = 1, kDq = 2 };
 
 struct Ax {
@@ -134,199 +159,11 @@ struct Args {
   const float* kbias;  // (B, Sk), contiguous, or null
   void* dq;            // bf16 (DQ) or the f32 accumulator (FUSED)
   bf16 *dk, *dv;
-  Ax aq, ak, av, ao, ado, adq, adk, adv;
+  Ax ao, ado, adq, adk, adv;
   int H, S, Sk, kv_len;
 };
 
-// rows [r0, r0 + ROWS) of one head's (rows, D) matrix into a padded shared
-// tile; rows at or past n load as zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t rs, int r0, int n, int tid) {
-  constexpr int LD = D + 8;
-  constexpr int kChunks = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = tid; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = zero;
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
-}
-
-// lse and delta = rowsum(o * do) (f32) of q rows [q0, q0 + ROWS); rows at or
-// past S get 0.  kThreads / ROWS consecutive lanes share a row.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
-                                               const Args& a, const bf16* ob,
-                                               const bf16* dob, int bh, int q0,
-                                               int tid) {
-  constexpr int kPer = kThreads / ROWS;
-  const int r = tid / kPer;
-  const int part = tid % kPer;
-  const int row = q0 + r;
-  float acc = 0.f;
-  if (row < a.S) {
-    for (int c = part; c < D / 8; c += kPer) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(ob + row * a.ao.s + c * 8);
-      const uint4 dv = *reinterpret_cast<const uint4*>(dob + row * a.ado.s + c * 8);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 of = __bfloat1622float2(o2[e]);
-        const float2 df = __bfloat1622float2(d2[e]);
-        acc += of.x * df.x + of.y * df.y;
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < kPer; off <<= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (part == 0) {
-    delta_s[r] = acc;
-    lse_s[r] = row < a.S ? a.lse[static_cast<int64_t>(bh) * a.S + row] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
-  constexpr int LD = D + 8;
-  constexpr int BQ = kDqBlockQ;
-  constexpr int BK = kDqBlockK;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + BK * LD);
-  float* delta_s = lse_s + BQ;
-
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh % a.H;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int mi = lane >> 3;
-  const int rr = lane & 7;
-  const int r0 = warp * 16;
-
-  const bf16* kb = a.k + b * a.ak.b + h * a.ak.h;
-  const bf16* vb = a.v + b * a.av.b + h * a.av.h;
-  const bf16* ob = a.o + b * a.ao.b + h * a.ao.h;
-  const bf16* dob = a.dout + b * a.ado.b + h * a.ado.h;
-  const float* bias = a.kbias ? a.kbias + static_cast<int64_t>(b) * a.Sk : nullptr;
-
-  load_tile<D, BQ>(Qs, a.q + b * a.aq.b + h * a.aq.h, a.aq.s, q0, a.S, tid);
-  load_tile<D, BQ>(dOs, dob, a.ado.s, q0, a.S, tid);
-  load_row_stats<D, BQ>(lse_s, delta_s, a, ob, dob, bh, q0, tid);
-  __syncthreads();
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    lse_r[half] = lse_s[r0 + g + 8 * half];
-    delta_r[half] = delta_s[r0 + g + 8 * half];
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int n_tiles = (a.kv_len + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, BK>(Ks, kb, a.ak.s, k0, a.Sk, tid);
-    load_tile<D, BK>(Vs, vb, a.av.s, k0, a.Sk, tid);
-    __syncthreads();
-
-    // s = q.k^T and p = exp(s + bias - lse), zero past kv_len.
-    float p[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* pa = Qs + (r0 + g) * LD + kk * 16 + 2 * tig;
-        const uint32_t af[4] = {lds32(pa), lds32(pa + 8 * LD), lds32(pa + 8),
-                                lds32(pa + 8 * LD + 8)};
-        const bf16* pb = Ks + (j * 8 + g) * LD + kk * 16 + 2 * tig;
-        const uint32_t bf[2] = {lds32(pb), lds32(pb + 8)};
-        M::run(p[j], af, bf);
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + j * 8 + 2 * tig + e;
-        const bool valid = col < a.kv_len;
-        const float add = (bias != nullptr && valid) ? bias[col] : 0.f;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int i = 2 * half + e;
-          p[j][i] = valid ? __expf(p[j][i] + add - lse_r[half]) : 0.f;
-        }
-      }
-    }
-    // dp = do.v^T, then ds = p (dp - delta) in place.
-    float ds[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* pa = dOs + (r0 + g) * LD + kk * 16 + 2 * tig;
-        const uint32_t af[4] = {lds32(pa), lds32(pa + 8 * LD), lds32(pa + 8),
-                                lds32(pa + 8 * LD + 8)};
-        const bf16* pb = Vs + (j * 8 + g) * LD + kk * 16 + 2 * tig;
-        const uint32_t bf[2] = {lds32(pb), lds32(pb + 8)};
-        M::run(ds[j], af, bf);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[j][i] = p[j][i] * (ds[j][i] - delta_r[i >> 1]);
-    }
-    // dq += ds.k (ds in bf16).
-#pragma unroll
-    for (int t = 0; t < BK / 16; ++t) {
-      const uint32_t af[4] = {M::pack(ds[2 * t][0], ds[2 * t][1]),
-                              M::pack(ds[2 * t][2], ds[2 * t][3]),
-                              M::pack(ds[2 * t + 1][0], ds[2 * t + 1][1]),
-                              M::pack(ds[2 * t + 1][2], ds[2 * t + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4_trans(
-            bk, Ks + (t * 16 + (mi & 1) * 8 + rr) * LD + np * 16 + (mi >> 1) * 8);
-        M::run(acc[2 * np], af, bk);
-        M::run(acc[2 * np + 1], af, bk + 2);
-      }
-    }
-  }
-
-  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.adq.b + h * a.adq.h;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + r0 + g + 8 * half;
-    if (row >= a.S) continue;
-    bf16* drow = dqb + row * a.adq.s + 2 * tig;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8) =
-          M::pack(acc[n][2 * half], acc[n][2 * half + 1]);
-  }
-}
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kDqBlockQ + 2 * kDqBlockK) * (D + 8) * sizeof(bf16) +
-         2 * kDqBlockQ * sizeof(float);
-}
-
-// ---- DKV and FUSED: wgmma fed by a TMA ring -----------------------------------------
+// ---- the stats pre-pass; DKV and FUSED: wgmma fed by a TMA ring ----------------------
 
 constexpr int kWgKeys = 64;                          // keys per consumer warpgroup
 constexpr int kWgConsumers = 2;                      // consumer warpgroups
@@ -692,6 +529,240 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ---- DQ: wgmma fed by a TMA ring over key tiles ------------------------------------------
+
+constexpr int kDqBlockM = 64 * kWgConsumers;  // q rows per block, 64 per consumer warpgroup
+constexpr int kDqBlockN = 64;                 // keys per ring stage
+constexpr int kDqStages = 4;                  // depth of the k/v ring
+constexpr int kTermBytes = kDqBlockN * 4;     // the key terms of a stage
+constexpr int kDqStatTiles = kDqBlockM / kWgBlockM;  // stats tiles of a block
+
+template <int D>
+using DqQTile = Tile<D, kDqBlockM>;  // q and do: 128 rows
+template <int D>
+using DqKTile = Tile<D, kDqBlockN>;  // k and v: 64 rows
+
+template <int D>
+constexpr int dq_smem_bytes() {
+  // 1024 bytes of slack to align the tiles to the swizzle atom, then q, do,
+  // k[stages], v[stages], the block's stats, the key terms of each stage,
+  // then the barriers
+  return 1024 + 2 * DqQTile<D>::kBytes + 2 * kDqStages * DqKTile<D>::kBytes +
+         kDqStatTiles * kStatBytes + kDqStages * kTermBytes + 8 * (1 + 2 * kDqStages);
+}
+
+struct DqArgs {
+  const float* stats;  // (B*H, n_qt, 2, kWgBlockM), n_qt a multiple of kDqStatTiles
+  const float* kterm;  // (B, n_kt * kDqBlockN)
+  bf16* dq;
+  Ax adq;
+  int H, S, kv_len, n_qt, n_kt;
+};
+
+// DQ's key terms: for every key of every batch row, padded to whole key
+// tiles, log2(e) * bias, 0 without a bias, or -inf at or past kv_len.
+__global__ void __launch_bounds__(kDqBlockN)
+    key_term_kernel(const float* __restrict__ kbias, float* __restrict__ kterm, int Sk,
+                    int kv_len, int n_kt) {
+  const int b = blockIdx.y;
+  const int key = blockIdx.x * kDqBlockN + threadIdx.x;
+  kterm[static_cast<int64_t>(b) * n_kt * kDqBlockN + key] =
+      key >= kv_len     ? -INFINITY
+      : kbias != nullptr ? kbias[static_cast<int64_t>(b) * Sk + key] * kLog2e
+                         : 0.f;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const DqArgs a) {
+  using QT = DqQTile<D>;
+  using KT = DqKTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sdo = sq + QT::kBytes;
+  const uint32_t sk = sdo + QT::kBytes;                 // + stage * KT::kBytes
+  const uint32_t sv = sk + kDqStages * KT::kBytes;      // + stage * KT::kBytes
+  const uint32_t sstat = sv + kDqStages * KT::kBytes;   // + wg * kStatBytes
+  const uint32_t sterm = sstat + kDqStatTiles * kStatBytes;  // + stage * kTermBytes
+  const uint32_t q_full = sterm + kDqStages * kTermBytes;
+  const uint32_t full = q_full + 8;                     // + 8 * stage
+  const uint32_t empty = full + 8 * kDqStages;          // + 8 * stage
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int q0 = blockIdx.x * kDqBlockM;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // key tiles at or past kv_len are never loaded
+  const int n_tiles = (a.kv_len + kDqBlockN - 1) / kDqBlockN;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kWgConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumerThreads / 32) {
+    // ---- producer warpgroup: gives up registers; one lane issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kWgConsumerThreads / 32 && lane == 0) {
+      mbar_expect_tx(q_full, 2 * QT::kBytes + kDqStatTiles * kStatBytes);
+#pragma unroll
+      for (int p = 0; p < QT::kParts; ++p) {
+        tma_load(sq + p * QT::kPartBytes, &tq, p * QT::kBox, q0, h, b, q_full);
+        tma_load(sdo + p * QT::kPartBytes, &tdo, p * QT::kBox, q0, h, b, q_full);
+      }
+      bulk_load(sstat,
+                a.stats + (static_cast<int64_t>(bh) * a.n_qt + blockIdx.x * kDqStatTiles) *
+                              (2 * kWgBlockM),
+                kDqStatTiles * kStatBytes, q_full);
+      const float* kterm = a.kterm + static_cast<int64_t>(b) * a.n_kt * kDqBlockN;
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kDqStages;
+        mbar_wait(empty + 8 * st, ((kt / kDqStages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * st;
+        mbar_expect_tx(bar, 2 * KT::kBytes + kTermBytes);
+#pragma unroll
+        for (int p = 0; p < KT::kParts; ++p) {
+          tma_load(sk + st * KT::kBytes + p * KT::kPartBytes, &tk, p * KT::kBox,
+                   kt * kDqBlockN, h, b, bar);
+          tma_load(sv + st * KT::kBytes + p * KT::kPartBytes, &tv, p * KT::kBox,
+                   kt * kDqBlockN, h, b, bar);
+        }
+        bulk_load(sterm + st * kTermBytes, kterm + kt * kDqBlockN, kTermBytes, bar);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 q rows each, sharing every k/v stage ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp / 4;
+  const int g = lane >> 2;   // row group of the accumulator fragments
+  const int tig = lane & 3;  // thread within the group
+  // consumer warp w holds rows 16w + g and 16w + g + 8 of the block
+  const int row0 = warp * 16 + g;
+  const uint32_t sq_wg = sq + wg * 64 * QT::kRowBytes;  // this warpgroup's q and do rows
+  const uint32_t sdo_wg = sdo + wg * 64 * QT::kRowBytes;
+  const float* term_s = reinterpret_cast<const float*>(smem_raw + (sterm - raw));
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  // lse*log2e and delta of this thread's two rows: row row0 % 64 of the
+  // warpgroup's stats tile, and 8 rows on
+  const float* stat_s =
+      reinterpret_cast<const float*>(smem_raw + (sstat - raw + wg * kStatBytes));
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    lse2[half] = stat_s[row0 % 64 + 8 * half];
+    delta[half] = stat_s[kWgBlockM + row0 % 64 + 8 * half];
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt % kDqStages;
+    const uint32_t k_st = sk + st * KT::kBytes;
+    const uint32_t v_st = sv + st * KT::kBytes;
+    const float* term_st = term_s + st * kDqBlockN;
+    mbar_wait(full + 8 * st, (kt / kDqStages) & 1);
+
+    // (1) s = q.k^T and (2) dp = do.v^T, two groups in flight
+    float s[kDqBlockN / 2], dp[kDqBlockN / 2];
+#pragma unroll
+    for (int i = 0; i < kDqBlockN / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, kmajor_desc<QT>(sq_wg, kk), kmajor_desc<KT>(k_st, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, kmajor_desc<QT>(sdo_wg, kk), kmajor_desc<KT>(v_st, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(s);
+
+    // p = exp(s + bias - lse), zero past kv_len: s[4j + 2*half + e] is row
+    // row0 + 8*half, key 8j + 2*tig + e of the tile
+#pragma unroll
+    for (int j = 0; j < kDqBlockN / 8; ++j) {
+      const float2 t = *reinterpret_cast<const float2*>(term_st + 8 * j + 2 * tig);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        s[4 * j + 2 * half] = ex2(fmaf(s[4 * j + 2 * half], kLog2e, t.x) - lse2[half]);
+        s[4 * j + 2 * half + 1] = ex2(fmaf(s[4 * j + 2 * half + 1], kLog2e, t.y) - lse2[half]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(dp);
+
+    // ds = p (dp - delta) in bf16: the accumulators of key blocks 2t and
+    // 2t + 1 are the A fragment of k16 step t; da[t][i] is row half i & 1
+    uint32_t da[kDqBlockN / 16][4];
+#pragma unroll
+    for (int t = 0; t < kDqBlockN / 16; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * t + 2 * i;
+        const float dl = delta[i & 1];
+        da[t][i] = M::pack(s[c] * (dp[c] - dl), s[c + 1] * (dp[c + 1] - dl));
+      }
+
+    // (3) dq += ds.k, k read MN-major from the resident stage
+    fence_operands(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < kDqBlockN / 16; ++t)
+      WgmmaRS<D>::run(dq, da[t], mnmajor_desc<KT>(k_st, t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq);
+    fence_operands(da);  // the A fragments stay live until (3) is done
+    mbar_arrive(empty + 8 * st);
+  }
+
+  // dq[4n + 2*half + e] is row row0 + 8*half, column 8n + 2*tig + e
+  bf16* dqb = a.dq + b * a.adq.b + h * a.adq.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + row0 + 8 * half;
+    if (row >= a.S) continue;
+    bf16* drow = dqb + row * a.adq.s + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(drow + n * 8) =
+          M::pack(dq[4 * n + 2 * half], dq[4 * n + 2 * half + 1]);
+  }
+}
+
+// ---- host side ------------------------------------------------------------------------
+
+// The stats pre-pass of every mode: lse*log2e and delta of n_qt 64-row q
+// tiles of every (batch, head) into `stats`, (B*H, n_qt, 2, 64).
+template <int D>
+int launch_stats(const Args& a, float* stats, int n_qt, int B, cudaStream_t stream) {
+  constexpr int kRows = kStatsThreads / (D / 8);  // divides kWgBlockM
+  bwd_stats_kernel<D><<<dim3(n_qt * kWgBlockM / kRows, B * a.H), kStatsThreads, 0, stream>>>(
+      a, stats, n_qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Modes DKV and FUSED: the stats pre-pass, then the wgmma kernel, on one
 // stream.  geom: seven int64 values for each of q, k, v and do in that order
 // (the dims (D, S, H, B) and the byte strides of the S, H and B axes), and
@@ -713,17 +784,14 @@ int launch_wgmma(const Args& a, const int64_t* geom, float* stats, int B,
   }
   if (err != 0) return err;
   const int n_qt = (a.S + kWgBlockM - 1) / kWgBlockM;
-  constexpr int kRows = kStatsThreads / (D / 8);  // divides kWgBlockM
-  bwd_stats_kernel<D><<<dim3(n_qt * kWgBlockM / kRows, B * a.H), kStatsThreads, 0, stream>>>(
-      a, stats, n_qt);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  err = launch_stats<D>(a, stats, n_qt, B, stream);
+  if (err != 0) return err;
   const BwdArgs d{a.kbias, stats, a.dk, a.dv, a.adk, a.adv, a.H, a.Sk, a.kv_len, n_qt};
   // above the 48 KB default, so opt in (per device, per call: the call costs
   // far less than the launch)
   constexpr int smem = bwd_smem_bytes<D, kFused>();
-  e = cudaFuncSetAttribute(flash_bwd_kernel<D, kFused>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_kernel<D, kFused>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.Sk + kWgBlockN - 1) / kWgBlockN, B * a.H);
   flash_bwd_kernel<D, kFused><<<grid, kWgThreads, smem, stream>>>(maps[0], maps[1], maps[2],
@@ -731,19 +799,44 @@ int launch_wgmma(const Args& a, const int64_t* geom, float* stats, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Mode DQ: the stats pre-pass over a whole number of 128-row blocks, the key
+// terms, then the wgmma kernel, on one stream.  geom as for DKV; scratch: the
+// stats, (B*H, 2 * ceil(S / 128), 2, 64), then the key terms, (B, ceil(Sk /
+// 64) * 64).
 template <int D>
-int launch(int mode, const Args& a, const int64_t* geom, float* stats, int B,
-           cudaStream_t stream) {
-  if (mode == kDkv) return launch_wgmma<D, false>(a, geom, stats, B, stream);
-  if (mode == kFused) return launch_wgmma<D, true>(a, geom, stats, B, stream);
-  // above the 48 KB default at D = 128, so opt in
+int launch_dq(const Args& a, const int64_t* geom, float* scratch, int B, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  int err = encode<DqQTile<D>>(&maps[0], a.q, geom);
+  if (err == 0) err = encode<DqKTile<D>>(&maps[1], a.k, geom + 7);
+  if (err == 0) err = encode<DqKTile<D>>(&maps[2], a.v, geom + 14);
+  if (err == 0) err = encode<DqQTile<D>>(&maps[3], a.dout, geom + 21);
+  if (err != 0) return err;
+  const int n_blocks = (a.S + kDqBlockM - 1) / kDqBlockM;
+  const int n_qt = n_blocks * kDqStatTiles;
+  const int n_kt = (a.Sk + kDqBlockN - 1) / kDqBlockN;
+  float* kterm = scratch + static_cast<int64_t>(B) * a.H * n_qt * (2 * kWgBlockM);
+  err = launch_stats<D>(a, scratch, n_qt, B, stream);
+  if (err != 0) return err;
+  key_term_kernel<<<dim3(n_kt, B), kDqBlockN, 0, stream>>>(a.kbias, kterm, a.Sk, a.kv_len,
+                                                          n_kt);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const DqArgs d{scratch, kterm, static_cast<bf16*>(a.dq), a.adq, a.H, a.S, a.kv_len, n_qt, n_kt};
   constexpr int smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.S + kDqBlockQ - 1) / kDqBlockQ, B * a.H);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(a);
+  e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_kernel<D><<<dim3(n_blocks, B * a.H), kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], d);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int mode, const Args& a, const int64_t* geom, float* scratch, int B,
+           cudaStream_t stream) {
+  if (mode == kDkv) return launch_wgmma<D, false>(a, geom, scratch, B, stream);
+  if (mode == kFused) return launch_wgmma<D, true>(a, geom, scratch, B, stream);
+  return launch_dq<D>(a, geom, scratch, B, stream);
 }
 
 int per_head_dim(int D, int d32, int d64, int d128) {
@@ -754,10 +847,10 @@ int per_head_dim(int D, int d32, int d64, int d128) {
 
 // mode 0 = DKV (dk, dv), 1 = FUSED (dk, dv, and dq added into the f32 buffer
 // `dq`), 2 = DQ (dq in bf16).  `strides` holds (batch, head, sequence)
-// element strides of q, k, v, o, do, dq, dk, dv in that order (24 values).
-// DKV and FUSED also read `geom` (the TMA geometry of q, k, v and do, 28
-// int64, and for FUSED of the f32 dq after them, 35; see launch_wgmma) and
-// write their stats into `scratch`; DQ ignores both.
+// element strides of o, do, dq, dk, dv in that order (15 values).  `geom` is
+// the TMA geometry of q, k, v and do (28 int64), and for FUSED of the f32 dq
+// after them (35; see launch_wgmma); every mode writes its pre-pass into
+// `scratch` (see launch_wgmma and launch_dq).
 extern "C" int flash_attn_bwd(int mode, const void* q, const void* k,
                               const void* v, const void* o, const void* dout,
                               const void* lse, const void* kbias, void* dq,
@@ -765,8 +858,7 @@ extern "C" int flash_attn_bwd(int mode, const void* q, const void* k,
                               const int64_t* geom, void* scratch, int B,
                               int H, int S, int Sk, int D, int kv_len,
                               void* stream) {
-  if (mode < kDkv || mode > kDq) return static_cast<int>(cudaErrorInvalidValue);
-  if (mode != kDq && (geom == nullptr || scratch == nullptr))
+  if (mode < kDkv || mode > kDq || geom == nullptr || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = static_cast<const bf16*>(q);
@@ -779,22 +871,22 @@ extern "C" int flash_attn_bwd(int mode, const void* q, const void* k,
   a.dq = dq;
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
-  Ax* axes[8] = {&a.aq, &a.ak, &a.av, &a.ao, &a.ado, &a.adq, &a.adk, &a.adv};
-  for (int i = 0; i < 8; ++i)
+  Ax* axes[5] = {&a.ao, &a.ado, &a.adq, &a.adk, &a.adv};
+  for (int i = 0; i < 5; ++i)
     *axes[i] = Ax{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   a.H = H;
   a.S = S;
   a.Sk = Sk;
   a.kv_len = kv_len;
-  float* stats = static_cast<float*>(scratch);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(mode, a, geom, stats, B, st);
+      return launch<32>(mode, a, geom, sc, B, st);
     case 64:
-      return launch<64>(mode, a, geom, stats, B, st);
+      return launch<64>(mode, a, geom, sc, B, st);
     case 128:
-      return launch<128>(mode, a, geom, stats, B, st);
+      return launch<128>(mode, a, geom, sc, B, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the wgmma flash-attention kernels
-// (flash_attn_fwd.cu, and the DKV and FUSED modes of flash_attn_bwd.cu): the
+// (flash_attn_fwd.cu, and every mode of flash_attn_bwd.cu): the
 // shared-memory geometry of a TMA tile, mbarriers, named barriers, TMA loads
 // and reduce-adds, wgmma and its shared-memory descriptors, and, on the host,
 // the encoding of a 4-D tensor map.

@@ -30,7 +30,8 @@ BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one per library, so two libraries build at once
 _loaded: Dict[str, ctypes.CDLL] = {}
 reports: Dict[str, str] = {}
 
@@ -78,6 +79,8 @@ def _compile(name: str, out: str) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             out = library_path(name)

@@ -15,12 +15,11 @@ The kernels are ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
 designs and the bounds.  Each wrapper counts its launches in ``.launches``.
 
 Contract (as in the JAX package):
-  - layouts ``"bhsd"`` (B, H, S, D) and ``"bshd"`` (B, S, H, D); the forward
-    and the dkv and fused backward read their operands through TMA tensor
-    maps over (D, S, H, B) with the tensors' byte strides
-    (``_tma_geometries``; the fused kernel also adds its dq through one), the
-    dq backward through element strides, so neither layout is transposed or
-    padded;
+  - layouts ``"bhsd"`` (B, H, S, D) and ``"bshd"`` (B, S, H, D); every
+    kernel reads its operands through TMA tensor maps over (D, S, H, B) with
+    the tensors' byte strides (``_tma_geometries``; the fused kernel also adds
+    its dq through one) and writes its outputs through element strides, so
+    neither layout is transposed or padded;
   - the 1/sqrt(D) softmax scale is folded into q in q's dtype before the
     kernels, which apply none; the backward's dq is taken with respect to the
     scaled q, and autograd of ``_scaled_q``'s multiply restores the scale;
@@ -51,7 +50,8 @@ BWD_KERNEL = "flash_attn_bwd"  # the backward's library (fused, dkv, dq)
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _BWD_MODES = {"dkv": 0, "fused": 1, "dq": 2}
 _ENCODE_ERROR = 10000  # a kernel returns this + the CUresult of a failed map encode
-_RING_BLOCK_Q = 64  # q rows per ring stage of dkv and fused (their stats scratch is per tile)
+_STAT_ROWS = 64  # q rows per tile of the backward's lse/delta scratch
+_DQ_BLOCK_Q, _DQ_BLOCK_K = 128, 64  # dq's q rows per block and keys per ring stage
 
 
 def _shape_of(x, layout):
@@ -314,12 +314,24 @@ def _tma_geometries(layout, *tensors):
 
 def _bwd_geometry(mode, layout, q, k, v, do, dq=None):
     """The ``geom`` argument of a backward mode: the TMA views of q, k, v
-    and do for ``"dkv"`` (28 values), and of the f32 dq accumulator after
-    them for ``"fused"`` (35); None for ``"dq"``, which reads through element
-    strides.  Raises ValueError for a tensor TMA cannot read."""
-    if mode == "dq":
-        return None
+    and do for ``"dkv"`` and ``"dq"`` (28 values), and of the f32 dq
+    accumulator after them for ``"fused"`` (35).  Raises ValueError for a
+    tensor TMA cannot read."""
     return _tma_geometries(layout, q, k, v, do, *((dq,) if mode == "fused" else ()))
+
+
+def _bwd_scratch_size(mode, B, H, S, Sk):
+    """f32 values of a backward mode's pre-pass scratch: lse*log2(e) and
+    delta for each 64-row q tile of every (batch, head), (B*H, n, 2, 64),
+    where dq's n covers whole 128-row blocks; then, for dq only, one term per
+    key padded to whole 64-key tiles, (B, ceil(Sk/64)*64) (log2(e) * bias,
+    0, or -inf past kv_len)."""
+    if mode == "dq":
+        n = -(-S // _DQ_BLOCK_Q) * (_DQ_BLOCK_Q // _STAT_ROWS)
+        terms = B * -(-Sk // _DQ_BLOCK_K) * _DQ_BLOCK_K
+    else:
+        n, terms = -(-S // _STAT_ROWS), 0
+    return B * H * n * 2 * _STAT_ROWS + terms
 
 
 def _check_kernel_inputs(name, layout, kbias, kv_len, **tensors):
@@ -412,15 +424,12 @@ def _launch_bwd(name, mode, q, k, v, o, lse, do, kbias, kv_len, layout, dq):
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     outs = [t if t is not None else q for t in (dq, dk, dv)]  # unused strides: any
-    strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, o, do, *outs)
+    strides = (ctypes.c_int64 * 15)(*(st for t in (o, do, *outs)
                                       for st in _strides_of(t, layout)))
     geom = _bwd_geometry(mode, layout, q, k, v, do, dq)
-    scratch = None
-    if geom is not None:
-        geom = (ctypes.c_int64 * len(geom))(*geom)
-        # lse*log2(e) and delta per q tile of the ring
-        scratch = torch.empty((B * H, -(-S // _RING_BLOCK_Q), 2, _RING_BLOCK_Q),
-                              dtype=torch.float32, device=q.device)
+    geom = (ctypes.c_int64 * len(geom))(*geom)
+    scratch = torch.empty(_bwd_scratch_size(mode, B, H, S, Sk), dtype=torch.float32,
+                          device=q.device)
     lib = _library(BWD_KERNEL)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -455,8 +464,9 @@ def flash_attn_bwd_dkv(q, k, v, o, lse, do, kbias=None, kv_len=None, layout="bhs
 
 
 def flash_attn_bwd_dq(q, k, v, o, lse, do, kbias=None, kv_len=None, layout="bhsd"):
-    """Launch the dq backward kernel: dq (of the pre-scaled q) in q's layout
-    and dtype."""
+    """Launch the dq backward (the kernel's lse/delta and key-term pre-pass,
+    then the kernel, in one C call; their f32 scratch comes from
+    ``torch.empty``): dq (of the pre-scaled q) in q's layout and dtype."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("flash_attn_bwd_dq", "dq", q, k, v, o, lse, do, kbias, kv_len, layout, dq)
     flash_attn_bwd_dq.launches += 1

@@ -55,6 +55,15 @@ CASES = [
     (1, 2, 100, 177, 64, "bshd", {}),
     (2, 3, 130, 200, 32, "bhsd", {"kv_valid": 150}),
     (2, 2, 80, 150, 64, "bshd", {"mask": "random"}),
+    # the edges of the port's dq kernel (128-row q blocks of two 64-row
+    # warpgroups, 64-key tiles): one query row, one row into the second
+    # warpgroup, one row into the second block, kv_valid one key into a
+    # tile, a key mask
+    (1, 2, 1, 150, 32, "bshd", {}),
+    (1, 2, 65, 140, 32, "bhsd", {}),
+    (1, 2, 129, 136, 32, "bshd", {"mask": "random"}),
+    (1, 2, 70, 160, 32, "bshd", {"kv_valid": 65}),
+    (1, 2, 65, 193, 32, "bhsd", {"mask": "random"}),
 ]
 
 

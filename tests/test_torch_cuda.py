@@ -196,10 +196,12 @@ def test_dkv_writes_zeros_past_kv_len(dev):
 
 
 # (S, Sk, kv_valid, mask) at the edges of the dkv and fused kernels' 128-key
-# blocks and 64-row q tiles
+# blocks and 64-row q tiles, and of the dq kernel's 128-row q blocks (two
+# 64-row warpgroups; S = 65 leaves the second one row, S = 64 none) and
+# 64-key tiles
 TILE_EDGES = ((1, 77, None, False), (1, 1, None, False), (65, 40, None, True),
               (70, 200, 129, False), (191, 130, 65, False), (129, 300, 100, False),
-              (100, 300, None, True))
+              (100, 300, None, True), (64, 193, None, True))
 
 
 def _tile_edge_runs(dev, layout, D, kernel):
@@ -255,6 +257,30 @@ def test_fused_tile_edges(dev, layout, D):
         assert_grad_or_noise(dq, dq_ref, Sk)
         assert_grad_or_noise(dk, dk_ref, Sk)
         assert_close_grad(dv, dv_ref)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_dq_tile_edges(dev, layout, D):
+    """The dq kernel at the same edges, which include its own: S = 1, a
+    second warpgroup with one row (S = 65) or none (S = 64), S not a
+    multiple of its 128-row block, Sk below one 64-key tile, kv_valid one key
+    into a tile, and a key mask; dq by ``assert_grad_or_noise`` (0 with one
+    key)."""
+    for dq, (dq_ref, _, _), Sk in _tile_edge_runs(dev, layout, D, FA.flash_attn_bwd_dq):
+        assert_grad_or_noise(dq, dq_ref, Sk)
+
+
+def test_dq_repeat_is_bit_identical(dev):
+    """dq has no atomics (each row is written once): two launches on the same
+    inputs (ragged S and Sk, a key mask, bshd) give identical dq."""
+    q, k, v, do, m = _training_inputs(dev, "bshd", 128, S=700, Sk=650)
+    qs = FA._scaled_q(q)
+    kw = dict(kbias=FA._key_bias(m, q.shape[0], 650), layout="bshd")
+    o, lse = FA.flash_attn_fwd_lse(qs, k, v, **kw)
+    first = FA.flash_attn_bwd_dq(qs, k, v, o, lse, do, **kw)
+    second = FA.flash_attn_bwd_dq(qs, k, v, o, lse, do, **kw)
+    assert torch.equal(first, second)
 
 
 def test_dkv_repeat_is_bit_identical(dev):

@@ -256,8 +256,8 @@ def test_dkv_tma_geometry_refuses_misaligned_do():
 def test_fused_tma_geometry(view):
     """The fused kernel's ``geom``: q, k, v and do as for dkv, then the f32 dq
     accumulator the wrapper allocates (q's shape, contiguous), whose byte
-    strides count 4-byte elements; 35 values.  dkv takes the first 28 and
-    dq none."""
+    strides count 4-byte elements; 35 values.  dkv and dq take the first
+    28."""
     B, H, S, Sk, D = 2, 3, 5, 9, 128
     layout = "bhsd" if view == "bhsd" else "bshd"
     shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
@@ -276,7 +276,7 @@ def test_fused_tma_geometry(view):
     want_dq = ((4 * H * D, 4 * D, 4 * S * H * D) if layout == "bshd"
                else (4 * D, 4 * S * D, 4 * H * S * D))
     assert geom[28:] == (D, S, H, B, *want_dq)
-    assert FA._bwd_geometry("dq", layout, q, k, v, do, dq32) is None
+    assert FA._bwd_geometry("dq", layout, q, k, v, do, dq32) == geom[:28]
 
 
 @pytest.mark.parametrize("operand", ["k", "do"])
@@ -291,6 +291,35 @@ def test_fused_tma_geometry_refuses_misaligned(operand):
     t[operand] = torch.zeros((B, H, S, D + 1), dtype=torch.bfloat16)[..., :D]
     with pytest.raises(ValueError, match="TMA"):
         FA._bwd_geometry("fused", "bhsd", t["q"], t["k"], t["v"], t["do"], dq32)
+
+
+@pytest.mark.parametrize("operand", ["k", "do"])
+def test_dq_tma_geometry_refuses_misaligned(operand):
+    """The dq kernel reads q, k, v and do through TMA too: a k or do whose
+    rows are not 16-byte multiples apart makes its geometry raise (and so the
+    dq wrapper, before any launch), while aligned operands pass."""
+    B, H, S, D = 1, 2, 8, 64
+    t = {n: torch.zeros((B, H, S, D), dtype=torch.bfloat16) for n in ("q", "k", "v", "do")}
+    assert len(FA._bwd_geometry("dq", "bhsd", t["q"], t["k"], t["v"], t["do"])) == 28
+    t[operand] = torch.zeros((B, H, S, D + 1), dtype=torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match="TMA"):
+        FA._bwd_geometry("dq", "bhsd", t["q"], t["k"], t["v"], t["do"])
+
+
+@pytest.mark.parametrize("S,Sk", [(1, 1), (64, 193), (65, 40), (4608, 4608)])
+def test_bwd_scratch_size(S, Sk):
+    """The pre-pass scratch the backward wrapper allocates: dkv and fused
+    hold lse*log2(e) and delta (2 x 64 f32) per 64-row q tile; dq holds them
+    for every 64-row half of its 128-row q blocks (an even tile count, so a
+    block's second warpgroup has its stats even wholly past S), then one f32
+    term per key padded to whole 64-key tiles, per batch row."""
+    B, H = 2, 3
+    tiles = -(-S // 64)
+    assert FA._bwd_scratch_size("dkv", B, H, S, Sk) == B * H * tiles * 128
+    assert FA._bwd_scratch_size("fused", B, H, S, Sk) == B * H * tiles * 128
+    dq_tiles = tiles + tiles % 2
+    assert FA._bwd_scratch_size("dq", B, H, S, Sk) == \
+        B * H * dq_tiles * 128 + B * -(-Sk // 64) * 64
 
 
 def test_aligned_refuses_expanded_axis():
