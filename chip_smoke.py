@@ -6,7 +6,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``
 result).  Every phase prints JSON records; a failing phase ends the run with
 a non-zero exit code.  Phases:
 
-1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
+   (``utils.env.collect_env``);
 2. build: every hand-written kernel library compiled from
    ``mixgrpo_tpu_torch/csrc`` (one ``nvcc`` per source, all started
    together), with ptxas's register and spill report;
@@ -37,6 +38,11 @@ a non-zero exit code.  Phases:
 6. update_full_depth: one ``update_step`` at ``virtual_depth=(19, 38)`` over a
    1 + 2 block stack, at 720px (12 pairs, fused backward) and 1024px (2
    pairs, split backward).
+7. train_flash_lora: MixGRPO-Flash with LoRA at full FLUX.1-dev width and
+   depth (19 + 38 blocks): a frozen random bf16 base, a rank-16 adapter,
+   DPM-Solver++ on the compressed tail after the SDE window; two iterations
+   through ``GRPOTrainer.train`` with the second one traced by the trainer's
+   profiler, and that trace's device breakdown.
 Each path's kernel launches are counted from 0 just before it runs and read
 just after, and must equal the prediction exactly.  Last come the
 ``kernels`` line, the ``nvidia-smi`` line, and the final status line.
@@ -966,7 +972,252 @@ def update_full_depth_phase(torch, FA, M, dev, card):
     return out
 
 
-PHASES = ("build", "kernels", "serve", "train", "update_full_depth")
+def trace_events(path, chunk=1 << 24):
+    """The ``traceEvents`` of a Chrome trace, one event at a time, decoded
+    from a rolling buffer: a full-depth iteration's trace is too big to load
+    whole."""
+    dec = json.JSONDecoder()
+    with open(path) as f:
+        buf = f.read(chunk)
+        while '"traceEvents"' not in buf:
+            more = f.read(chunk)
+            if not more:
+                return
+            buf += more
+        i = buf.index("[", buf.index('"traceEvents"')) + 1
+        while True:
+            while i < len(buf) and buf[i] in " \t\r\n,":
+                i += 1
+            if i < len(buf) and buf[i] == "]":
+                return
+            try:
+                if i >= len(buf):
+                    raise ValueError("need more")
+                ev, i = dec.raw_decode(buf, i)
+            except ValueError:
+                more = f.read(chunk)
+                if not more:
+                    raise
+                buf, i = buf[i:] + more, 0
+                continue
+            yield ev
+
+
+def kernel_class(name):
+    low = name.lower()
+    if any(s in low for s in ("flash_fwd_kernel", "flash_bwd", "bwd_stats_kernel",
+                              "key_term_kernel")):
+        return "flash_attn"
+    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
+        return "gemm"
+    if "copy_kernel" in low or "catarray" in low:
+        return "copy"  # dtype casts, contiguous copies, concatenations
+    if any(s in low for s in ("elementwise", "reduce_kernel", "vectorized", "softmax", "norm",
+                              "index")):
+        return "elementwise"
+    return "other"
+
+
+def trace_summary(path, spans=("rollout", "decode", "update")):
+    """Device breakdown of a ``utils.profiling.trace`` file: device-busy ms
+    by kernel class (memcpy and memset under "other"), overall and inside
+    each named span, the top ten kernels, and the idle share of the traced
+    window (first to last event of any kind) from the union of device
+    intervals."""
+    def zero():
+        return {"gemm": 0.0, "flash_attn": 0.0, "copy": 0.0, "elementwise": 0.0, "other": 0.0}
+
+    classes, per_kernel, kernels, span_at = zero(), {}, [], {}
+    lo, hi, n_events = float("inf"), 0.0, 0
+    for ev in trace_events(path):
+        n_events += 1
+        if ev.get("ph") != "X":
+            continue
+        ts, dur = float(ev.get("ts", 0)), float(ev.get("dur", 0))
+        lo, hi = min(lo, ts), max(hi, ts + dur)
+        cat, name = ev.get("cat", ""), ev.get("name", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            cls = kernel_class(name) if cat == "kernel" else "other"
+            classes[cls] += dur / 1e3
+            k = per_kernel.setdefault(name, [0.0, 0])
+            k[0] += dur / 1e3
+            k[1] += 1
+            kernels.append((ts, ts + dur, cls))
+        elif name in spans and cat in ("user_annotation", "cpu_op"):
+            span_at.setdefault(name, (ts, ts + dur))
+    kernels.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e, _ in kernels:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    span_ms = {}
+    for name, (s, e) in span_at.items():
+        by = zero()
+        for a, b, cls in kernels:
+            if b > s and a < e:
+                by[cls] += (min(b, e) - max(a, s)) / 1e3
+        span_ms[name] = {"wall_ms": (e - s) / 1e3, "device_busy_ms": sum(by.values()),
+                         "class_ms": by}
+    window_ms = (hi - lo) / 1e3 if hi > lo else 0.0
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"events": n_events, "device_kernels": len(kernels),
+            "traced_window_ms": window_ms, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / 1e3 / window_ms if window_ms else None,
+            "class_ms": classes, "spans": span_ms,
+            "top_kernels": [{"name": n[:240], "ms": ms, "count": c} for n, (ms, c) in top]}
+
+
+def train_flash_lora_phase(torch, FA, M, dev, card, root):
+    """MixGRPO-Flash with LoRA at full FLUX.1-dev width and depth: a frozen
+    random bf16 base (19 + 38 blocks), a rank-16 adapter on
+    ``lora.DEFAULT_TARGETS``, the recipe's rollout and update (720px, 25
+    steps, eta 0.7, 12 generations in chunks of 2, window 4, accumulation 3,
+    gradient checkpointing) with DPM-Solver++ order 2 (midpoint) on the tail
+    after the window compressed by 0.4, the full random bf16 VAE decoder,
+    random text embeddings through the embedding cache and the brightness
+    reward.  ``GRPOTrainer.train`` runs two iterations with
+    ``profile_steps=1``, so the second one is traced by the trainer's own
+    profiler.  Launches are counted per iteration (reset just before it,
+    read just after) and must match the prediction exactly; the base must be
+    left bit for bit, some ``b`` factor must move, metrics must be finite and
+    the peak below 80 GB."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from mixgrpo_tpu_torch.config import DPMConfig, RunConfig, TrainConfig
+    from mixgrpo_tpu_torch.data.dataset import (
+        EmbeddingCacheWriter, LatentDataset, PromptLoader,
+    )
+    from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, init_vae_decoder
+    from mixgrpo_tpu_torch.train import GRPOTrainer
+
+    flux_cfg, vcfg = M.FluxConfig.flux_dev(), VAEConfig.flux_dev()
+    blocks = flux_cfg.depth_double + flux_cfg.depth_single
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        cfg = TrainConfig(
+            dpm=DPMConfig(dpm_algorithm_type="dpmsolver++", dpm_apply_strategy="post",
+                          dpm_post_compress_ratio=0.4, dpm_solver_order=2,
+                          dpm_solver_type="midpoint"),
+            run=RunConfig(output_dir=tmp, experiment_name="flash_lora", profile_steps=1,
+                          export_safetensors="off"))
+        cfg.optim.max_train_steps = 2
+        g = cfg.grpo
+        w = EmbeddingCacheWriter(os.path.join(tmp, "cache"))
+        rng = np.random.default_rng(0)
+        for i in range(4):
+            w.add(rng.standard_normal((512, flux_cfg.context_dim), np.float32),
+                  rng.standard_normal((flux_cfg.pooled_dim,), np.float32), f"prompt {i}")
+        w.finish()
+        loader = PromptLoader(LatentDataset(os.path.join(tmp, "cache")),
+                              cfg.data.train_batch_size, seed=g.seed)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        base = M.init_flux(flux_cfg, generator=torch.Generator(dev).manual_seed(g.seed),
+                           device=dev, dtype=torch.bfloat16)
+        vae = init_vae_decoder(vcfg, generator=torch.Generator(dev).manual_seed(2),
+                               device=dev, dtype=torch.bfloat16)
+        trainer = GRPOTrainer(cfg, flux_cfg=flux_cfg, params=base, vae_cfg=vcfg,
+                              vae_params=vae, reward_fn=brightness_reward, device=dev,
+                              use_lora=True, lora_rank=16, lora_alpha=16.0)
+        torch.cuda.synchronize()
+        factors = trainer.lora_factors
+        emit({"phase": "train_flash_lora_setup", "flux_params": M.param_count(base),
+              "lora_params": M.param_count(factors), "lora_targets": len(factors),
+              "depth": [flux_cfg.depth_double, flux_cfg.depth_single], "resolution": g.h,
+              "sampling_steps": g.sampling_steps, "num_generations": g.num_generations,
+              "rollout_chunk": g.rollout_chunk,
+              "gradient_accumulation_steps": cfg.optim.gradient_accumulation_steps,
+              "dpm": dataclasses.asdict(cfg.dpm), "seconds": time.perf_counter() - t0,
+              "allocated_gb": torch.cuda.memory_allocated() / 1e9, "device": card})
+        # a corner of targeted and untargeted base leaves, at several depths
+        probes = [base["double"]["img_qkv"]["w"][0], base["double"]["txt_mlp_in"]["w"][-1],
+                  base["single"]["linear1"]["w"][-1], base["single"]["linear2"]["w"][0],
+                  base["single"]["mod"]["lin"]["w"][1], base["x_embedder"]["w"]]
+        before = [t[:64, :64].clone() for t in probes]
+        inner, iters, launches = trainer.train_one_step, [], {}
+
+        def counted(batch, timesteps):
+            _, _, n = trainer._schedule_for_window(timesteps)
+            FA.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = inner(batch, timesteps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = {k: f.launches for k, f in FA.KERNEL_WRAPPERS.items()}
+            for k, c in used.items():
+                launches[k] = launches.get(k, 0) + c
+            n_groups = -(-g.num_generations // cfg.optim.gradient_accumulation_steps)
+            L = (g.h // 16) * (g.w // 16)
+            Sp = 512 + L + (-(512 + L)) % 128  # flux_forward's padded joint sequence
+            bwd = FA.default_bwd(Sp, Sp)
+            want = {"flash_attn_fwd": g.num_generations // g.rollout_chunk * n * blocks,
+                    "flash_attn_fwd_lse": n_groups * 2 * blocks,
+                    "flash_attn_bwd_fused": n_groups * blocks if bwd == "fused" else 0,
+                    "flash_attn_bwd_dkv": n_groups * blocks if bwd == "split" else 0,
+                    "flash_attn_bwd_dq": n_groups * blocks if bwd == "split" else 0}
+            rec = {"phase": "train_flash_lora_iteration", "iteration": len(iters),
+                   "window": list(timesteps), "num_steps": m["num_steps"],
+                   "predicted_num_steps": n, "seconds": wall, "rollout_s": m["rollout_time"],
+                   "decode_s": m["decode_time"], "update_s": m["update_time"],
+                   "loss": m["loss"], "clip_frac": m["clip_frac"],
+                   "grad_norm": m["grad_norm"], "reward": m["reward"], "launches": used,
+                   "expected_launches": want, "backward": bwd,
+                   "traced": trainer.profile_trace is not None,
+                   "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "device": card}
+            emit(rec)
+            iters.append(rec)
+            if used != want or m["num_steps"] != n:
+                raise AssertionError(f"train_flash_lora iteration {rec['iteration']}: "
+                                     f"launches {used} != {want} or num_steps "
+                                     f"{m['num_steps']} != {n}")
+            if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm", "reward")):
+                raise AssertionError(f"train_flash_lora: non-finite metrics {m}")
+            if rec["max_memory_allocated_gb"] >= 80:
+                raise AssertionError(f"train_flash_lora: peak {rec['max_memory_allocated_gb']} GB")
+            return m
+
+        trainer.train_one_step = counted
+        t0 = time.perf_counter()
+        trainer.train(loader)
+        train_s = time.perf_counter() - t0
+        base_same = all(torch.equal(t[:64, :64], b) for t, b in zip(probes, before))
+        b_moved = any(bool(f["b"].abs().sum() > 0) for f in trainer.lora_factors.values())
+        tr = trainer.profile_trace
+        trace_ok = tr is not None and tr.path is not None and os.path.exists(tr.path)
+        rec = {"phase": "train_flash_lora", "iterations": len(iters), "blocks": blocks,
+               "train_s": train_s, "s_per_iteration": [r["seconds"] for r in iters],
+               "launches": launches, "base_unchanged": base_same, "b_factor_moved": b_moved,
+               "trace_written": trace_ok,
+               "max_memory_allocated_gb": max(r["max_memory_allocated_gb"] for r in iters),
+               "device": card}
+        if trace_ok:
+            t0 = time.perf_counter()
+            summary = trace_summary(tr.path)
+            emit({"phase": "train_flash_lora_profile", "what": "the second iteration, "
+                  "traced by GRPOTrainer.train (profile_steps=1)",
+                  "trace_mb": os.path.getsize(tr.path) / 1e6,
+                  "export_s": tr.export_seconds, "summary_s": time.perf_counter() - t0,
+                  **summary, "device": card})
+        emit(rec)
+        if not (len(iters) == 2 and base_same and b_moved and trace_ok):
+            raise AssertionError(f"train_flash_lora failed its checks: {rec}")
+        del trainer, base, vae, factors, probes, before
+    return launches
+
+
+PHASES = ("build", "kernels", "serve", "train", "update_full_depth",
+          "train_flash_lora")
 TRAIN_DEPTH = (2, 4)
 FULL_DEPTH = (19, 38)
 
@@ -1001,9 +1252,12 @@ def main() -> int:
     dev = torch.device("cuda")
     card = smi()
     kind = torch.cuda.get_device_name(0)
+    from mixgrpo_tpu_torch.utils.env import collect_env
+
     emit({"phase": "device", "nvidia_smi": card, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "env": collect_env()})
 
     # -- build: one nvcc per source, all started together ------------------------
     t0 = time.perf_counter()
@@ -1043,6 +1297,9 @@ def main() -> int:
         full = update_full_depth_phase(torch, FA, M, dev, card)
         for n in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
             rows.setdefault(n, {})["launches"] = full[1024]["launches"][n]
+        torch.cuda.empty_cache()
+    if "train_flash_lora" in only:
+        train_flash_lora_phase(torch, FA, M, dev, card, root)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
     if only != set(PHASES):

@@ -10,5 +10,7 @@ Ported so far: the FLUX.1-dev serving path (``serve.py`` -> ``sample.py`` ->
 ``ops/attention.py`` -> the CUDA flash-attention forward -> VAE decode), and
 one GRPO iteration on one card (``train.py`` -> ``sampler.chunked_rollout``,
 VAE decode, ``rl/``, ``trainer.py`` -> the CUDA forward with logsumexp and
-backward kernels under ``torch.autograd``).
+backward kernels under ``torch.autograd``), with MixGRPO-Flash
+(``solvers/dpm.py``), LoRA (``lora.py``) and profiler traces
+(``utils/profiling.py``).
 """

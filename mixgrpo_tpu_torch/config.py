@@ -191,8 +191,9 @@ class RewardConfig:
 @dataclasses.dataclass
 class RuntimeConfig:
     """Runtime knobs with no reference counterpart (the reference hardcodes
-    flash-attn CUDA and wires LoRA through peft + env).  LoRA waits for the
-    port of lora.py."""
+    flash-attn CUDA and wires LoRA through peft + env).  ``GRPOTrainer``
+    reads the LoRA fields where its ``use_lora``, ``lora_rank`` and
+    ``lora_alpha`` keywords are not given."""
 
     attn_impl: str = "auto"  # auto|flash|eager
     use_lora: bool = False
@@ -208,7 +209,7 @@ class RunConfig:
     resume_from_checkpoint: Optional[str] = None
     logging_dir: str = "logs"
     wandb_key: Optional[str] = None
-    # a device trace of N steps; waits for the port of utils/profiling.py
+    # a torch.profiler trace of N iterations, from the second of a run on
     profile_steps: int = 0
     profile_dir: Optional[str] = None  # default: <run_dir>/profile
     # diffusers-layout safetensors export at each checkpoint: waits for the

@@ -1,0 +1,173 @@
+"""LoRA adapters for the FLUX MMDiT (and any parameter tree of tensors).
+
+Port of mixgrpo_tpu/lora.py.  An adapter is a parallel tree of low-rank
+factors over selected weight leaves:
+
+    w_eff = w + (a @ b * (alpha / rank)).to(w.dtype)
+
+Factors are keyed by the leaf's path as JAX writes it (``"double/img_qkv/w"``)
+and kept in f32.  Stacked block weights (depth, in, out) get per-depth
+factors a (depth, in, r) ~ N(0, 1/in) and b (depth, r, out) = 0, so the
+block stacks keep their leading depth axis.  The base stays frozen (it can
+live in bf16) and only the factors train.
+
+Two ways to merge, with the same numbers:
+  - ``apply_lora`` builds the effective tree (JAX's ``apply_lora``), one
+    depth slice at a time so no full-stack f32 delta is ever held; the
+    trainer's rollout runs on it under ``torch.no_grad``;
+  - ``lora_blocks`` merges the leaves outside the block stacks at once and
+    gives ``flux_forward`` a per-block merge that it calls inside each
+    (checkpointed) block body: only that block's merged weights exist, and
+    the backward gathers no gradient of a full-size weight stack.  The
+    update differentiates through it.
+
+``save_lora``/``load_lora`` write and read the safetensors layout with the
+standard library and numpy (8-byte little-endian header length, a JSON
+header with ``__metadata__`` {rank, alpha}, raw little-endian f32 data), so
+files interchange with JAX's, which go through the ``safetensors`` package.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import struct
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+DEFAULT_TARGETS = r"(qkv|linear1|linear2|attn_out|mlp_in|mlp_out)/w$"
+
+
+def _leaves_with_paths(tree, prefix=""):
+    """(path, tensor) of every leaf, dict keys in sorted order (JAX's order),
+    the path's parts joined by ``/``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaves_with_paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _map_with_paths(fn, tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _map_with_paths(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
+def init_lora(generator, params: Any, rank: int = 16, alpha: float = 16.0,
+              targets: str = DEFAULT_TARGETS) -> Dict[str, Any]:
+    """The adapter tree ``{"factors": {path: {"a", "b"}}, "rank", "alpha"}``
+    over every leaf of two or more dims whose path matches ``targets``;
+    ``a`` is drawn from ``generator`` on the leaf's device, leaf by leaf in
+    path order (the values differ from JAX's ``jax.random``)."""
+    factors = {}
+    for path, leaf in _leaves_with_paths(params):
+        if leaf.ndim < 2 or not re.search(targets, path):
+            continue
+        *lead, din, dout = leaf.shape
+        a = torch.randn((*lead, din, rank), generator=generator, device=leaf.device,
+                        dtype=torch.float32) * din ** -0.5
+        b = torch.zeros((*lead, rank, dout), device=leaf.device, dtype=torch.float32)
+        factors[path] = {"a": a, "b": b}
+    return {"factors": factors, "rank": rank, "alpha": alpha}
+
+
+def apply_lora(params: Any, lora: Dict[str, Any]) -> Any:
+    """The effective parameter tree: targeted leaves merged, the others
+    shared with ``params``.  Each depth slice's delta is made and added on
+    its own (a full-depth stack's f32 delta would be 4x the bf16 stack)."""
+    scale = lora["alpha"] / lora["rank"]
+    factors = lora["factors"]
+
+    def merge(path, leaf):
+        if path not in factors:
+            return leaf
+        a, b = factors[path]["a"], factors[path]["b"]
+        out = torch.empty_like(leaf)
+        flat, fa, fb = (t.reshape(-1, *t.shape[-2:]) for t in (out, a, b))
+        for i, w in enumerate(leaf.reshape(-1, *leaf.shape[-2:])):
+            flat[i] = w + (fa[i] @ fb[i] * scale).to(leaf.dtype)
+        return out
+
+    return _map_with_paths(merge, params)
+
+
+def merge_lora(params: Any, lora: Dict[str, Any]) -> Any:
+    """Permanently fold adapters into the weights (for export)."""
+    return apply_lora(params, lora)
+
+
+def lora_blocks(params: Any, lora: Dict[str, Any], stacks=("double", "single")):
+    """``(tree, merge_block)`` for ``flux_forward(tree, ...,
+    block_params=merge_block)``: ``tree`` is ``params`` with the targeted
+    leaves outside the block ``stacks`` merged (``apply_lora``), and
+    ``merge_block(stack, i, p)`` returns block ``i`` of ``stack`` (its
+    parameter dict ``p``) with its targeted leaves merged, slice ``i`` of
+    each factor."""
+    scale = lora["alpha"] / lora["rank"]
+    inside = {p: f for p, f in lora["factors"].items() if p.split("/", 1)[0] in stacks}
+    outside = {p: f for p, f in lora["factors"].items() if p not in inside}
+
+    def merge_block(stack, i, p):
+        def merge(path, w):
+            f = inside.get(f"{stack}/{path}")
+            return w if f is None else w + (f["a"][i] @ f["b"][i] * scale).to(w.dtype)
+        return _map_with_paths(merge, p)
+
+    return apply_lora(params, {**lora, "factors": outside}), merge_block
+
+
+_SAFETENSORS_F32 = "F32"
+
+
+def save_lora(lora: Dict[str, Any], path: str) -> None:
+    """Write the factors as ``<path>.lora_A`` / ``.lora_B`` f32 tensors in
+    the safetensors layout, with metadata {rank, alpha}."""
+    arrays = {}
+    for ps, f in lora["factors"].items():
+        arrays[f"{ps}.lora_A"] = f["a"].detach().to("cpu", torch.float32).numpy()
+        arrays[f"{ps}.lora_B"] = f["b"].detach().to("cpu", torch.float32).numpy()
+    header: Dict[str, Any] = {"__metadata__": {"rank": str(lora["rank"]),
+                                               "alpha": str(lora["alpha"])}}
+    offset = 0
+    for name in sorted(arrays):
+        n = arrays[name].nbytes
+        header[name] = {"dtype": _SAFETENSORS_F32, "shape": list(arrays[name].shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(blob)))
+        fh.write(blob)
+        for name in sorted(arrays):
+            fh.write(np.ascontiguousarray(arrays[name], dtype="<f4").tobytes())
+
+
+def load_lora(path: str, device="cuda") -> Dict[str, Any]:
+    """Read a file written by ``save_lora`` (this one or JAX's); the factors
+    are put on ``device``."""
+    with open(path, "rb") as fh:
+        (n,) = struct.unpack("<Q", fh.read(8))
+        header = json.loads(fh.read(n))
+        data = fh.read()
+    meta = header.pop("__metadata__", None) or {}
+    factors: Dict[str, Any] = {}
+    for name, info in header.items():
+        if info["dtype"] != _SAFETENSORS_F32:
+            raise ValueError(f"{path}: {name} is {info['dtype']}, not F32")
+        begin, end = info["data_offsets"]
+        arr = np.frombuffer(data, dtype="<f4", count=(end - begin) // 4, offset=begin)
+        base, kind = name.rsplit(".", 1)
+        factors.setdefault(base, {})["a" if kind == "lora_A" else "b"] = \
+            torch.from_numpy(arr.reshape(info["shape"]).copy()).to(device)
+    return {"factors": factors, "rank": int(meta.get("rank", 16)),
+            "alpha": float(meta.get("alpha", 16.0))}
+
+
+def lora_loss_fn(base_params, lora, loss_of_params):
+    """``loss_of_params`` of the merged tree; differentiate it with respect
+    to the factors only (the trainer's update merges per block instead,
+    ``lora_blocks``)."""
+    return loss_of_params(apply_lora(base_params, lora))

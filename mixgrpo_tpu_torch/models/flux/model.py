@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -282,6 +282,7 @@ def flux_forward(
     remat=False,
     virtual_depth: Optional[tuple] = None,
     pad_seq_multiple: int = 128,
+    block_params: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Predict rectified-flow velocity for packed image tokens (f32).
 
@@ -291,6 +292,11 @@ def flux_forward(
     ``remat``: recompute each block in the backward (any true value; JAX's
     ``"dots"`` included).  ``virtual_depth=(DD, DS)``: DD double and DS
     single block applications cycling the resident stacks.
+
+    ``block_params(stack, i, p)``: the parameters that block ``i`` of
+    ``stack`` (``"double"`` or ``"single"``), whose own are ``p``, runs with;
+    called inside the block's (recomputed) body, so ``lora.lora_blocks``
+    merges an adapter there one block at a time.
 
     ``pad_seq_multiple``: pad the image-token tail so the joint sequence is a
     multiple (identity-RoPE pad positions, key-masked in attention through
@@ -334,26 +340,28 @@ def flux_forward(
     if layout == "bshd":  # (S, 1, D): S lines up with the token axis
         rope_cos, rope_sin = rope_cos[:, None, :], rope_sin[:, None, :]
 
-    def double(x, c, p):
-        return _double_block(p, cfg, x, c, vec, rope_cos, rope_sin, attn_impl, dtype,
-                             layout, attn_valid=attn_valid)
+    doubles, singles = _unstack(params["double"]), _unstack(params["single"])
+    block = block_params or (lambda stack, i, p: p)
 
-    def single(joint, p):
-        return _single_block(p, cfg, joint, vec, rope_cos, rope_sin, attn_impl, dtype,
-                             layout, attn_valid=attn_valid)
+    def double(x, c, i):
+        return _double_block(block("double", i, doubles[i]), cfg, x, c, vec, rope_cos,
+                             rope_sin, attn_impl, dtype, layout, attn_valid=attn_valid)
+
+    def single(joint, i):
+        return _single_block(block("single", i, singles[i]), cfg, joint, vec, rope_cos,
+                             rope_sin, attn_impl, dtype, layout, attn_valid=attn_valid)
 
     def run(body, *args):
         if remat and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
         return body(*args)
 
-    doubles, singles = _unstack(params["double"]), _unstack(params["single"])
     n_double, n_single = virtual_depth or (len(doubles), len(singles))
     for i in range(n_double):
-        x, c = run(double, x, c, doubles[i % len(doubles)])
+        x, c = run(double, x, c, i % len(doubles))
     joint = torch.cat([c, x], dim=1)
     for i in range(n_single):
-        joint = run(single, joint, singles[i % len(singles)])
+        joint = run(single, joint, i % len(singles))
     x = joint[:, L_txt : L_txt + L_img]
 
     scale, shift = L.modulation(params["final_mod"], vec, 2, dtype)

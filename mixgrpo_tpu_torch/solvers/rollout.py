@@ -6,10 +6,17 @@ steps (eager PyTorch has no trace to keep shape-stable).  The padded-step
 contract is kept: schedule rows with ``i >= num_steps`` leave the latents
 frozen at z_T with log_prob 0.
 
+DPM-Solver (``dpm_algorithm_type`` "dpmsolver" or "dpmsolver++"): strategy
+"all" runs every step as a multistep DPM-Solver step (SDE inside the window);
+"post" (MixGRPO-Flash) runs the window's steps as SDE steps and the tail
+after the last SDE step as DPM-Solver ODE steps.  Each ``run_rollout`` call
+(each chunk of a chunked rollout) starts its own x0 ring buffer of
+``max(order, 1)`` zeros; a window step pushes its x0 and counts toward the
+order warm-up, so the first tail step can already run second order.
+
 Noise: JAX draws ``normal(fold_in(rng, i))`` per step, which torch cannot
 reproduce; ``noise_fn(i, shape)`` lets a caller (the parity tests) supply the
 draws, otherwise SDE steps draw from ``generator`` and ODE steps use none.
-The DPM-Solver branches wait for the port of ``solvers/dpm.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from mixgrpo_tpu_torch.solvers import dpm as dpm_mod
 from mixgrpo_tpu_torch.solvers.steps import dance_grpo_step, flow_grpo_step
 
 
@@ -47,11 +55,6 @@ class RolloutOutput(NamedTuple):
     step_valid: torch.Tensor  # (T_max,) bool
 
 
-def _require_no_dpm(cfg: SamplerConfig):
-    if cfg.use_dpm:
-        raise NotImplementedError("DPM-Solver steps wait for the port of solvers/dpm.py")
-
-
 def rollout_step(
     cfg: SamplerConfig,
     model_fn: Callable,
@@ -68,26 +71,47 @@ def rollout_step(
     """One solver step given the model prediction.
 
     ``model_fn(z, sigma) -> velocity``; ``deterministic`` is this step's
-    ODE/SDE flag.  Returns ``(z_next, log_prob, x0_pred, dpm_state)``; a step
-    at or past ``num_steps`` passes the latents through with log_prob 0."""
-    _require_no_dpm(cfg)
+    ODE/SDE flag; ``last_sde_index`` the index of the last SDE step (-1 for
+    none), which splits a "post" schedule into window and tail.  Returns
+    ``(z_next, log_prob, x0_pred, dpm_state)``; a step at or past
+    ``num_steps`` passes the latents and the state through with log_prob 0."""
     i = int(step_index)
     zf = z.float()
     if i >= num_steps:
         return zf, zf.new_zeros(zf.shape[0]), zf, dpm_state
     sigma, sigma_prev, sigma_max = sigmas[i], sigmas[i + 1], sigmas[1]
     pred = model_fn(z, sigma).float()
-    if cfg.flow_grpo_sampling:
-        z_next, x0, log_prob, _, _ = flow_grpo_step(
-            pred, zf, cfg.eta, sigma, sigma_prev, sigma_max,
-            noise=noise, deterministic=deterministic,
-        )
-    else:
-        z_next, x0, log_prob = dance_grpo_step(
-            pred, zf, cfg.eta, sigma, sigma_prev,
-            noise=noise, sde=not bool(deterministic),
-        )
-    return z_next, log_prob, x0, dpm_state
+
+    def sde_step():
+        if cfg.flow_grpo_sampling:
+            z_next, x0, log_prob, _, _ = flow_grpo_step(
+                pred, zf, cfg.eta, sigma, sigma_prev, sigma_max,
+                noise=noise, deterministic=deterministic,
+            )
+        else:
+            z_next, x0, log_prob = dance_grpo_step(
+                pred, zf, cfg.eta, sigma, sigma_prev,
+                noise=noise, sde=not bool(deterministic),
+            )
+        return z_next, x0, log_prob
+
+    if not cfg.use_dpm:
+        z_next, x0, log_prob = sde_step()
+        return z_next, log_prob, x0, dpm_state
+    x0 = dpm_mod.convert_model_output(pred, zf, sigma)
+    st = dpm_mod.dpm_state_update(dpm_state, x0)
+    if cfg.dpm_apply_strategy == "post" and i <= last_sde_index:
+        # a window step: the SDE step, with its x0 pushed into the ring
+        z_next, _, log_prob = sde_step()
+        return z_next, log_prob, x0, dpm_mod.dpm_state_bump(st, cfg.dpm_solver_order)
+    # "all" (SDE inside the window), or the tail of "post" (ODE)
+    sde = cfg.dpm_apply_strategy == "all" and not bool(deterministic)
+    z_next, _, log_prob, st = dpm_mod.dpm_solver_step(
+        algo=cfg.dpm_algorithm_type, solver_order=cfg.dpm_solver_order,
+        solver_type=cfg.dpm_solver_type, state=st, sample=zf, sigmas=sigmas, step_index=i,
+        num_steps=num_steps, noise=noise if sde else None, sde=sde,
+    )
+    return z_next, log_prob, x0, st
 
 
 def run_rollout(
@@ -112,7 +136,6 @@ def run_rollout(
       generator: draws the SDE steps' noise when ``noise_fn`` is not given.
       noise_fn: ``(i, shape) -> noise`` for step ``i`` (array-like).
     """
-    _require_no_dpm(cfg)
     T = cfg.num_steps_max
     dev = z0.device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=dev)
@@ -122,6 +145,10 @@ def run_rollout(
     num_steps = int(num_steps)
     if not 0 <= num_steps <= T:
         raise ValueError(f"num_steps={num_steps} outside [0, {T}]")
+
+    sde_steps = [i for i, d in enumerate(det) if not d]
+    last_sde_index = sde_steps[-1] if sde_steps else -1
+    dpm_state = dpm_mod.dpm_state_init(max(cfg.dpm_solver_order, 1), z0.shape, device=dev)
 
     z = z0.float()
     z0f, x0_final = z, z
@@ -135,10 +162,10 @@ def run_rollout(
                 noise = torch.zeros_like(z)  # the ODE branch ignores it
             else:
                 noise = torch.randn(z.shape, generator=generator, device=dev)
-            z, log_prob, x0, _ = rollout_step(
-                cfg, model_fn, z, None,
+            z, log_prob, x0, dpm_state = rollout_step(
+                cfg, model_fn, z, dpm_state,
                 sigmas=sigmas, step_index=i, num_steps=num_steps,
-                deterministic=det[i], last_sde_index=None, noise=noise,
+                deterministic=det[i], last_sde_index=last_sde_index, noise=noise,
             )
             zs.append(z)
             lps.append(log_prob)

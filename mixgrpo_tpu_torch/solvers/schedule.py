@@ -5,8 +5,7 @@ Port of mixgrpo_tpu/solvers/schedule.py, copied in full (host-side numpy):
   - ``sigma_schedule``: ``linspace(1, 0, T+1)`` time-shifted;
   - ``flash_post_schedule``: MixGRPO-Flash "post" compression of the ODE tail
     after the SDE window, padded to a fixed length with a valid-step count
-    (the DPM-Solver steps that run such a schedule wait for the port of
-    ``solvers/dpm.py``, so the trainer refuses it for now);
+    (the rollout runs the tail with the DPM-Solver steps of ``dpm.py``);
   - ``deterministic_mask``: the per-step ODE/SDE mask of the window.
 Schedules are computed once per iteration and handed to the rollout as data.
 """

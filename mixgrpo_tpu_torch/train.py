@@ -14,7 +14,16 @@ iteration (``train_one_step``):
   6. PPO updates: each accumulation group of (sample, window timestep)
      pairs is one forward and backward, then one AdamW step;
   7. metrics, reward text streams; ``train`` adds the window walk, EMA,
-     periodic checkpoints with the window state, and resume.
+     periodic checkpoints with the window state, resume, and a profiler
+     trace of ``profile_steps`` iterations (``utils/profiling.py``).
+
+MixGRPO-Flash: with a DPM-Solver algorithm and the "post" strategy the
+schedule after the window is compressed (``flash_post_schedule``) and the
+rollout runs that tail with DPM-Solver ODE steps; "all" runs every step as a
+DPM-Solver step.  ``use_lora=True`` trains a LoRA adapter (``lora.py``) over
+a frozen base (which can be bf16 and needs no grads): the rollout runs on
+the merged weights, made once per iteration and freed before the decode;
+the update merges each block's factors inside the block; EMA is off.
 
 Randomness comes from ``torch.Generator``s seeded from (``sampler_seed``,
 ``global_step``, stream), so an iteration is reproducible on one device (the
@@ -23,15 +32,15 @@ noise_fn=...)`` takes the initial noise and the SDE draws from outside, which
 the tests use to hand the port JAX's draws.
 
 Waiting for later slices, and refused here: the reward model zoo (a
-``reward_fn`` is required), LoRA, int8 rollouts, DPM-Solver schedules,
-profiler traces, the diffusers safetensors export (``"auto"`` skips it with
-one warning, ``"required"`` raises), meshes of more than one device; not
-ported at all yet: image dumps and the CLI ``main`` (which needs the weight
-loaders).
+``reward_fn`` is required), int8 rollouts, the diffusers safetensors export
+(``"auto"`` skips it with one warning, ``"required"`` raises), meshes of
+more than one device; not ported at all yet: image dumps and the CLI
+``main`` (which needs the weight loaders).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -45,6 +54,7 @@ import torch
 
 from mixgrpo_tpu_torch.config import MeshConfig, TrainConfig, window_state_from_config
 from mixgrpo_tpu_torch.data.dataset import PromptLoader
+from mixgrpo_tpu_torch.lora import apply_lora, init_lora
 from mixgrpo_tpu_torch.models.flux.latents import denormalize_latents, unpack_latents
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, init_flux, param_leaves
 from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, postprocess_images, vae_decode
@@ -54,8 +64,13 @@ from mixgrpo_tpu_torch.rl.advantage import (
 from mixgrpo_tpu_torch.rl.balance import balance_pos_neg
 from mixgrpo_tpu_torch.rl.window import SlidingWindowState
 from mixgrpo_tpu_torch.sampler import FluxSampler
-from mixgrpo_tpu_torch.solvers.schedule import deterministic_mask, sigma_schedule
-from mixgrpo_tpu_torch.trainer import build_update_batch, make_optimizer, make_update_fns
+from mixgrpo_tpu_torch.solvers.schedule import (
+    deterministic_mask, flash_post_schedule, sigma_schedule,
+)
+from mixgrpo_tpu_torch.trainer import (
+    build_update_batch, make_lora_update_fns, make_optimizer, make_update_fns,
+)
+from mixgrpo_tpu_torch.utils import profiling
 from mixgrpo_tpu_torch.utils.checkpoint import CheckpointManager
 from mixgrpo_tpu_torch.utils.ema import ema_init, ema_update
 from mixgrpo_tpu_torch.utils.logging import MetricLogger, main_print
@@ -65,14 +80,8 @@ def _refuse_unported(cfg: TrainConfig, reward_fn):
     if reward_fn is None:
         raise NotImplementedError("the reward model zoo waits for the port of rewards/; "
                                   "pass reward_fn")
-    if cfg.runtime.use_lora:
-        raise NotImplementedError("LoRA training waits for the port of lora.py")
     if cfg.grpo.rollout_quant != "none":
         raise NotImplementedError("rollout_quant waits for the port of ops/quant.py")
-    if "dpmsolver" in cfg.dpm.dpm_algorithm_type:
-        raise NotImplementedError("DPM-Solver schedules wait for the port of solvers/dpm.py")
-    if cfg.run.profile_steps > 0:
-        raise NotImplementedError("profile_steps waits for the port of utils/profiling.py")
     if cfg.run.export_safetensors == "required":
         raise NotImplementedError("export_safetensors='required': the diffusers export "
                                   "waits for a later slice")
@@ -94,12 +103,23 @@ class GRPOTrainer:
         attn_impl: str = "auto",
         dtype=torch.bfloat16,
         device="cuda",
+        use_lora: Optional[bool] = None,
+        lora_rank: Optional[int] = None,
+        lora_alpha: Optional[float] = None,
     ):
         """``reward_fn(images01, captions) -> (rewards_dict, successes_dict)``
         (numpy arrays per model) scores the decoded images, (B, H, W, 3) in
         [0, 1] on the device.  ``params`` (fp32 master weights, updated in
-        place) default to ``init_flux`` seeded from ``cfg.grpo.seed``."""
+        place; under LoRA the frozen base, any dtype) default to
+        ``init_flux`` seeded from ``cfg.grpo.seed``.  ``use_lora`` trains a
+        rank-``lora_rank`` adapter over ``lora.DEFAULT_TARGETS``, its ``a``
+        factors drawn from ``cfg.grpo.seed + 1``; each of the three defaults
+        to its field of ``cfg.runtime``."""
         _refuse_unported(cfg, reward_fn)
+        rt = cfg.runtime
+        use_lora = rt.use_lora if use_lora is None else use_lora
+        lora_rank = rt.lora_rank if lora_rank is None else lora_rank
+        lora_alpha = rt.lora_alpha if lora_alpha is None else lora_alpha
         self.cfg = cfg
         self.flux_cfg = flux_cfg or FluxConfig.flux_dev()
         self.device = torch.device(device)
@@ -107,8 +127,9 @@ class GRPOTrainer:
         if params is None:
             params = init_flux(self.flux_cfg, device=self.device,
                                generator=torch.Generator(self.device).manual_seed(cfg.grpo.seed))
-        for t in param_leaves(params):
-            t.requires_grad_(True)
+        if not use_lora:
+            for t in param_leaves(params):
+                t.requires_grad_(True)
         self.params = params
 
         self.vae_cfg, self.vae_params = vae_cfg, vae_params
@@ -126,14 +147,26 @@ class GRPOTrainer:
             max_grad_norm=o.max_grad_norm, lr_scheduler=o.lr_scheduler,
             warmup_steps=o.lr_warmup_steps, total_steps=o.max_train_steps,
             lr_num_cycles=o.lr_num_cycles, lr_power=o.lr_power)
-        self.opt_state = self.optimizer.init(self.params)
-        self.update_step, self.accum_step, self.apply_step = make_update_fns(
-            self.flux_cfg, self.sampler_cfg, cfg.ppo_config(), self.optimizer,
-            self.sampler.rope_cos, self.sampler.rope_sin,
-            guidance_scale=cfg.grpo.guidance_scale, dtype=dtype, attn_impl=attn_impl,
-            remat="dots" if o.gradient_checkpointing else False,
-            loss_scale=float(cfg.grpo.loss_coef))
-        self.ema_params = ema_init(self.params) if o.ema_decay > 0 else None
+        kw = dict(guidance_scale=cfg.grpo.guidance_scale, dtype=dtype, attn_impl=attn_impl,
+                  remat="dots" if o.gradient_checkpointing else False,
+                  loss_scale=float(cfg.grpo.loss_coef))
+        self.use_lora = use_lora
+        if use_lora:
+            lora = init_lora(torch.Generator(self.device).manual_seed(cfg.grpo.seed + 1),
+                             self.params, rank=lora_rank, alpha=lora_alpha)
+            self.lora_factors = lora["factors"]
+            self.lora_meta = {"rank": lora["rank"], "alpha": lora["alpha"]}
+            self.opt_state = self.optimizer.init(self.lora_factors)
+            self.lora_update = make_lora_update_fns(
+                self.flux_cfg, self.sampler_cfg, cfg.ppo_config(), self.optimizer,
+                self.sampler.rope_cos, self.sampler.rope_sin, **kw)
+        else:
+            self.opt_state = self.optimizer.init(self.params)
+            self.update_step, self.accum_step, self.apply_step = make_update_fns(
+                self.flux_cfg, self.sampler_cfg, cfg.ppo_config(), self.optimizer,
+                self.sampler.rope_cos, self.sampler.rope_sin, **kw)
+        self.ema_params = ema_init(self.params) if o.ema_decay > 0 and not use_lora else None
+        self.profile_trace: Optional[profiling.Trace] = None  # the last trace written
         self._export_warned = False
         self.window: SlidingWindowState = window_state_from_config(cfg)
         self.base_sigmas = sigma_schedule(cfg.grpo.sampling_steps, cfg.grpo.shift)
@@ -170,7 +203,8 @@ class GRPOTrainer:
     @torch.no_grad()
     def _resume(self):
         p, o, win_d, step = self.ckpt.restore()
-        for dst, src in zip(param_leaves(self.params), param_leaves(p)):
+        trained = self.lora_factors if self.use_lora else self.params
+        for dst, src in zip(param_leaves(trained), param_leaves(p)):
             dst.copy_(src)
         self.opt_state.load_state_dict(o)
         ema = self.ckpt.last_ema()
@@ -205,6 +239,11 @@ class GRPOTrainer:
             det = deterministic_mask(T, timesteps_train)
         else:  # "all" = DanceGRPO: every step SDE
             det = np.zeros(T, dtype=bool)
+        dpm = self.cfg.dpm
+        if "dpmsolver" in dpm.dpm_algorithm_type and dpm.dpm_apply_strategy == "post":
+            sig, n, det = flash_post_schedule(self.base_sigmas, det, self.cfg.grpo.shift,
+                                              dpm.dpm_post_compress_ratio, pad_to=T)
+            return sig, det, n
         return self.base_sigmas, det, T
 
     def _sync(self):
@@ -241,13 +280,22 @@ class GRPOTrainer:
                                                   for j in range(n_chunks)]
 
         t0 = time.perf_counter()
-        out = self.sampler.chunked_rollout(self.params, z0, txt, pooled, sigmas, det,
-                                           num_steps, gens, chunk=chunk, noise_fn=noise_fn)
-        self._sync()
+        with profiling.annotate("rollout"):
+            # the LoRA policy: merged once, freed before the decode and update
+            rollout_params = self.params
+            if self.use_lora:
+                with torch.no_grad():
+                    rollout_params = apply_lora(self.params, {**self.lora_meta,
+                                                              "factors": self.lora_factors})
+            out = self.sampler.chunked_rollout(rollout_params, z0, txt, pooled, sigmas, det,
+                                               num_steps, gens, chunk=chunk, noise_fn=noise_fn)
+            del rollout_params
+            self._sync()
         t1 = time.perf_counter()
-        images01 = self._decode(out.final_latents) if self.vae_params is not None \
-            else out.final_latents
-        self._sync()
+        with profiling.annotate("decode"):
+            images01 = self._decode(out.final_latents) if self.vae_params is not None \
+                else out.final_latents
+            self._sync()
         t2 = time.perf_counter()
         main_print(f"##### Sampling time per iteration: {t2 - t0:.2f} s")
 
@@ -300,21 +348,27 @@ class GRPOTrainer:
         n_updates = 0
         sig_dev = torch.as_tensor(sigmas, dtype=torch.float32, device=dev)
         adv_dev = adv.to(dev)
-        for gstart in range(0, B if W > 0 else 0, accum):
-            gidx = order[gstart : gstart + accum]
-            sample_idx = np.repeat(gidx, W)
-            if cfg.grpo.training_strategy == "all":
-                t_idx = np.concatenate([perms[i][:W] for i in gidx])
-            else:
-                t_idx = np.tile(np.asarray(train_ts), len(gidx))
-            ub = build_update_batch(out.all_latents, out.all_log_probs, adv_dev, txt, pooled,
-                                    sample_idx, t_idx)
-            self.params, self.opt_state, m = self.update_step(self.params, self.opt_state,
-                                                              ub, sig_dev)
-            n_updates += 1
-            for k, v in m.items():
-                agg[k] = agg.get(k, 0.0) + float(v)
-        self._sync()
+        with profiling.annotate("update"):
+            for gstart in range(0, B if W > 0 else 0, accum):
+                gidx = order[gstart : gstart + accum]
+                sample_idx = np.repeat(gidx, W)
+                if cfg.grpo.training_strategy == "all":
+                    t_idx = np.concatenate([perms[i][:W] for i in gidx])
+                else:
+                    t_idx = np.tile(np.asarray(train_ts), len(gidx))
+                ub = build_update_batch(out.all_latents, out.all_log_probs, adv_dev, txt,
+                                        pooled, sample_idx, t_idx)
+                if self.use_lora:
+                    self.lora_factors, self.opt_state, m = self.lora_update(
+                        self.lora_factors, self.opt_state, self.lora_meta, self.params, ub,
+                        sig_dev)
+                else:
+                    self.params, self.opt_state, m = self.update_step(
+                        self.params, self.opt_state, ub, sig_dev)
+                n_updates += 1
+                for k, v in m.items():
+                    agg[k] = agg.get(k, 0.0) + float(v)
+            self._sync()
         t3 = time.perf_counter()
 
         metrics = {k: v / max(n_updates, 1) for k, v in agg.items()}
@@ -330,6 +384,7 @@ class GRPOTrainer:
         metrics["rollout_time"] = t1 - t0
         metrics["decode_time"] = t2 - t1
         metrics["update_time"] = t3 - t2
+        metrics["num_steps"] = num_steps
         self._dump_reward_stream(captions, rewards_dict, sd, rewards, metrics)
         return metrics
 
@@ -359,7 +414,11 @@ class GRPOTrainer:
 
     def train(self, loader: PromptLoader):
         """Iterate until ``max_train_steps``; SIGTERM/SIGINT finish the
-        current iteration, checkpoint and stop."""
+        current iteration, checkpoint and stop.  With ``profile_steps`` > 0
+        the iterations from ``global_step + 1`` on (the first one of this
+        call is skipped: it allocates and warms up) are traced into
+        ``profile_dir`` (default ``<run_dir>/profile``); the trace is closed
+        and written even when an iteration raises."""
         self._preempted = False
 
         def _on_term(signum, frame):
@@ -373,18 +432,25 @@ class GRPOTrainer:
             except ValueError:  # not the main thread
                 pass
         try:
-            self._train_loop(self.cfg, iter(loader))
+            with contextlib.ExitStack() as prof:
+                self._train_loop(self.cfg, iter(loader), prof)
         finally:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
         self.save_checkpoint()
         self.close()
 
-    def _train_loop(self, cfg, it):
+    def _train_loop(self, cfg, it, prof: contextlib.ExitStack):
+        prof_start, prof_until = self.global_step + 1, None
         while self.global_step < cfg.optim.max_train_steps:
             if self._preempted:
                 main_print(f"preempted at step {self.global_step}")
                 break
+            if cfg.run.profile_steps > 0 and self.global_step == prof_start:
+                prof_dir = cfg.run.profile_dir or os.path.join(self.run_dir, "profile")
+                self.profile_trace = prof.enter_context(profiling.trace(prof_dir))
+                prof_until = prof_start + cfg.run.profile_steps
+                main_print(f"profiler trace -> {prof_dir}")
             if self.global_step > 0 and self.global_step % cfg.run.checkpointing_steps == 0:
                 self.save_checkpoint(blocking=False)
             # the window is read BEFORE it advances, so the first group gets
@@ -401,10 +467,14 @@ class GRPOTrainer:
             main_print(f"step {self.global_step}: loss={metrics.get('loss', 0):.5f} "
                        f"reward={metrics['reward']:.4f} window@{self.window.cur_timestep}")
             self.global_step += 1
+            if prof_until is not None and self.global_step >= prof_until:
+                prof.close()  # writes the trace
+                prof_until = None
 
     def save_checkpoint(self, blocking: bool = True):
-        self.ckpt.save(self.global_step, self.params, self.opt_state,
-                       window_state=self.window.to_dict(), extra={"use_lora": False},
+        trained = self.lora_factors if self.use_lora else self.params
+        self.ckpt.save(self.global_step, trained, self.opt_state,
+                       window_state=self.window.to_dict(), extra={"use_lora": self.use_lora},
                        ema_params=self.ema_params, blocking=blocking)
         if self.cfg.run.export_safetensors == "auto" and not self._export_warned:
             self._export_warned = True

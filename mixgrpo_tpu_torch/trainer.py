@@ -19,8 +19,10 @@ eps outside the square root, bias correction from step 1):
     ``constant_with_warmup`` with warmup > 0 makes the first step a no-op
     (the moments still move);
   - ``grad_norm`` is reported before clipping.
-LoRA (``make_lora_update_fns``) and the DPM-Solver "all" log-prob wait for
-the ports of lora.py and solvers/dpm.py.
+``make_lora_update_fns`` differentiates the factors of a LoRA adapter only,
+through the same loss: the base stays frozen (no grad is kept for it) and
+each factor merges into its weight inside the block that uses it
+(``lora.lora_blocks``).
 """
 
 from __future__ import annotations
@@ -31,11 +33,15 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from mixgrpo_tpu_torch.lora import lora_blocks
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, flux_forward, param_leaves
 from mixgrpo_tpu_torch.rl.ppo import PPOConfig, ppo_loss
 from mixgrpo_tpu_torch.sampler import quantized_timestep
+from mixgrpo_tpu_torch.solvers import dpm as dpm_mod
 from mixgrpo_tpu_torch.solvers.rollout import SamplerConfig
-from mixgrpo_tpu_torch.solvers.steps import dance_grpo_step, flow_grpo_step
+from mixgrpo_tpu_torch.solvers.steps import (
+    dance_grpo_step, flow_grpo_step, gaussian_log_prob,
+)
 
 
 class UpdateBatch(NamedTuple):
@@ -53,13 +59,17 @@ class UpdateBatch(NamedTuple):
 
 def recompute_log_prob(sampler_cfg: SamplerConfig, pred, latents, next_latents, sigmas,
                        t_index):
-    """Per-row SDE log-prob of stored transitions given a fresh prediction."""
-    if sampler_cfg.use_dpm and sampler_cfg.dpm_apply_strategy != "post":
-        raise NotImplementedError("the DPM-Solver 'all' log-prob waits for the port of "
-                                  "solvers/dpm.py")
+    """Per-row SDE log-prob of stored transitions given a fresh prediction:
+    the window's SDE step (no DPM, or DPM "post"), or for DPM "all" the
+    first-order DPM-Solver step with no multistep state."""
     shape = (-1,) + (1,) * (latents.ndim - 1)
     sig = sigmas[t_index].reshape(shape)
     sig_prev = sigmas[t_index + 1].reshape(shape)
+    if sampler_cfg.use_dpm and sampler_cfg.dpm_apply_strategy == "all":
+        x0 = dpm_mod.convert_model_output(pred, latents, sig)
+        mean, _, std, dts = dpm_mod._first_order(sampler_cfg.dpm_algorithm_type, latents, x0,
+                                                 sig_prev, sig)
+        return gaussian_log_prob(next_latents, mean, torch.clamp(std * dts, min=1e-7))
     if sampler_cfg.flow_grpo_sampling:
         _, _, log_prob, _, _ = flow_grpo_step(
             pred, latents, sampler_cfg.eta, sig, sig_prev, sigmas[1],
@@ -208,6 +218,37 @@ def get_optimizer(name: str = "adamw", learning_rate: float = 1e-5,
 # ----------------------------------------------------------------------------
 
 
+def _make_grads_of(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: PPOConfig,
+                   rope_cos, rope_sin, guidance_scale, dtype, attn_impl, remat, loss_scale,
+                   virtual_depth):
+    """``grads_of(params, leaves, batch, sigmas, block_params=None) ->
+    (grads, metrics)``: the PPO loss of the forward on ``params`` (with
+    ``flux_forward``'s ``block_params``), differentiated with respect to
+    ``leaves``, tensors with ``requires_grad`` that ``params`` is built
+    from."""
+
+    def loss_fn(params, batch: UpdateBatch, sigmas, block_params):
+        N = batch.latents.shape[0]
+        t = quantized_timestep(sigmas[batch.t_index])
+        g = torch.full((N,), guidance_scale, dtype=torch.float32, device=t.device)
+        pred = flux_forward(params, flux_cfg, batch.latents.to(dtype), batch.txt,
+                            batch.pooled, t, g, rope_cos, rope_sin, dtype=dtype,
+                            attn_impl=attn_impl, remat=remat, virtual_depth=virtual_depth,
+                            block_params=block_params)
+        new_lp = recompute_log_prob(sampler_cfg, pred, batch.latents.float(),
+                                    batch.next_latents.float(), sigmas, batch.t_index)
+        return ppo_loss(new_lp, batch.old_log_probs, batch.advantages, ppo_cfg,
+                        loss_scale=loss_scale)
+
+    def grads_of(params, leaves, batch, sigmas, block_params=None):
+        with torch.enable_grad():
+            loss, metrics = loss_fn(params, batch, sigmas, block_params)
+            grads = torch.autograd.grad(loss, leaves)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    return grads_of
+
+
 def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: PPOConfig,
                     optimizer: Optimizer, rope_cos, rope_sin, *,
                     guidance_scale: float = 3.5, dtype=torch.bfloat16,
@@ -221,34 +262,22 @@ def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: P
     ``apply_step(params, opt_state, grad_acc) -> (params, opt_state,
     zeroed grad_acc, its global norm)``.  ``virtual_depth`` is the benchmark
     aid of ``flux_forward``.  Metrics are 0-dim tensors."""
+    grads_of = _make_grads_of(flux_cfg, sampler_cfg, ppo_cfg, rope_cos, rope_sin,
+                              guidance_scale, dtype, attn_impl, remat, loss_scale,
+                              virtual_depth)
 
-    def loss_fn(params, batch: UpdateBatch, sigmas):
-        N = batch.latents.shape[0]
-        t = quantized_timestep(sigmas[batch.t_index])
-        g = torch.full((N,), guidance_scale, dtype=torch.float32, device=t.device)
-        pred = flux_forward(params, flux_cfg, batch.latents.to(dtype), batch.txt,
-                            batch.pooled, t, g, rope_cos, rope_sin, dtype=dtype,
-                            attn_impl=attn_impl, remat=remat, virtual_depth=virtual_depth)
-        new_lp = recompute_log_prob(sampler_cfg, pred, batch.latents.float(),
-                                    batch.next_latents.float(), sigmas, batch.t_index)
-        return ppo_loss(new_lp, batch.old_log_probs, batch.advantages, ppo_cfg,
-                        loss_scale=loss_scale)
-
-    def grads_of(params, batch, sigmas):
+    def all_grads(params, batch, sigmas):
         leaves = [t.requires_grad_(True) for t in param_leaves(params)]
-        with torch.enable_grad():
-            loss, metrics = loss_fn(params, batch, sigmas)
-            grads = torch.autograd.grad(loss, leaves)
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        return grads_of(params, leaves, batch, sigmas)
 
     def update_step(params, opt_state, batch: UpdateBatch, sigmas):
-        grads, metrics = grads_of(params, batch, sigmas)
+        grads, metrics = all_grads(params, batch, sigmas)
         metrics["grad_norm"] = optimizer.apply(opt_state, grads)
         return params, opt_state, metrics
 
     @torch.no_grad()
     def accum_step(params, grad_acc, batch: UpdateBatch, sigmas, weight):
-        grads, metrics = grads_of(params, batch, sigmas)
+        grads, metrics = all_grads(params, batch, sigmas)
         for a, g in zip(param_leaves(grad_acc), grads):
             a.add_(g * weight)
         return grad_acc, metrics
@@ -262,6 +291,32 @@ def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: P
         return params, opt_state, grad_acc, norm
 
     return update_step, accum_step, apply_step
+
+
+def make_lora_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig,
+                         ppo_cfg: PPOConfig, optimizer: Optimizer, rope_cos, rope_sin, *,
+                         guidance_scale: float = 3.5, dtype=torch.bfloat16,
+                         attn_impl: str = "auto", remat="dots", loss_scale: float = 1.0,
+                         virtual_depth=None):
+    """LoRA variant of ``make_update_fns``: ``update_step(factors, opt_state,
+    lora_meta, base_params, batch, sigmas) -> (factors, opt_state, metrics)``.
+    Gradients flow into the factors only (``opt_state`` is ``optimizer.init``
+    of the factor tree) and ``grad_norm`` is their global norm before
+    clipping.  The base tree is read, never written, and needs no
+    ``requires_grad``."""
+    grads_of = _make_grads_of(flux_cfg, sampler_cfg, ppo_cfg, rope_cos, rope_sin,
+                              guidance_scale, dtype, attn_impl, remat, loss_scale,
+                              virtual_depth)
+
+    def update_step(factors, opt_state, lora_meta, base_params, batch: UpdateBatch, sigmas):
+        leaves = [t.requires_grad_(True) for t in param_leaves(factors)]
+        with torch.enable_grad():  # merges outside the blocks are on the graph too
+            params, merge_block = lora_blocks(base_params, {**lora_meta, "factors": factors})
+        grads, metrics = grads_of(params, leaves, batch, sigmas, block_params=merge_block)
+        metrics["grad_norm"] = optimizer.apply(opt_state, grads)
+        return factors, opt_state, metrics
+
+    return update_step
 
 
 def build_update_batch(rollout_latents, rollout_log_probs, advantages, txt, pooled,

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
 plain PyTorch versions (the forward with and without lse, the fused, dkv and
 dq backward kernels), what they refuse, and the model and update paths
-through them.
+through them (LoRA's update among them), a MixGRPO-Flash rollout on the
+card against the CPU, and ``backend_smoke``.
 
 Every test carries the ``cuda`` marker and skips without a card.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -400,3 +401,102 @@ def test_tiny_update_step_kernel_path_matches_eager(dev):
     assert all(torch.isfinite(torch.tensor(list(o.values()))).all() for o in out.values())
     assert abs(out["flash"]["grad_norm"] - out["eager"]["grad_norm"]) <= \
         5e-2 * out["eager"]["grad_norm"]
+
+
+def test_tiny_lora_update_step_kernel_path_matches_eager(dev):
+    """One LoRA ``update_step`` over a frozen bf16 tiny FLUX (rank 4, ``b``
+    made nonzero) at the padded joint sequence above, through the kernels vs
+    through eager attention, from the same base and factors: grad norms
+    within 5e-2 relative (bf16 attention in two different orders), finite
+    losses, the factors move and the base is left bit for bit."""
+    from mixgrpo_tpu_torch.lora import init_lora
+    from mixgrpo_tpu_torch.trainer import make_lora_update_fns
+
+    cfg = M.FluxConfig.tiny()
+    sampler = FluxSampler(cfg, SamplerConfig(num_steps_max=4), height=512, width=512,
+                          text_len=8, device=dev)
+    g = torch.Generator(dev).manual_seed(4)
+    N, L = 2, sampler.num_image_tokens
+    x = torch.randn((N, L, cfg.in_channels), generator=g, device=dev)
+    batch = UpdateBatch(latents=x, next_latents=x + 0.05 * torch.randn(x.shape, generator=g,
+                                                                        device=dev),
+                        t_index=torch.tensor([0, 2], device=dev),
+                        old_log_probs=torch.zeros(N, device=dev),
+                        advantages=torch.tensor([1.0, -1.0], device=dev),
+                        txt=torch.randn((N, 8, cfg.context_dim), generator=g,
+                                        device=dev).bfloat16(),
+                        pooled=torch.randn((N, cfg.pooled_dim), generator=g,
+                                           device=dev).bfloat16())
+    sig = torch.as_tensor(sigma_schedule(4, 3.0), device=dev)
+    base = M.init_flux(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev,
+                       dtype=torch.bfloat16)
+    snapshot = [t.clone() for t in M.param_leaves(base)]
+    out = {}
+    for impl in ("flash", "eager"):
+        lora = init_lora(torch.Generator(dev).manual_seed(1), base, rank=4, alpha=8.0)
+        gb = torch.Generator(dev).manual_seed(5)
+        for f in lora["factors"].values():
+            f["b"].normal_(0.0, 0.05, generator=gb)
+        factors = lora["factors"]
+        b0 = [f["b"].clone() for f in factors.values()]
+        opt = make_optimizer(learning_rate=1e-4)
+        step = make_lora_update_fns(cfg, sampler.sampler_cfg, PPOConfig(clip_range=0.2), opt,
+                                    sampler.rope_cos, sampler.rope_sin, attn_impl=impl,
+                                    remat=True)
+        launched = FA.flash_attn_bwd_fused.launches
+        factors, _, m = step(factors, opt.init(factors), {"rank": 4, "alpha": 8.0}, base,
+                             batch, sig)
+        assert (FA.flash_attn_bwd_fused.launches > launched) == (impl == "flash")
+        assert any(not torch.equal(f["b"], b) for f, b in zip(factors.values(), b0))
+        out[impl] = {k: float(v) for k, v in m.items()}
+    assert all(torch.equal(a, b) and a.grad is None
+               for a, b in zip(M.param_leaves(base), snapshot))
+    assert all(torch.isfinite(torch.tensor(list(o.values()))).all() for o in out.values())
+    assert abs(out["flash"]["grad_norm"] - out["eager"]["grad_norm"]) <= \
+        5e-2 * out["eager"]["grad_norm"]
+
+
+def test_flash_post_rollout_on_card_matches_cpu(dev):
+    """A MixGRPO-Flash "post" rollout of a tiny fp32 FLUX (eager attention;
+    window [2, 3] of 8 steps, DPM-Solver++ order-2 tail compressed by 0.6) on
+    the card against the same rollout on the CPU, with the same weights and
+    noise: latents within 2e-4, log-probs within 1e-4 relative."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.solvers.schedule import deterministic_mask, flash_post_schedule
+
+    cfg = M.FluxConfig.tiny()
+    scfg = SamplerConfig(num_steps_max=8, eta=0.7, dpm_algorithm_type="dpmsolver++")
+    sig, n, det = flash_post_schedule(sigma_schedule(8, 3.0), deterministic_mask(8, [2, 3]),
+                                      3.0, 0.6, pad_to=8)
+    rng = np.random.default_rng(6)
+    noise = {i: rng.standard_normal((2, 4, cfg.in_channels)).astype(np.float32)
+             for i in range(n)}
+    z0, txt, pooled = (rng.standard_normal(s).astype(np.float32)
+                       for s in ((2, 4, cfg.in_channels), (2, 8, cfg.context_dim),
+                                 (2, cfg.pooled_dim)))
+    outs = []
+    for d in ("cpu", dev):
+        params = _to(M.init_flux(cfg, generator=torch.Generator().manual_seed(2), device="cpu"),
+                     d)
+        s = FluxSampler(cfg, scfg, height=32, width=32, text_len=8, dtype=torch.float32,
+                        attn_impl="eager", device=d)
+        outs.append(s.rollout(params, *(torch.from_numpy(a).to(d) for a in (z0, txt, pooled)),
+                              sig, det, n, noise_fn=lambda i, shape: noise[i]))
+    cpu, card = outs
+    assert n < 8
+    torch.testing.assert_close(card.all_latents.cpu(), cpu.all_latents, rtol=0, atol=2e-4)
+    torch.testing.assert_close(card.all_log_probs.cpu(), cpu.all_log_probs, rtol=1e-4,
+                               atol=2e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_backend_smoke(dev):
+    from mixgrpo_tpu_torch.utils.timing import backend_smoke
+
+    assert backend_smoke() >= 0.0

@@ -23,7 +23,8 @@ def test_port_package_is_present():
     files = _port_files()
     assert os.path.exists(os.path.join(ROOT, "chip_smoke.py"))
     for module in ("ops/flash_attention.py", "trainer.py", "train.py", "config.py",
-                   "rl/advantage.py", "utils/checkpoint.py", "data/dataset.py"):
+                   "rl/advantage.py", "utils/checkpoint.py", "data/dataset.py", "lora.py",
+                   "solvers/dpm.py", "utils/profiling.py", "utils/timing.py", "utils/env.py"):
         assert f"mixgrpo_tpu_torch/{module}" in files
 
 

@@ -112,10 +112,25 @@ def test_run_rollout_matches_jax_with_padded_steps(flow, eta):
 
 
 def test_rollout_refuses_dpm():
-    cfg = R.SamplerConfig(num_steps_max=2, dpm_algorithm_type="dpmsolver++")
-    with pytest.raises(NotImplementedError):
-        R.run_rollout(cfg, lambda z, s: z, torch.zeros(1, 2), sigmas=[1.0, 0.5, 0.0],
-                      deterministic=[True, True], num_steps=2)
+    """The rollout no longer refuses DPM-Solver configurations: the "post"
+    rollout of the analytic field (window at steps 0-1, a DPM-Solver++ tail)
+    runs and matches JAX's (tests/test_torch_dpm.py covers the DPM rollouts
+    in full)."""
+    kw = dict(num_steps_max=4, eta=0.7, dpm_algorithm_type="dpmsolver++")
+    sig = np.array([1.0, 0.8, 0.5, 0.2, 0.0], np.float32)
+    det = np.array([False, False, True, True])
+    z0 = np.random.default_rng(5).standard_normal((2, 6, 4)).astype(np.float32)
+    rng = jax.random.key(9)
+    model = lambda z, s: 0.5 * z + s - 0.25
+    want = JR.run_rollout(JR.SamplerConfig(**kw), model, jnp.asarray(z0),
+                          sigmas=jnp.asarray(sig), deterministic=jnp.asarray(det),
+                          num_steps=4, rng=rng)
+    got = R.run_rollout(R.SamplerConfig(**kw), model, _t(z0), sigmas=sig, deterministic=det,
+                        num_steps=4, noise_fn=_jax_noise(rng))
+    np.testing.assert_allclose(got.all_latents.numpy(), _np(want.all_latents),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.all_log_probs.numpy(), _np(want.all_log_probs),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_flux_sampler_rollout_matches_jax():

@@ -15,13 +15,21 @@ own ~1e-5 recompute noise), parameters after the iteration's two AdamW steps
 within 2e-5 at a rate of 1e-4.  Both sides take the same weights, drawn by
 the port's initializers (the trees have the JAX layout).
 
+``test_lora_flash_iteration_matches_jax``: the same for LoRA over a frozen
+base with MixGRPO-Flash "post" (DPM-Solver++ on the compressed tail), JAX's
+adapter copied into the port's; the factors after the two AdamW steps within
+2e-5, the base left bit for bit.
+
 ``test_two_iterations_checkpoint_resume_and_ema``: the port alone: two
 iterations through ``train`` with EMA, a periodic background checkpoint and
 the final one, a resume into a new trainer (parameters, optimizer count,
 EMA, window and step restored) and one more iteration; and a rerun from the
 same seeds repeats an iteration's metrics exactly.
+``test_lora_flash_train_resume_and_profile`` does the same under LoRA and
+Flash, with a profiler trace of the second iteration.
 """
 
+import dataclasses
 import json
 import os
 
@@ -31,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from mixgrpo_tpu import lora as JLoRA
 from mixgrpo_tpu import sampler as JS
 from mixgrpo_tpu import trainer as JT
 from mixgrpo_tpu.models.flux import latents as JL
@@ -39,9 +48,12 @@ from mixgrpo_tpu.models.flux import vae as JV
 from mixgrpo_tpu.rl import advantage as JA
 from mixgrpo_tpu.rl.ppo import PPOConfig as JPPO
 from mixgrpo_tpu.solvers import rollout as JR
-from mixgrpo_tpu.solvers.schedule import deterministic_mask, sigma_schedule
+from mixgrpo_tpu.solvers.schedule import (
+    deterministic_mask, flash_post_schedule, sigma_schedule,
+)
 from mixgrpo_tpu_torch.config import (
-    DataConfig, GRPOConfig, OptimConfig, RunConfig, TrainConfig, WindowConfig,
+    DataConfig, DPMConfig, GRPOConfig, MeshConfig, OptimConfig, RunConfig, TrainConfig,
+    WindowConfig,
 )
 from mixgrpo_tpu_torch.convert import from_jax_params
 from mixgrpo_tpu_torch.data.dataset import EmbeddingCacheWriter, LatentDataset, PromptLoader
@@ -108,27 +120,32 @@ def _prompt(seed=0):
             "captions": ["a tiny prompt"]}
 
 
-def test_iteration_matches_jax(tmp_path, weights):
+def _jax_iteration(cfg, weights, batch, ts, factors=None):
+    """JAX's ``train_one_step``, function by function: the schedule (Flash
+    "post" when ``cfg.dpm`` names a DPM-Solver), the rollout (on
+    ``apply_lora`` of the base when LoRA ``factors``, numpy, are given), the
+    decode, the reward, the advantages and one update per accumulation group
+    (``make_lora_update_fns`` under LoRA).  Returns what the port is held to,
+    with JAX's initial noise and SDE draws for the port to take."""
     jcfg, jvcfg, jparams_np, jvae_np = weights
-    cfg = _cfg(tmp_path)
-    tr = _trainer(cfg, weights)
-    batch = _prompt()
-    ts = tr.window.get_current_timesteps()
-    B = G
-
-    # -- JAX, in the order of its train_one_step --------------------------------
+    B, T = G, cfg.grpo.sampling_steps
     jparams = jax.tree.map(jnp.asarray, jparams_np)
     txt = jnp.asarray(np.repeat(batch["prompt_embed"], G, axis=0))
     pooled = jnp.asarray(np.repeat(batch["pooled"], G, axis=0))
-    sig = sigma_schedule(T_STEPS, cfg.grpo.shift)
-    det = deterministic_mask(T_STEPS, ts)
+    sig, det, n = sigma_schedule(T, cfg.grpo.shift), deterministic_mask(T, ts), T
+    if "dpmsolver" in cfg.dpm.dpm_algorithm_type:
+        sig, n, det = flash_post_schedule(sig, det, cfg.grpo.shift,
+                                          cfg.dpm.dpm_post_compress_ratio, pad_to=T)
     k_noise, k_roll, _ = jax.random.split(
         jax.random.fold_in(jax.random.key(cfg.grpo.sampler_seed), 0), 3)
-    js = JS.FluxSampler(jcfg, JR.SamplerConfig(num_steps_max=T_STEPS, eta=cfg.grpo.eta),
-                        height=RES, width=RES, text_len=TEXT_LEN, dtype=jnp.float32,
-                        attn_impl="xla")
+    scfg = JR.SamplerConfig(**dataclasses.asdict(cfg.sampler_config()))
+    js = JS.FluxSampler(jcfg, scfg, height=RES, width=RES, text_len=TEXT_LEN,
+                        dtype=jnp.float32, attn_impl="xla")
     z0 = js.init_noise(k_noise, B, same_noise_groups=G)
-    out = js.chunked_rollout(jparams, z0, txt, pooled, sig, det, T_STEPS, k_roll, chunk=2)
+    lora = None if factors is None else {"factors": jax.tree.map(jnp.asarray, factors),
+                                         "rank": 4, "alpha": 8.0}
+    rollout_params = jparams if lora is None else JLoRA.apply_lora(jparams, lora)
+    out = js.chunked_rollout(rollout_params, z0, txt, pooled, sig, det, n, k_roll, chunk=2)
     lat = JL.denormalize_latents(JL.unpack_latents(out.final_latents, RES, RES))
     decode = jax.jit(lambda p, z: JV.vae_decode(p, jvcfg, z, dtype=jnp.float32))
     images = JV.postprocess_images(decode(jax.tree.map(jnp.asarray, jvae_np), lat))
@@ -137,49 +154,118 @@ def test_iteration_matches_jax(tmp_path, weights):
     rewards = JA.masked_mix_rewards(rd, sd, {"synthetic": 1.0})
     adv = JA.masked_mix_advantages(rd, sd, {"synthetic": 1.0}, G, 0.0)
     jopt = JT.make_optimizer(learning_rate=1e-4, weight_decay=1e-2)
-    jstep, _, _ = JT.make_update_fns(jcfg, js.sampler_cfg, JPPO(clip_range=0.2), jopt,
-                                     js.rope_cos, js.rope_sin, dtype=jnp.float32,
-                                     attn_impl="xla", remat=False)  # remat changes no value
-    jstate = jopt.init(jparams)
+    kw = dict(dtype=jnp.float32, attn_impl="xla", remat=False)  # remat changes no value
+    if lora is None:
+        jstep, _, _ = JT.make_update_fns(jcfg, scfg, JPPO(clip_range=0.2), jopt, js.rope_cos,
+                                         js.rope_sin, **kw)
+        trained, step = jparams, lambda t, s, ub: jstep(t, s, ub, jnp.asarray(sig))
+    else:
+        lstep = JT.make_lora_update_fns(jcfg, scfg, JPPO(clip_range=0.2), jopt, js.rope_cos,
+                                        js.rope_sin, **kw)
+        meta = {"rank": 4, "alpha": 8.0}
+        trained = lora["factors"]
+        step = lambda t, s, ub: lstep(t, s, meta, jparams, ub, jnp.asarray(sig))
+    jstate = jopt.init(trained)
     jmetrics = []
     for gstart in range(0, B, 2):
         gidx = np.arange(B)[gstart:gstart + 2]
         ub = JT.build_update_batch(out.all_latents, out.all_log_probs, adv, txt, pooled,
                                    np.repeat(gidx, len(ts)), np.tile(np.asarray(ts), len(gidx)))
-        jparams, jstate, m = jstep(jparams, jstate, ub, jnp.asarray(sig))
+        trained, jstate, m = step(trained, jstate, ub)
         jmetrics.append({k: float(v) for k, v in m.items()})
-
-    # -- the port, with JAX's draws ----------------------------------------------
-    seen = {}
-    rollout, step = tr.sampler.chunked_rollout, tr.update_step
-    tr.sampler.chunked_rollout = lambda *a, **k: seen.setdefault("out", rollout(*a, **k))
-    tr.update_step = lambda p, s, ub, sg: (seen.setdefault("adv", []).append(ub.advantages)
-                                           or step(p, s, ub, sg))
 
     def noise(j, i, shape):
         k = k_roll if j is None else jax.random.fold_in(k_roll, j)
         return np.array(jax.random.normal(jax.random.fold_in(k, i), shape, jnp.float32))
 
-    metrics = tr.train_one_step(batch, ts, z0=np.array(z0), noise_fn=noise)
+    return dict(out=out, n=n, rewards=rewards, r=r, adv=adv, metrics=jmetrics,
+                trained=trained, z0=np.array(z0), noise=noise)
 
-    got = seen["out"]
+
+def _check_port_iteration(tr, want, batch, ts, update_name):
+    """The port's ``train_one_step`` with JAX's draws, held to ``want`` (the
+    tolerances of the module docstring); returns the port's metrics."""
+    seen = {}
+    rollout, step = tr.sampler.chunked_rollout, getattr(tr, update_name)
+    tr.sampler.chunked_rollout = lambda *a, **k: seen.setdefault("out", rollout(*a, **k))
+    setattr(tr, update_name, lambda *a: (seen.setdefault("adv", []).append(a[-2].advantages)
+                                         or step(*a)))
+    metrics = tr.train_one_step(batch, ts, z0=want["z0"], noise_fn=want["noise"])
+
+    got, out = seen["out"], want["out"]
+    assert metrics["num_steps"] == want["n"]
     np.testing.assert_allclose(got.all_latents.numpy(), np.asarray(out.all_latents),
                                rtol=0, atol=2e-4)
     np.testing.assert_allclose(got.all_log_probs.numpy(), np.asarray(out.all_log_probs),
                                rtol=1e-4, atol=2e-4)
-    np.testing.assert_allclose(metrics["reward"], float(jnp.mean(rewards)), rtol=0, atol=1e-4)
-    np.testing.assert_allclose(metrics["reward/synthetic"], r.mean(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(metrics["reward"], float(jnp.mean(want["rewards"])), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(metrics["reward/synthetic"], want["r"].mean(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(torch.cat(seen["adv"]).numpy(),
-                               np.repeat(np.asarray(adv), len(ts)), rtol=0, atol=1e-3)
+                               np.repeat(np.asarray(want["adv"]), len(ts)), rtol=0, atol=1e-3)
     for k in ("clip_frac", "ratio_mean", "grad_norm"):
-        want = np.mean([m[k] for m in jmetrics])
-        np.testing.assert_allclose(metrics[k], want, rtol=1e-4, atol=1e-6, err_msg=k)
+        w = np.mean([m[k] for m in want["metrics"]])
+        np.testing.assert_allclose(metrics[k], w, rtol=1e-4, atol=1e-6, err_msg=k)
     for k in ("loss", "policy_loss"):
-        want = np.mean([m[k] for m in jmetrics])
-        np.testing.assert_allclose(metrics[k], want, rtol=0, atol=5e-5, err_msg=k)
-    for a, w in zip(M.param_leaves(tr.params), jax.tree.leaves(jparams)):
+        w = np.mean([m[k] for m in want["metrics"]])
+        np.testing.assert_allclose(metrics[k], w, rtol=0, atol=5e-5, err_msg=k)
+    assert tr.opt_state.param_groups[0]["count"] == G // 2
+    return metrics
+
+
+def test_iteration_matches_jax(tmp_path, weights):
+    cfg = _cfg(tmp_path)
+    tr = _trainer(cfg, weights)
+    batch = _prompt()
+    ts = tr.window.get_current_timesteps()
+    want = _jax_iteration(cfg, weights, batch, ts)
+    _check_port_iteration(tr, want, batch, ts, "update_step")
+    for a, w in zip(M.param_leaves(tr.params), jax.tree.leaves(want["trained"])):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(w), rtol=0, atol=2e-5)
-    assert tr.opt_state.param_groups[0]["count"] == B // 2
+    tr.close()
+
+
+def _flash(cfg):
+    """MixGRPO-Flash: DPM-Solver++ order 2 (midpoint) on the tail after the
+    window, compressed by 0.8."""
+    cfg.dpm = DPMConfig(dpm_algorithm_type="dpmsolver++", dpm_apply_strategy="post",
+                        dpm_post_compress_ratio=0.8, dpm_solver_order=2,
+                        dpm_solver_type="midpoint")
+    return cfg
+
+
+def _lora_factors(weights):
+    """JAX's rank-4 adapter over the tiny weights, its ``b`` factors made
+    nonzero so the merged policy differs from the base (numpy)."""
+    lora = JLoRA.init_lora(jax.random.key(3), jax.tree.map(jnp.asarray, weights[2]), rank=4,
+                           alpha=8.0)
+    rng = np.random.default_rng(4)
+    return {p: {"a": np.asarray(f["a"]),
+                "b": 0.05 * rng.standard_normal(f["b"].shape).astype(np.float32)}
+            for p, f in lora["factors"].items()}
+
+
+def test_lora_flash_iteration_matches_jax(tmp_path, weights):
+    """The whole slice: LoRA over a frozen base, MixGRPO-Flash "post" with the
+    window mid-trajectory (steps 1-2 of 6; the tail of 3 compressed steps
+    starts second order on the window's last x0), against JAX's functions on
+    JAX's factors, copied into the port's in place."""
+    cfg = _flash(_cfg(tmp_path))
+    tr = _trainer(cfg, weights, use_lora=True, lora_rank=4, lora_alpha=8.0)
+    factors = _lora_factors(weights)
+    assert sorted(tr.lora_factors) == sorted(factors)
+    with torch.no_grad():
+        for dst, src in zip(M.param_leaves(tr.lora_factors), jax.tree.leaves(factors)):
+            dst.copy_(torch.tensor(src))
+    base = [t.clone() for t in M.param_leaves(tr.params)]
+    batch, ts = _prompt(), [1, 2]
+    want = _jax_iteration(cfg, weights, batch, ts, factors=factors)
+    assert want["n"] == 5
+    _check_port_iteration(tr, want, batch, ts, "lora_update")
+    for a, w in zip(M.param_leaves(tr.lora_factors), jax.tree.leaves(want["trained"])):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(w), rtol=0, atol=2e-5)
+    assert all(torch.equal(a, b) and not a.requires_grad and a.grad is None
+               for a, b in zip(M.param_leaves(tr.params), base))
     tr.close()
 
 
@@ -236,3 +322,74 @@ def test_two_iterations_checkpoint_resume_and_ema(tmp_path, weights):
         t.close()
     for k in ("loss", "grad_norm", "reward"):
         assert runs[0][k] == runs[1][k]
+
+
+def test_lora_flash_train_resume_and_profile(tmp_path, weights):
+    """Two LoRA + Flash iterations through ``train`` with ``profile_steps=1``:
+    the second iteration is traced into ``<run_dir>/profile``, the base stays
+    bit for bit, the factors move, EMA is off; a resume restores the factors,
+    the optimizer count, the window and the step, and runs one more."""
+    cfg = _flash(_cfg(tmp_path, max_train_steps=2, ema_decay=0.9))
+    cfg.run.profile_steps = 1
+    lkw = dict(use_lora=True, lora_rank=4, lora_alpha=8.0)
+    tr = _trainer(cfg, weights, **lkw)
+    assert tr.ema_params is None
+    base = [t.clone() for t in M.param_leaves(tr.params)]
+    b0 = [f["b"].clone() for f in tr.lora_factors.values()]
+    tr.train(_loader(tmp_path))
+    assert tr.global_step == 2
+    assert os.path.dirname(tr.profile_trace.path) == os.path.join(tr.run_dir, "profile")
+    with open(tr.profile_trace.path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"rollout", "decode", "update"} <= names
+    assert all(torch.equal(a, b) and not a.requires_grad
+               for a, b in zip(M.param_leaves(tr.params), base))
+    assert any(not torch.equal(f["b"], b) for f, b in zip(tr.lora_factors.values(), b0))
+    lines = [json.loads(x) for x in open(tr.metrics.path)]
+    assert all(np.isfinite(x["loss"]) and x["num_steps"] < T_STEPS for x in lines)
+    factors = {p: {k: v.detach().clone() for k, v in f.items()}
+               for p, f in tr.lora_factors.items()}
+
+    cfg2 = _flash(_cfg(tmp_path, max_train_steps=3))
+    cfg2.run.resume_from_checkpoint = "latest"
+    tr2 = _trainer(cfg2, weights, **lkw)
+    assert tr2.global_step == 2 and tr2.window.to_dict() == tr.window.to_dict()
+    assert sorted(tr2.lora_factors) == sorted(factors)
+    assert all(torch.equal(tr2.lora_factors[p][k], factors[p][k])
+               for p in factors for k in ("a", "b"))
+    assert tr2.opt_state.param_groups[0]["count"] == 2 * (G // 2)
+    tr2.train(_loader(tmp_path))
+    assert tr2.global_step == 3 and tr2.profile_trace is None
+
+
+@pytest.mark.parametrize("what", ["reward_zoo", "int8", "export_required", "mesh"])
+def test_trainer_refuses_what_is_not_ported(tmp_path, weights, what):
+    cfg, kw = _cfg(tmp_path), {}
+    if what == "reward_zoo":
+        kw["reward_fn"] = None
+    elif what == "int8":
+        cfg.grpo.rollout_quant = "int8"
+    elif what == "export_required":
+        cfg.run.export_safetensors = "required"
+    else:
+        cfg.mesh = MeshConfig(fsdp=2)
+    jcfg, _, jparams, jvae = weights
+    with pytest.raises((NotImplementedError, ValueError)):
+        GRPOTrainer(cfg, flux_cfg=M.FluxConfig.tiny(), params=from_jax_params(jparams, "cpu"),
+                    reward_fn=kw.get("reward_fn", _brightness_torch), text_len=TEXT_LEN,
+                    attn_impl="eager", dtype=torch.float32, device="cpu")
+
+
+def test_trainer_reads_lora_from_runtime_config(tmp_path, weights):
+    """With no LoRA keywords the trainer takes ``cfg.runtime``'s fields; a
+    keyword given wins over its field."""
+    cfg = _cfg(tmp_path)
+    cfg.runtime.use_lora, cfg.runtime.lora_rank, cfg.runtime.lora_alpha = True, 4, 8.0
+    tr = _trainer(cfg, weights)
+    assert tr.use_lora and tr.lora_meta == {"rank": 4, "alpha": 8.0}
+    assert tr.lora_factors["double/img_qkv/w"]["a"].shape[-1] == 4
+    assert all(not t.requires_grad for t in M.param_leaves(tr.params))
+    tr.close()
+    tr = _trainer(cfg, weights, use_lora=False)
+    assert not tr.use_lora and all(t.requires_grad for t in M.param_leaves(tr.params))
+    tr.close()

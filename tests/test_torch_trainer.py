@@ -103,10 +103,15 @@ def test_recompute_log_prob_matches_jax(flow):
     got = T.recompute_log_prob(cfg, _t(pred), _t(lat), _t(nxt), _t(sig),
                                torch.as_tensor(t_idx))
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        T.recompute_log_prob(R.SamplerConfig(num_steps_max=6, dpm_algorithm_type="dpmsolver",
-                                             dpm_apply_strategy="all"),
-                             _t(pred), _t(lat), _t(nxt), _t(sig), torch.as_tensor(t_idx))
+    # DPM-Solver "all": the first-order DPM log-prob (both algorithms)
+    for algo in ("dpmsolver", "dpmsolver++"):
+        kw = dict(num_steps_max=6, eta=0.7, flow_grpo_sampling=flow, dpm_algorithm_type=algo,
+                  dpm_apply_strategy="all")
+        want = JT.recompute_log_prob(JR.SamplerConfig(**kw), *map(jnp.asarray, (pred, lat, nxt, sig)),
+                                     jnp.asarray(t_idx))
+        got = T.recompute_log_prob(R.SamplerConfig(**kw), _t(pred), _t(lat), _t(nxt), _t(sig),
+                                   torch.as_tensor(t_idx))
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5, err_msg=algo)
 
 
 def test_build_update_batch_matches_jax():
