@@ -43,6 +43,14 @@ a non-zero exit code.  Phases:
    DPM-Solver++ on the compressed tail after the SDE window; two iterations
    through ``GRPOTrainer.train`` with the second one traced by the trainer's
    profiler, and that trace's device breakdown.
+8. checkpoints (run right after serve): a synthetic FLUX.1-dev directory in
+   the released layout at full width, written by the port's own writers
+   (transformer cut to 2 + 4 blocks, T5-XXL cut to 2 of 24 layers, the whole
+   CLIP-L text tower, the full VAE, an F32 tuned export, the tokenizers),
+   loaded onto the card in bf16 with a dozen leaves held bit for bit, the
+   prompt encoders in bf16 against f32, then ``sample.main`` and
+   ``serve.build_server`` on it at 1024px and ``vae_encode`` of two decoded
+   images; the directory is removed afterwards.
 Each path's kernel launches are counted from 0 just before it runs and read
 just after, and must equal the prediction exactly.  Last come the
 ``kernels`` line, the ``nvidia-smi`` line, and the final status line.
@@ -802,6 +810,494 @@ def serve_phase(torch, FA, F, M, dev, card, rows):
     torch.cuda.empty_cache()
 
 
+CKPT_PROMPTS = (
+    "a photo of a red fox in the snow at golden hour",
+    " ".join(["a futuristic city skyline at night with neon reflections on the wet street"]
+             * 60),  # far over 512 T5 tokens
+    "東京タワー の 夜景, café crème brûlée, naïve art 😀",
+)
+CLIP_MERGES = ("#version: 0.2", "t h", "th e</w>", "a</w>", "o f</w>", "i n</w>", "o n</w>",
+               "c a", "ca t</w>", "d o", "do g</w>")
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def host_rss_gb():
+    """This process's resident set now (``VmRSS``), GB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS:"))
+    return kb * 1024 / 1e9
+
+
+class RssPeak:
+    """The peak of this process's RSS while the ``with`` block runs, sampled
+    every 2 ms by a thread (``ru_maxrss`` is the peak since the process
+    started, and the card's machine refuses ``/proc/self/clear_refs``, which
+    would reset it)."""
+
+    def __enter__(self):
+        self.before = self.peak = host_rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, host_rss_gb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_gb())
+
+
+def hf_t5_state(torch, cfg, dev, seed):
+    """HF ``T5EncoderModel`` names with HF's initialisation statistics (q
+    holds the 1/sqrt(d_kv) T5 never applies), bf16 on the card."""
+    g = torch.Generator(dev).manual_seed(seed)
+    inner, d = cfg.num_heads * cfg.head_dim, cfg.d_model
+    n = lambda shape, std: torch.randn(shape, generator=g, device=dev,
+                                       dtype=torch.bfloat16) * std
+    ones = lambda k: torch.ones((k,), device=dev, dtype=torch.bfloat16)
+    st = {"shared.weight": n((cfg.vocab, d), 1.0),
+          "encoder.final_layer_norm.weight": ones(d),
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+              n((cfg.rel_buckets, cfg.num_heads), d ** -0.5)}
+    for i in range(cfg.num_layers):
+        b = f"encoder.block.{i}.layer"
+        st.update({
+            f"{b}.0.layer_norm.weight": ones(d),
+            f"{b}.0.SelfAttention.q.weight": n((inner, d), (d * cfg.head_dim) ** -0.5),
+            f"{b}.0.SelfAttention.k.weight": n((inner, d), d ** -0.5),
+            f"{b}.0.SelfAttention.v.weight": n((inner, d), d ** -0.5),
+            f"{b}.0.SelfAttention.o.weight": n((d, inner), inner ** -0.5),
+            f"{b}.1.layer_norm.weight": ones(d),
+            f"{b}.1.DenseReluDense.wi_0.weight": n((cfg.d_ff, d), d ** -0.5),
+            f"{b}.1.DenseReluDense.wi_1.weight": n((cfg.d_ff, d), d ** -0.5),
+            f"{b}.1.DenseReluDense.wo.weight": n((d, cfg.d_ff), cfg.d_ff ** -0.5),
+        })
+    return st
+
+
+def hf_clip_text_state(torch, cfg, dev, seed):
+    """HF ``CLIPTextModel`` names with HF's initialisation statistics, f16 on
+    the card (FLUX's ``text_encoder``: no projection)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    t = cfg.text
+    W, Lr = t.width, t.layers
+    n = lambda shape, std: torch.randn(shape, generator=g, device=dev,
+                                       dtype=torch.float16) * std
+    z = lambda k: torch.zeros((k,), device=dev, dtype=torch.float16)
+    ln = lambda name: {f"{name}.weight": z(W) + 1, f"{name}.bias": z(W)}
+    tp = "text_model"
+    st = {f"{tp}.embeddings.token_embedding.weight": n((t.vocab, W), 0.02),
+          f"{tp}.embeddings.position_embedding.weight": n((t.context, W), 0.02),
+          **ln(f"{tp}.final_layer_norm")}
+    in_std = W ** -0.5 * (2 * Lr) ** -0.5
+    for i in range(Lr):
+        b = f"{tp}.encoder.layers.{i}"
+        for x in "qkv":
+            st[f"{b}.self_attn.{x}_proj.weight"] = n((W, W), in_std)
+            st[f"{b}.self_attn.{x}_proj.bias"] = n((W,), 0.02)
+        st.update({f"{b}.self_attn.out_proj.weight": n((W, W), W ** -0.5),
+                   f"{b}.self_attn.out_proj.bias": z(W),
+                   f"{b}.mlp.fc1.weight": n((4 * W, W), (2 * W) ** -0.5),
+                   f"{b}.mlp.fc1.bias": z(4 * W),
+                   f"{b}.mlp.fc2.weight": n((W, 4 * W), in_std), f"{b}.mlp.fc2.bias": z(W),
+                   **ln(f"{b}.layer_norm1"), **ln(f"{b}.layer_norm2")})
+    return st
+
+
+def diffusers_vae_state(params, prefix):
+    """The port's VAE encoder or decoder dict under diffusers
+    ``AutoencoderKL`` names (HWIO -> OIHW, (in, out) -> (out, in))."""
+    st = {}
+
+    def conv(name, p):
+        st[f"{name}.weight"], st[f"{name}.bias"] = p["w"].permute(3, 2, 0, 1), p["b"]
+
+    def gn(name, p):
+        st[f"{name}.weight"], st[f"{name}.bias"] = p["scale"], p["bias"]
+
+    def resnet(name, p):
+        gn(f"{name}.norm1", p["norm1"])
+        conv(f"{name}.conv1", p["conv1"])
+        gn(f"{name}.norm2", p["norm2"])
+        conv(f"{name}.conv2", p["conv2"])
+        if "shortcut" in p:
+            conv(f"{name}.conv_shortcut", p["shortcut"])
+
+    conv(f"{prefix}.conv_in", params["conv_in"])
+    resnet(f"{prefix}.mid_block.resnets.0", params["mid_res1"])
+    resnet(f"{prefix}.mid_block.resnets.1", params["mid_res2"])
+    a, att = f"{prefix}.mid_block.attentions.0", params["mid_attn"]
+    gn(f"{a}.group_norm", att["norm"])
+    for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("out", "to_out.0")):
+        st[f"{a}.{theirs}.weight"], st[f"{a}.{theirs}.bias"] = att[ours]["w"].t(), att[ours]["b"]
+    gn(f"{prefix}.conv_norm_out", params["norm_out"])
+    conv(f"{prefix}.conv_out", params["conv_out"])
+    kind, up = ("up", "upsample") if prefix == "decoder" else ("down", "downsample")
+    for bi, blk in enumerate(params[f"{kind}_blocks"]):
+        for li, rp in enumerate(blk["resnets"]):
+            resnet(f"{prefix}.{kind}_blocks.{bi}.resnets.{li}", rp)
+        if up in blk:
+            conv(f"{prefix}.{kind}_blocks.{bi}.{kind}samplers.0.conv", blk[up])
+    return st
+
+
+def unigram_tokenizer_json(vocab_size, seed):
+    """A T5-like ``tokenizer.json``: NFKC, Metaspace, a ``Unigram`` model of
+    ``vocab_size`` scored pieces (<pad>=0, </s>=1, <unk>=2) over the
+    prompts' characters, and ``TemplateProcessing`` appending </s>."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alphabet = sorted(set("".join(CKPT_PROMPTS)) - {" "})
+    pieces = set()
+    while len(pieces) < vocab_size - 4:
+        w = "".join(rng.choice(alphabet, int(rng.integers(1, 7))))
+        pieces.add(("▁" + w) if rng.random() < 0.4 else w)
+    vocab = [["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0], ["▁", -2.0]] + \
+        [[p, float(-rng.uniform(3, 14))] for p in sorted(pieces)]
+    special = lambda i, c: {"id": i, "content": c, "single_word": False, "lstrip": False,
+                            "rstrip": False, "normalized": False, "special": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [special(0, "<pad>"), special(1, "</s>"), special(2, "<unk>")],
+        "normalizer": {"type": "NFKC"},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                          "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1], "tokens": ["</s>"]}}},
+        "decoder": None,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False},
+    }
+
+
+def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
+    """Released checkpoints in, at full FLUX.1-dev width: (1) a synthetic
+    FLUX.1-dev directory written by the port's writers in the released
+    layout (a bf16 transformer cut to 2 + 4 blocks in two shards, an F32
+    tuned export, a bf16 T5-XXL cut to 2 of 24 layers, the whole CLIP-L text
+    tower in F16, the full F32 VAE, a CLIP merges table and a 32,128-piece
+    ``Unigram`` tokenizer.json); (2) each component loaded onto the card in
+    bf16 through the port's loaders, timed, with the host's peak RSS, and a
+    dozen leaves held bit for bit against what was written; the encoders'
+    bf16 outputs against their f32 outputs; (3) ``sample.main`` on the
+    directory (1024px, 4 steps, 2 tuned, batches of 2, three prompts); (4)
+    ``serve.build_server`` answering a co-batched pair and a lone request;
+    (5) ``vae_encode`` of two decoded images.  Launches: exactly 24 forwards
+    per pipeline call, nothing from the encoders or the VAE.  ``fam`` and
+    ``res`` (default: the full-width cut family, 1024px) are arguments so
+    that the phase can be rehearsed at a tiny size."""
+    import dataclasses
+    import json as _json
+    import resource
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from mixgrpo_tpu_torch import sample as Sa
+    from mixgrpo_tpu_torch import serve as Se
+    from mixgrpo_tpu_torch.models.flux.load import (
+        load_flux_params, load_vae_decoder_params, load_vae_encoder_params,
+    )
+    from mixgrpo_tpu_torch.models.flux.vae import (
+        VAEConfig, init_vae_decoder, init_vae_encoder, vae_encode,
+    )
+    from mixgrpo_tpu_torch.models.text.clip import CLIPConfig
+    from mixgrpo_tpu_torch.models.text.clip_load import load_clip_hf_text_only
+    from mixgrpo_tpu_torch.models.text.t5 import T5Config, load_t5_hf
+    from mixgrpo_tpu_torch.preprocess import build_prompt_encoder_from_dir
+    from mixgrpo_tpu_torch.utils.checkpoint import diffusers_state, export_flux_safetensors
+    from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir, save_file
+
+    fam = fam or {
+        "flux": M.FluxConfig(depth_double=TRAIN_DEPTH[0], depth_single=TRAIN_DEPTH[1]),
+        "vae": VAEConfig.flux_dev(), "t5": dataclasses.replace(T5Config.xxl(), num_layers=2),
+        "clip": CLIPConfig.vit_l_14()}
+    cfg, bf16 = fam["flux"], torch.bfloat16
+    per_call = cfg.depth_double + cfg.depth_single
+    tmp = tempfile.mkdtemp(dir=root, prefix=".smoke_ckpt_")
+    try:
+        d = os.path.join(tmp, "FLUX.1-dev")
+        # -- 1. write ------------------------------------------------------------
+        t0 = time.perf_counter()
+        base = M.init_flux(cfg, generator=torch.Generator(dev).manual_seed(20), device=dev,
+                           dtype=bf16)
+        st = diffusers_state(base, cfg)
+        names = sorted(st)
+        for k, part in enumerate((names[:len(names) // 2], names[len(names) // 2:])):
+            save_file({n: st[n] for n in part}, os.path.join(
+                d, "transformer", f"diffusion_pytorch_model-{k + 1:05d}-of-00002.safetensors"))
+        g = torch.Generator(dev).manual_seed(21)
+        tuned = tree_map(lambda t: t + 1e-3 * torch.randn(t.shape, generator=g, device=dev,
+                                                          dtype=bf16), base)
+        tuned_path = os.path.join(tmp, "tuned.safetensors")
+        export_flux_safetensors(tuned, cfg, tuned_path)
+        t5_st = hf_t5_state(torch, fam["t5"], dev, 22)
+        save_file(t5_st, os.path.join(d, "text_encoder_2", "model.safetensors"))
+        clip_st = hf_clip_text_state(torch, fam["clip"], dev, 23)
+        save_file(clip_st, os.path.join(d, "text_encoder", "model.safetensors"))
+        vae_dec = init_vae_decoder(fam["vae"], generator=torch.Generator(dev).manual_seed(24),
+                                   device=dev)
+        vae_enc = init_vae_encoder(fam["vae"], generator=torch.Generator(dev).manual_seed(25),
+                                   device=dev)
+        save_file({**diffusers_vae_state(vae_dec, "decoder"),
+                   **diffusers_vae_state(vae_enc, "encoder")},
+                  os.path.join(d, "vae", "diffusion_pytorch_model.safetensors"))
+        os.makedirs(os.path.join(d, "tokenizer"))
+        with open(os.path.join(d, "tokenizer", "merges.txt"), "w") as f:
+            f.write("\n".join(CLIP_MERGES) + "\n")
+        os.makedirs(os.path.join(d, "tokenizer_2"))
+        with open(os.path.join(d, "tokenizer_2", "tokenizer.json"), "w") as f:
+            _json.dump(unigram_tokenizer_json(fam["t5"].vocab, 26), f)
+        with open(os.path.join(d, "tokenizer_2", "tokenizer_config.json"), "w") as f:
+            _json.dump({"tokenizer_class": "T5Tokenizer", "model_max_length": 512,
+                        "pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>"}, f)
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+        sizes = {}
+        for sub in ("transformer", "text_encoder_2", "text_encoder", "vae", "tokenizer_2"):
+            sizes[sub] = sum(os.path.getsize(os.path.join(d, sub, n))
+                             for n in os.listdir(os.path.join(d, sub)))
+        sizes["tuned.safetensors"] = os.path.getsize(tuned_path)
+        emit({"phase": "checkpoints_write", "seconds": write_s,
+              "gb_written": sum(sizes.values()) / 1e9,
+              "gb_per_component": {k: v / 1e9 for k, v in sizes.items()},
+              "flux_params": M.param_count(base),
+              "t5_params": sum(t.numel() for t in t5_st.values()),
+              "clip_text_params": sum(t.numel() for t in clip_st.values()), "device": card})
+
+        # -- 2. load each component onto the card in bf16, leaves bit for bit --------
+        loads, checks = [], []
+
+        def load(name, fn, path):
+            torch.cuda.synchronize()
+            with RssPeak() as rss:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            nbytes = SafetensorsDir(path).nbytes()
+            rec = {"component": name, "seconds": sec, "gb": nbytes / 1e9,
+                   "gb_per_s": nbytes / 1e9 / sec, "host_rss_before_gb": rss.before,
+                   "host_rss_peak_gb": rss.peak,
+                   "host_rss_rise_gb": rss.peak - rss.before,
+                   "host_ru_maxrss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                   * 1024 / 1e9}
+            loads.append(rec)
+            return out
+
+        def same(what, got, want):
+            ok = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+            checks.append({"leaf": what, "dtype": str(got.dtype).replace("torch.", ""),
+                           "shape": list(got.shape), "bit_for_bit": bool(ok)})
+
+        tdir = os.path.join(d, "transformer")
+        lb = load("transformer", lambda: load_flux_params(tdir, cfg, dtype=bf16, device=dev),
+                  tdir)
+        same("double.img_qkv.w[1] (fused q, k, v)", lb["double"]["img_qkv"]["w"][1],
+             base["double"]["img_qkv"]["w"][1])
+        same("single.linear1.w[3] (fused q, k, v, mlp)", lb["single"]["linear1"]["w"][3],
+             base["single"]["linear1"]["w"][3])
+        same("x_embedder.w (transposed linear)", lb["x_embedder"]["w"], base["x_embedder"]["w"])
+        same("double.txt_knorm[0]", lb["double"]["txt_knorm"][0], base["double"]["txt_knorm"][0])
+        del lb
+        lt = load("tuned (F32 export)", lambda: load_flux_params(tuned_path, cfg, dtype=bf16,
+                                                                 device=dev), tuned_path)
+        same("tuned single.linear2.w[2] (F32 -> bf16)", lt["single"]["linear2"]["w"][2],
+             tuned["single"]["linear2"]["w"][2])
+        same("tuned double.txt_qkv.b[0]", lt["double"]["txt_qkv"]["b"][0],
+             tuned["double"]["txt_qkv"]["b"][0])
+        del lt, tuned
+        vdir = os.path.join(d, "vae")
+        lv, le = load("vae (decoder and encoder)", lambda: (
+            load_vae_decoder_params(vdir, fam["vae"], dtype=bf16, device=dev),
+            load_vae_encoder_params(vdir, fam["vae"], dtype=bf16, device=dev)), vdir)
+        same("vae decoder.conv_in.w (conv kernel)", lv["conv_in"]["w"],
+             vae_dec["conv_in"]["w"].to(bf16))
+        same("vae decoder.up_blocks[1].upsample.w", lv["up_blocks"][1]["upsample"]["w"],
+             vae_dec["up_blocks"][1]["upsample"]["w"].to(bf16))
+        same("vae encoder.down_blocks[0].downsample.w", le["down_blocks"][0]["downsample"]["w"],
+             vae_enc["down_blocks"][0]["downsample"]["w"].to(bf16))
+        same("vae encoder.mid_attn.q.w", le["mid_attn"]["q"]["w"],
+             vae_enc["mid_attn"]["q"]["w"].to(bf16))
+        del lv, le, vae_dec, vae_enc
+        t5dir = os.path.join(d, "text_encoder_2")
+        l5 = load("t5", lambda: load_t5_hf(SafetensorsDir(t5dir), fam["t5"], dtype=bf16,
+                                           device=dev), t5dir)
+        same("t5 rel_bias", l5["rel_bias"],
+             t5_st["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"])
+        same("t5 blocks.q[1] (transposed)", l5["blocks"]["q"][1],
+             t5_st["encoder.block.1.layer.0.SelfAttention.q.weight"].t())
+        same("t5 token_emb", l5["token_emb"], t5_st["shared.weight"])
+        del l5, t5_st
+        cdir = os.path.join(d, "text_encoder")
+        lc = load("clip-l text", lambda: load_clip_hf_text_only(
+            SafetensorsDir(cdir), fam["clip"], dtype=bf16, device=dev), cdir)
+        li = fam["clip"].text.layers // 2
+        pre = f"text_model.encoder.layers.{li}.self_attn"
+        same(f"clip text.blocks.qkv.w[{li}] (fused, F16 -> bf16)",
+             lc["text"]["blocks"]["qkv"]["w"][li],
+             torch.cat([clip_st[f"{pre}.{x}_proj.weight"] for x in "qkv"]).t().to(bf16))
+        same("clip token_emb, F16 read as F16",
+             SafetensorsDir(cdir).get("text_model.embeddings.token_embedding.weight", device=dev),
+             clip_st["text_model.embeddings.token_embedding.weight"])
+        del lc, clip_st
+        for rec in loads:
+            emit(dict(phase="checkpoints_load", **rec, device=card))
+        emit({"phase": "checkpoints_leaves", "checks": checks, "device": card})
+        if not all(c["bit_for_bit"] for c in checks):
+            raise AssertionError(f"checkpoints: leaves differ from what was written: {checks}")
+
+        # the prompt encoders: bf16 against f32 on the card, and their launches
+        encs = {dt: build_prompt_encoder_from_dir(d, family=fam, device=dev, dtype=dt)
+                for dt in (torch.float32, bf16)}
+        ids = encs[bf16].t5_tok(list(CKPT_PROMPTS), padding="max_length", truncation=True,
+                                max_length=512, return_tensors="np")["input_ids"]
+        FA.reset_launches()
+        out = {dt: e(list(CKPT_PROMPTS)) for dt, e in encs.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encs[bf16](list(CKPT_PROMPTS))
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        enc_launches = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+        t5_ok, t5_err, t5_rel = close_bf16(torch.from_numpy(out[bf16][0]),
+                                           torch.from_numpy(out[torch.float32][0]))
+        # CLIP-L's bf16 residual stream is rounded 24 times (12 layers x 2 adds):
+        # sqrt(24) * 2^-8 / sqrt(3) = 1.1e-2 relative L2 is expected from that alone
+        clip_ok, clip_err, clip_rel = close_bf16(torch.from_numpy(out[bf16][1]),
+                                                 torch.from_numpy(out[torch.float32][1]),
+                                                 rel_lim=3e-2)
+        rec = {"phase": "checkpoints_encode", "prompts": len(CKPT_PROMPTS),
+               "t5_ids_nonpad": [int((r != 0).sum()) for r in ids],
+               "t5_last_id_of_long_prompt": int(ids[1, -1]),
+               "shapes": [list(out[bf16][0].shape), list(out[bf16][1].shape)],
+               "t5_bf16_vs_f32": {"ok": t5_ok, "max_abs_err": t5_err, "rel_l2": t5_rel},
+               "clip_bf16_vs_f32": {"ok": clip_ok, "max_abs_err": clip_err, "rel_l2": clip_rel,
+                                    "rel_lim": 3e-2},
+               "encode_ms_per_batch_bf16": encode_ms, "launches": enc_launches, "device": card}
+        emit(rec)
+        del encs, out
+        torch.cuda.empty_cache()
+        if not (t5_ok and clip_ok and ids[1, -1] == 1 and (ids[1] != 0).all()
+                and not any(enc_launches.values())):
+            raise AssertionError(f"checkpoints: prompt encoders failed their checks: {rec}")
+
+        # -- 3. sample.main --------------------------------------------------------
+        prompts = os.path.join(tmp, "prompts.txt")
+        with open(prompts, "w") as f:
+            f.write("\n".join(CKPT_PROMPTS) + "\n")
+        outdir = os.path.join(tmp, "samples")
+        FA.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        Sa.main(["--model_path", d, "--new_model_ckpt", tuned_path, "--prompt_path", prompts,
+                 "--output_dir", outdir, "--h", str(res), "--w", str(res), "--sampling_steps",
+                 str(SERVE_STEPS), "--mix_sampling_steps", str(SERVE_MIX), "--batch_size", "2",
+                 "--seed", "5", "--device", str(dev)], family=fam)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        main_peak = torch.cuda.max_memory_allocated() / 1e9
+        calls = -(-len(CKPT_PROMPTS) // 2)
+        check_launches(FA, "sample_main", FA.flash_attn_fwd.launches, per_call,
+                       calls * SERVE_STEPS)
+        with open(os.path.join(outdir, "metadata_0.json")) as f:
+            meta = _json.load(f)
+        shapes = [np.asarray(Image.open(os.path.join(outdir, m["image"]))).shape for m in meta]
+        rec = {"phase": "checkpoints_sample_main", "images": len(meta), "shapes": shapes,
+               "pipeline_calls": calls, "seconds": main_s,
+               "max_memory_allocated_gb": main_peak, "device": card}
+        emit(rec)
+        if [m["prompt"] for m in meta] != list(CKPT_PROMPTS) or \
+                any(s != (res, res, 3) for s in shapes):
+            raise AssertionError(f"sample.main: {rec}")
+        torch.cuda.empty_cache()
+
+        # -- 4. serve.build_server -------------------------------------------------
+        args = Se.arg_parser().parse_args(
+            ["--model_path", d, "--tuned_path", tuned_path, "--host", "127.0.0.1", "--port",
+             "0", "--batch_size", "2", "--max_wait_ms", "500", "--num_steps", str(SERVE_STEPS),
+             "--mix_sampling_steps", str(SERVE_MIX), "--height", str(res), "--width", str(res),
+             "--device", str(dev)])
+        t0 = time.perf_counter()
+        srv = Se.build_server(args, family=fam)
+        build_s = time.perf_counter() - t0
+        results = {}
+        FA.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        srv.start()
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+                i, post(srv.port, {"prompt": CKPT_PROMPTS[i], "seed": i}))) for i in range(2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            pair_wall = time.perf_counter() - t0
+            results[2] = post(srv.port, {"prompt": CKPT_PROMPTS[2], "seed": 7})
+            stats = dict(srv.batcher.stats)
+        finally:
+            srv.stop()
+        check_launches(FA, "serve_main", FA.flash_attn_fwd.launches, per_call,
+                       stats["batches"] * SERVE_STEPS)
+        pngs = []
+        for i in range(3):
+            status, ctype, body, _ = results[i]
+            pngs.append(np.asarray(Image.open(io.BytesIO(body))))
+            if status != 200 or ctype != "image/png" or pngs[-1].shape != (res, res, 3):
+                raise AssertionError(f"served request {i}: {status} {ctype} {pngs[-1].shape}")
+        rec = {"phase": "checkpoints_serve", "build_server_s": build_s, "stats": stats,
+               "pair_wall_s": pair_wall, "s_per_image_batched": pair_wall / 2,
+               "latency_s": [results[i][3] for i in range(3)],
+               "s_per_image_alone": results[2][3],
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "device": card}
+        emit(rec)
+        if stats["batches"] != 2 or stats["single_dispatches"] != 1 or stats["errors"]:
+            raise AssertionError(f"serve.build_server: {rec}")
+        del srv
+        torch.cuda.empty_cache()
+
+        # -- 5. vae_encode of two decoded images -------------------------------------
+        enc_p = load_vae_encoder_params(vdir, fam["vae"], dtype=bf16, device=dev)
+        imgs = torch.from_numpy(np.stack(pngs[:2]).astype(np.float32) / 127.5 - 1.0).to(dev)
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        lat = vae_encode(enc_p, fam["vae"], imgs, dtype=bf16, sample=False)
+        torch.cuda.synchronize()
+        rec = {"phase": "checkpoints_vae_encode", "latents": list(lat.shape),
+               "finite": bool(torch.isfinite(lat).all()),
+               "seconds": time.perf_counter() - t0,
+               "launches": {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()},
+               "device": card}
+        emit(rec)
+        want_shape = (2, res // 8, res // 8, fam["vae"].latent_channels)
+        if tuple(lat.shape) != want_shape or not rec["finite"] or \
+                any(rec["launches"].values()):
+            raise AssertionError(f"vae_encode: {rec}")
+        del enc_p, imgs, lat, base
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)  # cleanup only; failures propagate
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "sample_main_s": main_s}
+
+
 def brightness_reward(images01, captions):
     """Synthetic reward: mean pixel brightness of each image (the JAX
     package's tests use the same one; no reward model is in the repository)."""
@@ -1216,7 +1712,7 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
     return launches
 
 
-PHASES = ("build", "kernels", "serve", "train", "update_full_depth",
+PHASES = ("build", "kernels", "serve", "checkpoints", "train", "update_full_depth",
           "train_flash_lora")
 TRAIN_DEPTH = (2, 4)
 FULL_DEPTH = (19, 38)
@@ -1288,6 +1784,8 @@ def main() -> int:
         kernel_phase(torch, FA, F, dev, card, rows)
     if "serve" in only:
         serve_phase(torch, FA, F, M, dev, card, rows)
+    if "checkpoints" in only:
+        checkpoints_phase(torch, FA, M, dev, card, root)
     if "train" in only:
         launches = train_phase(torch, FA, M, dev, card, root)
         for n in ("flash_attn_fwd_lse", "flash_attn_bwd_fused"):

@@ -1,12 +1,13 @@
 """Prompt-embedding cache + RL dataset/loader.
 
-Port of mixgrpo_tpu/data/dataset.py, in numpy only: the cache is a set of
-shards in the safetensors format (an 8-byte little-endian header length, a
-JSON header of dtype, shape and byte offsets, then the raw arrays) plus a
-``manifest.json``, read and written here by hand so that the port needs no
-``safetensors`` package and its caches and the JAX package's are the same
-files.  ``LatentDataset`` gives random access with the cfg-rate dropout to
-zero embeddings (a pure function of seed, epoch and index); ``PromptLoader``
+Port of mixgrpo_tpu/data/dataset.py: the cache is a set of shards in the
+safetensors format (an 8-byte little-endian header length, a JSON header of
+dtype, shape and byte offsets, then the raw arrays) plus a
+``manifest.json``, written by ``utils/safetensors_io.py`` and read here row
+by row through a numpy memmap, so that the port needs no ``safetensors``
+package and its caches and the JAX package's are the same files.
+``LatentDataset`` gives random access with the cfg-rate dropout to zero
+embeddings (a pure function of seed, epoch and index); ``PromptLoader``
 walks a seeded epoch permutation in batches (one process: JAX's per-host
 sharding of the permutation waits for the port of ``parallel/``).  FLUX
 ``text_ids`` are zeros and are not stored.  JAX's native C++ shard reader
@@ -23,29 +24,10 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
+from mixgrpo_tpu_torch.utils.safetensors_io import save_file
+
 _MANIFEST = "manifest.json"
 _DTYPES = {"F16": np.float16, "F32": np.float32}
-_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
-
-
-def save_safetensors(arrays: Dict[str, np.ndarray], path: str) -> None:
-    """Write ``arrays`` as one safetensors file (header padded to 8 bytes)."""
-    header, offset, blobs = {}, 0, []
-    for name in sorted(arrays):
-        a = np.ascontiguousarray(arrays[name])
-        if a.dtype not in _CODES:
-            raise TypeError(f"{name}: dtype {a.dtype} has no safetensors code here")
-        header[name] = {"dtype": _CODES[a.dtype], "shape": list(a.shape),
-                        "data_offsets": [offset, offset + a.nbytes]}
-        offset += a.nbytes
-        blobs.append(a.tobytes())
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for b in blobs:
-            f.write(b)
 
 
 class SafetensorsShard:
@@ -88,7 +70,7 @@ class EmbeddingCacheWriter:
         if not self._buf:
             return
         name = f"shard_{len(self._shards):05d}.safetensors"
-        save_safetensors({
+        save_file({
             "prompt_embed": np.stack([b["prompt_embed"] for b in self._buf]),
             "pooled": np.stack([b["pooled"] for b in self._buf]),
         }, os.path.join(self.out_dir, name))

@@ -21,21 +21,20 @@ Two ways to merge, with the same numbers:
     the backward gathers no gradient of a full-size weight stack.  The
     update differentiates through it.
 
-``save_lora``/``load_lora`` write and read the safetensors layout with the
-standard library and numpy (8-byte little-endian header length, a JSON
-header with ``__metadata__`` {rank, alpha}, raw little-endian f32 data), so
-files interchange with JAX's, which go through the ``safetensors`` package.
+``save_lora``/``load_lora`` write and read safetensors files through the
+port's ``utils/safetensors_io.py`` (f32 factors, ``__metadata__`` {rank,
+alpha}), so they interchange with JAX's ``save_lora``, which goes through
+the ``safetensors`` package.
 """
 
 from __future__ import annotations
 
-import json
 import re
-import struct
 from typing import Any, Dict
 
-import numpy as np
 import torch
+
+from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsFile, save_file
 
 DEFAULT_TARGETS = r"(qkv|linear1|linear2|attn_out|mlp_in|mlp_out)/w$"
 
@@ -118,52 +117,30 @@ def lora_blocks(params: Any, lora: Dict[str, Any], stacks=("double", "single")):
     return apply_lora(params, {**lora, "factors": outside}), merge_block
 
 
-_SAFETENSORS_F32 = "F32"
-
-
 def save_lora(lora: Dict[str, Any], path: str) -> None:
     """Write the factors as ``<path>.lora_A`` / ``.lora_B`` f32 tensors in
     the safetensors layout, with metadata {rank, alpha}."""
-    arrays = {}
+    tensors = {}
     for ps, f in lora["factors"].items():
-        arrays[f"{ps}.lora_A"] = f["a"].detach().to("cpu", torch.float32).numpy()
-        arrays[f"{ps}.lora_B"] = f["b"].detach().to("cpu", torch.float32).numpy()
-    header: Dict[str, Any] = {"__metadata__": {"rank": str(lora["rank"]),
-                                               "alpha": str(lora["alpha"])}}
-    offset = 0
-    for name in sorted(arrays):
-        n = arrays[name].nbytes
-        header[name] = {"dtype": _SAFETENSORS_F32, "shape": list(arrays[name].shape),
-                        "data_offsets": [offset, offset + n]}
-        offset += n
-    blob = json.dumps(header, separators=(",", ":")).encode()
-    blob += b" " * (-len(blob) % 8)  # the data starts 8-byte aligned
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<Q", len(blob)))
-        fh.write(blob)
-        for name in sorted(arrays):
-            fh.write(np.ascontiguousarray(arrays[name], dtype="<f4").tobytes())
+        tensors[f"{ps}.lora_A"] = f["a"]
+        tensors[f"{ps}.lora_B"] = f["b"]
+    save_file(tensors, path, metadata={"rank": lora["rank"], "alpha": lora["alpha"]},
+              dtype=torch.float32)
 
 
 def load_lora(path: str, device="cuda") -> Dict[str, Any]:
     """Read a file written by ``save_lora`` (this one or JAX's); the factors
     are put on ``device``."""
-    with open(path, "rb") as fh:
-        (n,) = struct.unpack("<Q", fh.read(8))
-        header = json.loads(fh.read(n))
-        data = fh.read()
-    meta = header.pop("__metadata__", None) or {}
+    st = SafetensorsFile(path)
     factors: Dict[str, Any] = {}
-    for name, info in header.items():
-        if info["dtype"] != _SAFETENSORS_F32:
-            raise ValueError(f"{path}: {name} is {info['dtype']}, not F32")
-        begin, end = info["data_offsets"]
-        arr = np.frombuffer(data, dtype="<f4", count=(end - begin) // 4, offset=begin)
+    for name in st.keys():
+        if st.header[name]["dtype"] != "F32":
+            raise ValueError(f"{path}: {name} is {st.header[name]['dtype']}, not F32")
         base, kind = name.rsplit(".", 1)
         factors.setdefault(base, {})["a" if kind == "lora_A" else "b"] = \
-            torch.from_numpy(arr.reshape(info["shape"]).copy()).to(device)
-    return {"factors": factors, "rank": int(meta.get("rank", 16)),
-            "alpha": float(meta.get("alpha", 16.0))}
+            st.get(name, device=device)
+    return {"factors": factors, "rank": int(st.metadata.get("rank", 16)),
+            "alpha": float(st.metadata.get("alpha", 16.0))}
 
 
 def lora_loss_fn(base_params, lora, loss_of_params):

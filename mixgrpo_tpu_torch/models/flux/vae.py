@@ -1,21 +1,25 @@
-"""FLUX AutoencoderKL decoder in plain PyTorch.
+"""FLUX AutoencoderKL in plain PyTorch.
 
-Port of the decoder half of mixgrpo_tpu/models/flux/vae.py: conv_in 16->512,
-mid block (resnet, single-head spatial attention, resnet), four up blocks of
-3 resnets at channels (512, 512, 256, 128) with nearest-2x upsampling, a
-GroupNorm(32) + SiLU head and conv_out -> RGB; fp32 GroupNorm statistics.
+Port of mixgrpo_tpu/models/flux/vae.py.  Decoder: conv_in 16->512, mid block
+(resnet, single-head spatial attention, resnet), four up blocks of 3 resnets
+at channels (512, 512, 256, 128) with nearest-2x upsampling, a GroupNorm(32)
++ SiLU head and conv_out -> RGB; fp32 GroupNorm statistics.  Encoder
+(``vae_encode``): four down blocks of 2 resnets at (128, 256, 512, 512) with
+stride-2 downsampling after diffusers' asymmetric (0, 1, 0, 1) padding, the
+same mid block, and conv_out to (mean | logvar); the posterior is sampled
+from a ``torch.Generator`` (``sample=False`` gives the mean) and normalized
+as ``(z - shift) * scaling``.
 
 The functions take and return NHWC tensors and keep JAX's HWIO conv weights,
-so converted weights and outputs line up with the JAX package; inside, the
-decoder runs NCHW for ``torch.nn.functional.conv2d`` (XLA computed these
-convolutions outside any Pallas kernel, so they are plain library calls here
-too).  The encoder waits for the training slice.
+so converted weights and outputs line up with the JAX package; inside, they
+run NCHW for ``torch.nn.functional.conv2d`` (XLA computed these convolutions
+outside any Pallas kernel, so they are plain library calls here too).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -168,6 +172,83 @@ def vae_decode(
     x = _group_norm(params["norm_out"], x, g)
     x = _conv(params["conv_out"], F.silu(x))
     return x.permute(0, 2, 3, 1).float()
+
+
+def init_vae_encoder(cfg: VAEConfig, *, generator=None, device="cuda",
+                     dtype=torch.float32) -> Dict[str, Any]:
+    """Random encoder weights in the JAX layout, at ``dtype`` on ``device``."""
+    chans = cfg.block_out_channels
+    top = chans[-1]
+    kw = dict(device=device, dtype=dtype)
+    g = generator
+    params: Dict[str, Any] = {
+        "conv_in": _conv_init(g, 3, 3, 3, chans[0], **kw),
+        "mid_res1": _resnet_init(g, top, top, **kw),
+        "mid_attn": _attn_init(g, top, **kw),
+        "mid_res2": _resnet_init(g, top, top, **kw),
+        "norm_out": _gn_init(top, **kw),
+        # 2x latent channels: (mean | logvar)
+        "conv_out": _conv_init(g, 3, 3, top, 2 * cfg.latent_channels, **kw),
+    }
+    blocks = []
+    cin = chans[0]
+    for bi, cout in enumerate(chans):
+        resnets = []
+        for _ in range(cfg.layers_per_block):
+            resnets.append(_resnet_init(g, cin, cout, **kw))
+            cin = cout
+        blk = {"resnets": resnets}
+        if bi < len(chans) - 1:
+            blk["downsample"] = _conv_init(g, 3, 3, cout, cout, **kw)
+        blocks.append(blk)
+    params["down_blocks"] = blocks
+    return params
+
+
+def _downsample(p, x, dtype):
+    """Stride-2 conv with diffusers' asymmetric (0, 1, 0, 1) padding (NCHW:
+    one row at the bottom, one column at the right)."""
+    x = F.pad(x, (0, 1, 0, 1))
+    y = F.conv2d(x.to(dtype), p["w"].to(dtype).permute(3, 2, 0, 1), stride=2)
+    return y + p["b"].to(dtype)[:, None, None]
+
+
+def vae_encode(
+    params: Dict[str, Any],
+    cfg: VAEConfig,
+    images: torch.Tensor,  # (B, H, W, 3) in [-1, 1]
+    generator: Optional[torch.Generator] = None,
+    dtype=torch.bfloat16,
+    sample: bool = True,
+) -> torch.Tensor:
+    """Encode images -> *normalized* latents (B, H/8, W/8, latent_channels)
+    f32: the posterior sampled from ``generator`` (or its mean with
+    ``sample=False``), then ``(z - shift) * scaling`` (the inverse of
+    ``denormalize_latents``)."""
+    from mixgrpo_tpu_torch.models.flux.latents import VAE_SCALING, VAE_SHIFT
+
+    g = cfg.norm_num_groups
+    x = _conv(params["conv_in"], images.permute(0, 3, 1, 2).to(dtype))
+    n_blocks = len(params["down_blocks"])
+    for bi, blk in enumerate(params["down_blocks"]):
+        for rp in blk["resnets"]:
+            x = _resnet(rp, x, g, dtype)
+        if bi < n_blocks - 1:
+            x = _downsample(blk["downsample"], x, dtype)
+    x = _resnet(params["mid_res1"], x, g, dtype)
+    x = _spatial_attn(params["mid_attn"], x, g, dtype)
+    x = _resnet(params["mid_res2"], x, g, dtype)
+    x = _group_norm(params["norm_out"], x, g)
+    x = _conv(params["conv_out"], F.silu(x)).float().permute(0, 2, 3, 1)
+    mean, logvar = x.chunk(2, dim=-1)
+    if sample:
+        if generator is None:
+            raise ValueError("posterior sampling needs a generator (or sample=False)")
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        z = mean + std * torch.randn(mean.shape, generator=generator, device=mean.device)
+    else:
+        z = mean
+    return (z - VAE_SHIFT) * VAE_SCALING
 
 
 def postprocess_images(images: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,63 @@
+"""Model loader registry.
+
+Port of mixgrpo_tpu/models/registry.py: a model_type string maps to (config
+factory, init fn, forward fn, checkpoint loader), so apps stay
+model-agnostic.  Only the FLUX family is ported; ``hunyuan_video`` and
+``mochi`` are registered under their names and raise until the video stack
+is ported (ROADMAP Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+
+class ModelEntry(NamedTuple):
+    config: Callable[[], Any]
+    init: Callable
+    forward: Callable
+    load: Optional[Callable] = None
+
+
+def _flux_entry() -> ModelEntry:
+    from mixgrpo_tpu_torch.models.flux.load import load_flux_params
+    from mixgrpo_tpu_torch.models.flux.model import FluxConfig, flux_forward, init_flux
+
+    return ModelEntry(FluxConfig.flux_dev, init_flux, flux_forward, load_flux_params)
+
+
+def _video_entry(model_type: str) -> Callable[[], ModelEntry]:
+    def entry() -> ModelEntry:
+        raise NotImplementedError(f"{model_type!r} waits for the port of the video stack "
+                                  "(ROADMAP Queue 1 item 9)")
+    return entry
+
+
+_REGISTRY: Dict[str, Callable[[], ModelEntry]] = {
+    "flux": _flux_entry,
+    "hunyuan_video": _video_entry("hunyuan_video"),
+    "mochi": _video_entry("mochi"),
+}
+
+
+def available_models():
+    return sorted(_REGISTRY)
+
+
+def get_model(model_type: str) -> ModelEntry:
+    if model_type not in _REGISTRY:
+        raise ValueError(f"unknown model_type {model_type!r}; available: {available_models()}")
+    return _REGISTRY[model_type]()
+
+
+def load_vae(model_type: str) -> ModelEntry:
+    """VAE (decoder) entry per model family."""
+    if model_type == "flux":
+        from mixgrpo_tpu_torch.models.flux.load import load_vae_decoder_params
+        from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, init_vae_decoder, vae_decode
+
+        return ModelEntry(VAEConfig.flux_dev, init_vae_decoder, vae_decode,
+                          load_vae_decoder_params)
+    if model_type == "hunyuan_video":
+        _video_entry(model_type)()
+    raise ValueError(f"no VAE registered for {model_type!r}")

@@ -1,0 +1,456 @@
+"""A reader of HF ``tokenizer.json`` files for the T5 tokenizer (``tokenizer_2``).
+
+The JAX package tokenizes T5 prompts with
+``transformers.AutoTokenizer.from_pretrained(tokenizer_2)``
+(mixgrpo_tpu/preprocess.py:125,141, sample.py:238,266); the card's machine
+has neither ``transformers`` nor ``tokenizers``, so the port reads the file
+itself and runs the same pipeline, id for id:
+
+  added tokens (split out of the raw text, or out of the normalized text
+  for those marked ``normalized``) -> normalizer -> pre-tokenizer -> model
+  -> truncation to ``max_length`` minus the template's special tokens ->
+  post-processor -> padding.
+
+Components taken (any other type, or an option that changes the pipeline
+and is not handled here, raises ``ValueError`` naming it; no step is ever
+skipped):
+
+- normalizers: ``NFC``, ``NFD``, ``NFKC``, ``NFKD``, ``Lowercase``,
+  ``Strip``, ``Replace`` (string or regex pattern), ``Precompiled`` (the
+  sentencepiece char map of the released T5 file: a darts-clone double-array
+  trie over UTF-8 bytes plus a blob of replacement strings; as in
+  ``tokenizers``, a grapheme cluster shorter than 6 bytes is replaced by the
+  value of its shortest prefix in the trie, else each character is looked
+  up alone) and ``Sequence``;
+- pre-tokenizers: ``Whitespace`` (``\\w+|[^\\w\\s]+``), ``WhitespaceSplit``,
+  ``Metaspace`` (``prepend_scheme`` "always" or "never", or the older
+  ``add_prefix_space``; ``split``) and ``Sequence``;
+- models: ``WordLevel`` and ``Unigram`` (Viterbi over the scored pieces,
+  ties to the earliest start; a character no piece covers becomes ``unk_id``
+  scored ``min_score - 10``; runs of unknowns fuse into one);
+- post-processor: ``TemplateProcessing`` (single-sequence template).
+
+Grapheme clusters (used only by ``Precompiled``) follow a subset of Unicode
+UAX #29: a base character with the combining marks, ZWJ sequences,
+variation selectors and emoji modifiers after it, CR LF, and regional
+indicator pairs.  ``tokenizer_config.json`` gives the pad token and the
+special tokens that ``AutoTokenizer`` registers as added tokens.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+import re
+import struct
+import unicodedata
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+K_UNK_PENALTY = 10.0
+
+
+# ---------------------------------------------------------------------------
+# normalizers
+# ---------------------------------------------------------------------------
+
+
+class _DoubleArray:
+    """darts-clone's double-array trie as sentencepiece serializes it."""
+
+    def __init__(self, units: np.ndarray):
+        self.units = units
+
+    def common_prefix_values(self, key: bytes) -> List[int]:
+        """The values of every prefix of ``key`` in the trie, shortest first."""
+        units = self.units
+        offset = lambda u: (u >> 10) << ((u & (1 << 9)) >> 6)
+        pos = offset(int(units[0]))
+        out = []
+        for c in key:
+            if c == 0:
+                break
+            pos ^= c
+            if pos >= len(units):
+                break
+            unit = int(units[pos])
+            if (unit & ((1 << 31) | 0xFF)) != c:  # label
+                break
+            pos ^= offset(unit)
+            if (unit >> 8) & 1:  # has leaf
+                out.append(int(units[pos]) & ((1 << 31) - 1))
+        return out
+
+
+_EXTEND_CATS = {"Mn", "Me", "Mc"}
+
+
+def _is_extend(ch: str) -> bool:
+    cp = ord(ch)
+    return (unicodedata.category(ch) in _EXTEND_CATS or cp == 0x200D
+            or 0xFE00 <= cp <= 0xFE0F or 0x1F3FB <= cp <= 0x1F3FF
+            or 0xE0020 <= cp <= 0xE007F)
+
+
+def _graphemes(text: str) -> List[str]:
+    """Extended grapheme clusters (the subset of UAX #29 named in the module
+    docstring)."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        j = i + 1
+        if text[i] == "\r" and j < n and text[j] == "\n":
+            j += 1
+        elif 0x1F1E6 <= ord(text[i]) <= 0x1F1FF and j < n and 0x1F1E6 <= ord(text[j]) <= 0x1F1FF:
+            j += 1
+        else:
+            while j < n and _is_extend(text[j]):
+                # a ZWJ joins the next character to the cluster
+                j += 2 if text[j] == "\u200d" and j + 1 < n else 1
+        out.append(text[i:j])
+        i = j
+    return out
+
+
+class _Precompiled:
+    def __init__(self, charsmap_b64: str):
+        blob = base64.b64decode(charsmap_b64)
+        (trie_size,) = struct.unpack("<I", blob[:4])
+        self.trie = _DoubleArray(np.frombuffer(blob[4:4 + trie_size], dtype="<u4"))
+        self.normalized = blob[4 + trie_size:]
+
+    def _transform(self, chunk: str) -> Optional[str]:
+        vals = self.trie.common_prefix_values(chunk.encode("utf-8"))
+        if not vals:
+            return None
+        end = self.normalized.index(b"\0", vals[0])
+        return self.normalized[vals[0]:end].decode("utf-8")
+
+    def __call__(self, text: str) -> str:
+        out = []
+        for g in _graphemes(text):
+            if len(g.encode("utf-8")) < 6:
+                norm = self._transform(g)
+                if norm is not None:
+                    out.append(norm)
+                    continue
+            for ch in g:
+                norm = self._transform(ch)
+                out.append(ch if norm is None else norm)
+        return "".join(out)
+
+
+def _normalizer(spec) -> callable:
+    if spec is None:
+        return lambda s: s
+    kind = spec.get("type")
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
+        return lambda s: unicodedata.normalize(kind, s)
+    if kind == "Lowercase":
+        return str.lower
+    if kind == "Strip":
+        left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+
+        def strip(s):
+            s = s.lstrip() if left else s
+            return s.rstrip() if right else s
+        return strip
+    if kind == "Replace":
+        pat, content = spec["pattern"], spec["content"]
+        if "Regex" in pat:
+            rx = re.compile(pat["Regex"])
+            return lambda s: rx.sub(lambda m: content, s)
+        return lambda s: s.replace(pat["String"], content)
+    if kind == "Precompiled":
+        return _Precompiled(spec["precompiled_charsmap"])
+    if kind == "Sequence":
+        steps = [_normalizer(n) for n in spec["normalizers"]]
+
+        def run(s):
+            for f in steps:
+                s = f(s)
+            return s
+        return run
+    raise ValueError(f"tokenizer.json: unknown normalizer type {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# pre-tokenizers: each maps a list of pieces to a list of pieces
+# ---------------------------------------------------------------------------
+
+
+def _is_word(ch: str) -> bool:
+    cat = unicodedata.category(ch)
+    return cat[0] in "LM" or cat in ("Nd", "Nl", "Pc")
+
+
+def _whitespace(piece: str) -> List[str]:
+    """``\\w+|[^\\w\\s]+`` runs; whitespace between them is dropped."""
+    out, cur, kind = [], [], None
+    for ch in piece:
+        k = "w" if _is_word(ch) else ("s" if ch.isspace() else "p")
+        if k != kind and cur:
+            if kind != "s":
+                out.append("".join(cur))
+            cur = []
+        cur.append(ch)
+        kind = k
+    if cur and kind != "s":
+        out.append("".join(cur))
+    return out
+
+
+def _pre_tokenizer(spec) -> callable:
+    if spec is None:
+        return lambda pieces: pieces
+    kind = spec.get("type")
+    if kind == "Whitespace":
+        return lambda pieces: [w for p in pieces for w in _whitespace(p)]
+    if kind == "WhitespaceSplit":
+        return lambda pieces: [w for p in pieces for w in p.split()]
+    if kind == "Metaspace":
+        rep = spec.get("replacement", "▁")
+        scheme = spec.get("prepend_scheme")
+        if scheme is None:
+            scheme = "always" if spec.get("add_prefix_space", True) else "never"
+        if scheme not in ("always", "never"):
+            raise ValueError(f"tokenizer.json: Metaspace prepend_scheme {scheme!r} is not "
+                             "handled here")
+        split = spec.get("split", True)
+
+        def meta(pieces):
+            out = []
+            for p in pieces:
+                p = p.replace(" ", rep)
+                if scheme == "always" and not p.startswith(rep):
+                    p = rep + p
+                out.extend(q for q in (re.split(f"(?={re.escape(rep)})", p) if split else [p])
+                           if q)
+            return out
+        return meta
+    if kind == "Sequence":
+        steps = [_pre_tokenizer(p) for p in spec["pretokenizers"]]
+
+        def run(pieces):
+            for f in steps:
+                pieces = f(pieces)
+            return pieces
+        return run
+    raise ValueError(f"tokenizer.json: unknown pre_tokenizer type {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# models: each maps one piece to ids
+# ---------------------------------------------------------------------------
+
+
+class _WordLevel:
+    def __init__(self, spec):
+        self.vocab: Dict[str, int] = spec["vocab"]
+        self.unk = spec.get("unk_token")
+
+    def token_id(self, tok: str) -> Optional[int]:
+        return self.vocab.get(tok)
+
+    def __call__(self, piece: str) -> List[int]:
+        if piece in self.vocab:
+            return [self.vocab[piece]]
+        if self.unk is None or self.unk not in self.vocab:
+            raise ValueError(f"WordLevel: {piece!r} is not in the vocab and there is no "
+                             "unk token")
+        return [self.vocab[self.unk]]
+
+
+class _Unigram:
+    def __init__(self, spec):
+        if spec.get("byte_fallback"):
+            raise ValueError("tokenizer.json: Unigram byte_fallback is not handled here")
+        pieces = spec["vocab"]
+        self.ids = {}
+        for i, (p, _) in enumerate(pieces):
+            self.ids.setdefault(p, i)
+        self.scores = [float(s) for _, s in pieces]
+        self.unk_id = spec.get("unk_id")
+        self.min_score = min(self.scores)
+        self.max_len = max(len(p) for p, _ in pieces)
+
+    def token_id(self, tok: str) -> Optional[int]:
+        return self.ids.get(tok)
+
+    def __call__(self, piece: str) -> List[int]:
+        n = len(piece)
+        if n == 0:
+            return []
+        unk_score = self.min_score - K_UNK_PENALTY
+        best = [None] * (n + 1)  # (score, start, id) of the best path ending here
+        best[0] = (0.0, -1, -1)
+        for s in range(n):
+            if best[s] is None:
+                continue
+            base, single = best[s][0], False
+            for e in range(s + 1, min(n, s + self.max_len) + 1):
+                i = self.ids.get(piece[s:e])
+                if i is None:
+                    continue
+                cand = base + self.scores[i]
+                if best[e] is None or cand > best[e][0]:
+                    best[e] = (cand, s, i)
+                single |= e == s + 1
+            if not single:
+                if self.unk_id is None:
+                    raise ValueError(f"Unigram: {piece[s]!r} has no piece and no unk_id")
+                cand = base + unk_score
+                if best[s + 1] is None or cand > best[s + 1][0]:
+                    best[s + 1] = (cand, s, self.unk_id)
+        # walk back; runs of unknown pieces fuse into one token
+        toks: List[Tuple[str, bool]] = []
+        e = n
+        while e > 0:
+            _, s, i = best[e]
+            unk = i == self.unk_id
+            if unk and toks and toks[-1][1]:
+                toks[-1] = (piece[s:e] + toks[-1][0], True)
+            else:
+                toks.append((piece[s:e], unk))
+            e = s
+        return [self.ids.get(t, self.unk_id) if unk else self.ids[t]
+                for t, unk in reversed(toks)]
+
+
+def _model(spec):
+    kind = spec.get("type")
+    if kind == "WordLevel":
+        return _WordLevel(spec)
+    if kind == "Unigram":
+        return _Unigram(spec)
+    raise ValueError(f"tokenizer.json: unknown model type {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# the tokenizer
+# ---------------------------------------------------------------------------
+
+
+class TokenizerJSON:
+    """``tokenizer.json`` (+ ``tokenizer_config.json``) of a directory, called
+    as ``AutoTokenizer`` is by ``preprocess.PromptEncoder``."""
+
+    def __init__(self, directory: str):
+        with open(os.path.join(directory, "tokenizer.json")) as f:
+            spec = json.load(f)
+        cfg = {}
+        if os.path.exists(os.path.join(directory, "tokenizer_config.json")):
+            with open(os.path.join(directory, "tokenizer_config.json")) as f:
+                cfg = json.load(f)
+        self.normalize = _normalizer(spec.get("normalizer"))
+        self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self.model = _model(spec["model"])
+        self._template(spec.get("post_processor"))
+        if cfg.get("padding_side", "right") != "right":
+            raise ValueError("tokenizer_config.json: padding_side "
+                             f"{cfg['padding_side']!r} is not handled here")
+
+        # added tokens: the file's, then the config's special tokens (which
+        # AutoTokenizer registers the same way)
+        self.added: Dict[str, Tuple[int, bool]] = {}
+        for t in spec.get("added_tokens", []):
+            for opt in ("lstrip", "rstrip", "single_word"):
+                if t.get(opt):
+                    raise ValueError(f"tokenizer.json: added token {t['content']!r} has "
+                                     f"{opt}, which is not handled here")
+            self.added[t["content"]] = (t["id"], bool(t.get("normalized", False)))
+        for key in ("pad_token", "eos_token", "unk_token", "bos_token"):
+            tok = cfg.get(key)
+            tok = tok.get("content") if isinstance(tok, dict) else tok
+            if tok and tok not in self.added:
+                i = self.model.token_id(tok)
+                if i is None:
+                    raise ValueError(f"tokenizer_config.json: {key} {tok!r} is not in the vocab")
+                self.added[tok] = (i, False)
+        pad = cfg.get("pad_token")
+        pad = pad.get("content") if isinstance(pad, dict) else pad
+        self.pad_id = self.added[pad][0] if pad else None
+
+    def _template(self, spec):
+        self.template: List = [("A", None)]
+        if spec is None:
+            return
+        if spec.get("type") != "TemplateProcessing":
+            raise ValueError(f"tokenizer.json: unknown post_processor type {spec.get('type')!r}")
+        self.template = []
+        for item in spec["single"]:
+            if "Sequence" in item:
+                self.template.append(("A", None))
+            else:
+                name = item["SpecialToken"]["id"]
+                self.template.append(("special", list(spec["special_tokens"][name]["ids"])))
+
+    @staticmethod
+    def _split(parts, contents):
+        """Split each unmatched (text, None) part on the added-token
+        ``contents``, longest first; matches become (content, id)."""
+        if not contents:
+            return parts
+        rx = re.compile("|".join(re.escape(c) for c in sorted(contents, key=len,
+                                                                reverse=True)))
+        out = []
+        for text, tid in parts:
+            if tid is not None:
+                out.append((text, tid))
+                continue
+            pos = 0
+            for m in rx.finditer(text):
+                if m.start() > pos:
+                    out.append((text[pos:m.start()], None))
+                out.append((m.group(), contents[m.group()]))
+                pos = m.end()
+            if pos < len(text):
+                out.append((text[pos:], None))
+        return out
+
+    def encode(self, text: str) -> List[int]:
+        """Ids of ``text`` before truncation, post-processing and padding."""
+        raw = {c: i for c, (i, norm) in self.added.items() if not norm}
+        normed = {c: i for c, (i, norm) in self.added.items() if norm}
+        ids: List[int] = []
+        for part, tid in self._split([(text, None)], raw):
+            if tid is not None:
+                ids.append(tid)
+                continue
+            for sub, sid in self._split([(self.normalize(part), None)], normed):
+                if sid is not None:
+                    ids.append(sid)
+                    continue
+                for piece in self.pre_tokenize([sub]):
+                    ids.extend(self.model(piece))
+        return ids
+
+    def n_special(self) -> int:
+        return sum(len(ids) for kind, ids in self.template if kind == "special")
+
+    def __call__(self, texts: Sequence[str], padding="max_length", truncation=True,
+                 max_length: int = 512, return_tensors="np"):
+        """``{"input_ids": (B, max_length) int64}``: each text truncated to
+        ``max_length`` minus the template's special tokens, post-processed,
+        then padded on the right with the pad token (``AutoTokenizer``'s
+        order; only this call shape is taken)."""
+        if padding != "max_length" or return_tensors != "np":
+            raise ValueError(f"padding={padding!r}, return_tensors={return_tensors!r}: only "
+                             "'max_length' and 'np' are handled here")
+        out = np.full((len(texts), max_length), -1, np.int64)
+        for i, t in enumerate(texts):
+            ids = self.encode(t)
+            if truncation:
+                ids = ids[:max(max_length - self.n_special(), 0)]
+            full: List[int] = []
+            for kind, sp in self.template:
+                full.extend(ids if kind == "A" else sp)
+            if len(full) > max_length:
+                raise ValueError(f"{len(full)} ids > max_length {max_length} with truncation off")
+            if len(full) < max_length and self.pad_id is None:
+                raise ValueError("padding needs a pad token (tokenizer_config.json pad_token)")
+            out[i, :len(full)] = full
+            out[i, len(full):] = self.pad_id if len(full) < max_length else 0
+        return {"input_ids": out}

@@ -6,13 +6,23 @@ base transformer the rest, every step a deterministic ODE step (eta = 0);
 the dynamic-shift schedule follows diffusers' FluxPipeline
 (``calculate_shift``, then ``sigma' = e^mu / (e^mu + 1/sigma - 1)``).
 
-Prompts enter as (txt, pooled) embeddings: ``main()``, the checkpoint
-loaders and the T5/CLIP encoders wait for their slices, and ``quant="int8"``
-waits for the port of ``ops/quant.py``.
+``main`` is the CLI over a FLUX directory in the HF layout: the base
+transformer (``transformer/``, sharded safetensors), an optional tuned one
+(``--new_model_ckpt``, one export file), the VAE decoder and both text
+encoders, each loaded on ``--device`` (``cuda`` by default, in bf16; the
+tests ask for ``cpu``, which computes in f32).  Each prompt batch's
+initial noise comes from ``torch.Generator(device).manual_seed(seed)``, so
+the same ``--seed`` gives other images than JAX's ``jax.random.key(seed)``.
+One process samples every prompt (JAX shards them by process).
+``quant="int8"`` waits for the port of ``ops/quant.py``.
+
+Run: ``python -m mixgrpo_tpu_torch.sample --model_path FLUX.1-dev
+--prompt_path prompts.txt --output_dir out``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -156,20 +166,92 @@ class DualFluxPipeline:
 
 def save_outputs(
     images01, prompts: Sequence[str], output_dir: str, seeds: Sequence[int],
-    process_index: int = 0,
+    process_index: int = 0, start: int = 0,
 ):
-    """PNG per prompt + metadata JSON."""
+    """PNG per prompt + metadata JSON.  ``start`` numbers the images of a
+    later batch after the earlier ones, whose metadata entries are kept
+    (JAX numbers every batch from 0, so each batch overwrote the last)."""
     from PIL import Image
 
     os.makedirs(output_dir, exist_ok=True)
+    meta_path = os.path.join(output_dir, f"metadata_{process_index}.json")
     meta = []
+    if start > 0 and os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
     arr = images01.float().cpu().numpy() if torch.is_tensor(images01) else np.asarray(images01)
     for i, (img, prompt) in enumerate(zip(arr, prompts)):
-        name = f"img_p{process_index}_{i:05d}.png"
+        name = f"img_p{process_index}_{start + i:05d}.png"
         Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
             os.path.join(output_dir, name)
         )
         meta.append({"image": name, "prompt": prompt, "seed": int(seeds[i])})
-    with open(os.path.join(output_dir, f"metadata_{process_index}.json"), "w") as f:
+    with open(meta_path, "w") as f:
         json.dump(meta, f, indent=2)
     return meta
+
+
+def main(argv=None, family=None):
+    """Sample every prompt of ``--prompt_path`` with the base (and tuned)
+    transformer; writes PNGs and ``metadata_0.json`` to ``--output_dir``.
+    ``family`` defaults to ``presets.flux_family()``."""
+    from mixgrpo_tpu_torch.models.flux.load import load_flux_params, load_vae_decoder_params
+    from mixgrpo_tpu_torch.preprocess import (
+        build_prompt_encoder_from_dir, compute_dtype, read_prompts,
+    )
+    from mixgrpo_tpu_torch.presets import flux_family
+    from mixgrpo_tpu_torch.utils.logging import main_print
+
+    p = argparse.ArgumentParser(description="Mixed-model FLUX sampling (tuned + base)")
+    p.add_argument("--model_path", type=str, required=True)
+    p.add_argument("--new_model_ckpt", type=str, default=None,
+                   help="fine-tuned transformer safetensors (one export file)")
+    p.add_argument("--prompt_path", type=str, required=True)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--h", type=int, default=1024)
+    p.add_argument("--w", type=int, default=1024)
+    p.add_argument("--sampling_steps", type=int, default=50)
+    p.add_argument("--mix_sampling_steps", type=int, default=30)
+    p.add_argument("--guidance_scale", type=float, default=3.5)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--clip_bpe_path", type=str, default=os.environ.get("CLIP_BPE_PATH"))
+    p.add_argument("--vae_tiling", type=str, default="auto", choices=["auto", "on", "off"],
+                   help="tiled VAE decode (auto: on above 768px)")
+    p.add_argument("--quant", type=str, default="none", choices=["none", "int8"])
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+    if args.quant == "int8":  # before any weight is read
+        raise NotImplementedError("--quant int8 waits for the port of ops/quant.py "
+                                  "(ROADMAP Queue 1 item 6)")
+
+    fam = family or flux_family()
+    dev, dtype = torch.device(args.device), compute_dtype(args.device)
+    flux_cfg, vae_cfg = fam["flux"], fam["vae"]
+    kw = dict(dtype=dtype, device=dev)
+    base = load_flux_params(os.path.join(args.model_path, "transformer"), flux_cfg, **kw)
+    tuned = load_flux_params(args.new_model_ckpt, flux_cfg, **kw) if args.new_model_ckpt \
+        else None
+    vae = load_vae_decoder_params(os.path.join(args.model_path, "vae"), vae_cfg, **kw)
+    enc = build_prompt_encoder_from_dir(args.model_path, clip_bpe_path=args.clip_bpe_path,
+                                        family=fam, **kw)
+    pipe = DualFluxPipeline(
+        flux_cfg, base, tuned, vae_cfg=vae_cfg, vae_params=vae, height=args.h, width=args.w,
+        num_steps=args.sampling_steps, mix_sampling_steps=args.mix_sampling_steps,
+        guidance_scale=args.guidance_scale, dtype=dtype, quant=args.quant,
+        vae_tiling=args.vae_tiling, device=dev)
+
+    prompts = read_prompts(args.prompt_path)
+    for i in range(0, len(prompts), args.batch_size):
+        chunk = prompts[i:i + args.batch_size]
+        emb, pooled = enc(chunk)
+        seed = args.seed + i
+        imgs = pipe(torch.from_numpy(emb).to(dev, dtype), torch.from_numpy(pooled).to(dev, dtype),
+                    torch.Generator(dev).manual_seed(seed))
+        save_outputs(imgs, chunk, args.output_dir, [seed + j for j in range(len(chunk))],
+                     start=i)
+        main_print(f"sampled {i + len(chunk)}/{len(prompts)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -12,10 +12,16 @@ Port of the fixed-batch serving layer of mixgrpo_tpu/serve.py:
   ``"format": "json"``); ``GET /healthz``; ``GET /stats``.
 - ``make_generate_fn``: the standard generate function over a
   ``DualFluxPipeline`` and an ``encode_fn(prompts) -> (txt, pooled)``.
+- ``build_server``/``main``: the CLI over a FLUX directory in the HF layout
+  (weights on ``--device``: bf16 on a card, f32 on the CPU; prompts through
+  ``preprocess.build_prompt_encoder_from_dir``); ``build_server`` returns
+  the unstarted ``InferenceServer`` so callers can drive it.
 
 The HTTP threads only enqueue, so the device sees one worker's calls in
-order.  ``ContinuousEngine``/``ContinuousBatcher`` and ``main()`` (which needs
-the checkpoint loaders and text encoders) wait for later slices.
+order.  ``ContinuousEngine``/``ContinuousBatcher`` (``--continuous``) wait
+for ROADMAP Queue 1 item 7.
+
+Run: ``python -m mixgrpo_tpu_torch.serve --model_path FLUX.1-dev``.
 """
 
 from __future__ import annotations
@@ -239,8 +245,8 @@ def make_generate_fn(pipeline, encode_fn):
     """Standard generate_fn for the batcher.
 
     ``pipeline``: DualFluxPipeline.  ``encode_fn(prompts) -> (txt, pooled)``,
-    arrays or tensors; until the text encoders are ported it is the caller's
-    stand-in.  Each request's seed drives its own initial-noise row through
+    arrays or tensors (``preprocess.PromptEncoder``, or a stand-in).  Each
+    request's seed drives its own initial-noise row through
     ``torch.Generator(device).manual_seed(seed)`` (stacked into the batch as
     ``z0``), so an identical (prompt, seed) reproduces whatever its
     neighbours in the batch are.
@@ -262,3 +268,84 @@ def make_generate_fn(pipeline, encode_fn):
         return images.float().cpu().numpy()
 
     return generate
+
+
+def arg_parser():
+    import argparse
+
+    p = argparse.ArgumentParser(description="Batched FLUX inference server")
+    p.add_argument("--model_path", required=True,
+                   help="FLUX dir (transformer/ vae/ text encoders)")
+    p.add_argument("--tuned_path", default=None,
+                   help="fine-tuned transformer safetensors (optional)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--max_wait_ms", type=float, default=50.0)
+    p.add_argument("--height", type=int, default=1024)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--num_steps", type=int, default=50)
+    p.add_argument("--mix_sampling_steps", type=int, default=30)
+    p.add_argument("--quant", default="none", choices=["none", "int8"])
+    p.add_argument("--vae_tiling", default="auto", choices=["auto", "on", "off"],
+                   help="tiled VAE decode (auto: on above 768px)")
+    p.add_argument("--max_steps_per_call", type=int, default=None,
+                   help="bound one device call to N sampling steps (chunked segments)")
+    p.add_argument("--latency_tier", action=argparse.BooleanOptionalAction, default=True,
+                   help="lone requests run at batch 1 instead of a padded batch")
+    p.add_argument("--continuous", action=argparse.BooleanOptionalAction, default=False,
+                   help="continuous batching (not ported yet)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (bf16) or cpu (f32)")
+    return p
+
+
+def build_server(args, family=None) -> InferenceServer:
+    """Everything ``main`` does before it serves: the weights, the prompt
+    encoder, the pipeline and the batcher; returns the unstarted server.
+    ``family`` defaults to ``presets.flux_family()``."""
+    import os
+
+    from mixgrpo_tpu_torch.models.flux.load import load_flux_params, load_vae_decoder_params
+    from mixgrpo_tpu_torch.preprocess import build_prompt_encoder_from_dir, compute_dtype
+    from mixgrpo_tpu_torch.presets import flux_family
+    from mixgrpo_tpu_torch.sample import DualFluxPipeline
+
+    if args.continuous:
+        raise NotImplementedError("--continuous: continuous batching waits for ROADMAP "
+                                  "Queue 1 item 7")
+    if args.quant == "int8":
+        raise NotImplementedError("--quant int8 waits for the port of ops/quant.py "
+                                  "(ROADMAP Queue 1 item 6)")
+    fam = family or flux_family()
+    kw = dict(dtype=compute_dtype(args.device), device=torch.device(args.device))
+    flux_cfg, vae_cfg = fam["flux"], fam["vae"]
+    base = load_flux_params(os.path.join(args.model_path, "transformer"), flux_cfg, **kw)
+    tuned = load_flux_params(args.tuned_path, flux_cfg, **kw) if args.tuned_path else None
+    vae = load_vae_decoder_params(os.path.join(args.model_path, "vae"), vae_cfg, **kw)
+    pipe = DualFluxPipeline(
+        flux_cfg, base, tuned, vae_cfg=vae_cfg, vae_params=vae, height=args.height,
+        width=args.width, num_steps=args.num_steps,
+        mix_sampling_steps=args.mix_sampling_steps, dtype=kw["dtype"], quant=args.quant,
+        vae_tiling=args.vae_tiling, max_steps_per_call=args.max_steps_per_call,
+        device=kw["device"])
+    encoder = build_prompt_encoder_from_dir(args.model_path, family=fam, **kw)
+    gen = make_generate_fn(pipe, encoder)
+    batcher = RequestBatcher(gen, batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
+                             generate_fn_single=gen if args.latency_tier else None)
+    return InferenceServer(batcher, host=args.host, port=args.port)
+
+
+def main(argv=None, family=None):
+    args = arg_parser().parse_args(argv)
+    with build_server(args, family) as srv:
+        print(f"serving on :{srv.port} (batch={args.batch_size})", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+
+
+if __name__ == "__main__":
+    main()

@@ -31,11 +31,17 @@ numbers differ from JAX's ``jax.random``); ``train_one_step(z0=...,
 noise_fn=...)`` takes the initial noise and the SDE draws from outside, which
 the tests use to hand the port JAX's draws.
 
+Each checkpoint also exports the parameters as a diffusers safetensors file
+(``export_<step>/diffusion_pytorch_model.safetensors``, F32) unless
+``cfg.run.export_safetensors`` is ``"off"``; with ``"auto"`` a failed export
+warns once and is skipped for the rest of the run, with ``"required"`` it
+raises.  As in JAX, a LoRA run exports the frozen base (its factors are in
+the checkpoint).
+
 Waiting for later slices, and refused here: the reward model zoo (a
-``reward_fn`` is required), int8 rollouts, the diffusers safetensors export
-(``"auto"`` skips it with one warning, ``"required"`` raises), meshes of
-more than one device; not ported at all yet: image dumps and the CLI
-``main`` (which needs the weight loaders).
+``reward_fn`` is required), int8 rollouts, meshes of more than one device;
+not ported at all yet: image dumps and the CLI ``main`` (which waits for
+the reward models, ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ from mixgrpo_tpu_torch.trainer import (
     build_update_batch, make_lora_update_fns, make_optimizer, make_update_fns,
 )
 from mixgrpo_tpu_torch.utils import profiling
-from mixgrpo_tpu_torch.utils.checkpoint import CheckpointManager
+from mixgrpo_tpu_torch.utils.checkpoint import CheckpointManager, export_flux_safetensors
 from mixgrpo_tpu_torch.utils.ema import ema_init, ema_update
 from mixgrpo_tpu_torch.utils.logging import MetricLogger, main_print
 
@@ -82,9 +88,6 @@ def _refuse_unported(cfg: TrainConfig, reward_fn):
                                   "pass reward_fn")
     if cfg.grpo.rollout_quant != "none":
         raise NotImplementedError("rollout_quant waits for the port of ops/quant.py")
-    if cfg.run.export_safetensors == "required":
-        raise NotImplementedError("export_safetensors='required': the diffusers export "
-                                  "waits for a later slice")
     if cfg.mesh.resolved(1) != MeshConfig(1, 1, 1, 1):
         raise ValueError(f"the port's trainer runs on one device, not mesh {cfg.mesh}")
 
@@ -476,10 +479,22 @@ class GRPOTrainer:
         self.ckpt.save(self.global_step, trained, self.opt_state,
                        window_state=self.window.to_dict(), extra={"use_lora": self.use_lora},
                        ema_params=self.ema_params, blocking=blocking)
-        if self.cfg.run.export_safetensors == "auto" and not self._export_warned:
-            self._export_warned = True
-            warnings.warn("the diffusers safetensors export waits for a later slice and is "
-                          "skipped for this run; pass --export_safetensors off to silence")
+        mode = self.cfg.run.export_safetensors
+        if mode != "off" and not self._export_warned:
+            path = os.path.join(self.run_dir, f"export_{self.global_step}",
+                                "diffusion_pytorch_model.safetensors")
+            try:
+                export_flux_safetensors(self.params, self.flux_cfg, path)
+            except Exception as e:
+                if mode == "required":
+                    raise RuntimeError(f"safetensors export failed at step {self.global_step} "
+                                       f"(--export_safetensors required): {e}") from e
+                # auto: warn once and skip the export for the rest of the run
+                self._export_warned = True
+                warnings.warn(f"diffusers safetensors export FAILED and will be skipped for "
+                              f"the rest of this run: {e!r}.  Pass --export_safetensors off "
+                              "to silence, or required to make this fatal; checkpoints are "
+                              "unaffected.")
         main_print(f"checkpoint saved at step {self.global_step}")
 
     def close(self):

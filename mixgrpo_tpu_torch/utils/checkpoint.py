@@ -8,17 +8,26 @@ metadata and the step, so a resumed run continues the window walk.  Tensors
 are copied to the host before the write; ``blocking=False`` lets the disk
 write run in a background thread (joined by the next save, ``wait`` or
 ``close``).  A step appears only once its file is complete (written under a
-temporary name, then renamed).  The diffusers safetensors export
-(``export_flux_safetensors``) waits for a later slice.
+temporary name, then renamed).
+
+``export_flux_safetensors`` writes FLUX parameters under diffusers
+``FluxTransformer2DModel`` names in F32, as JAX's does, so trained weights
+load into diffusers and into ``models/flux/load.py::load_flux_params`` (it
+is that loader's inverse).  It is two halves: ``diffusers_state`` (names ->
+views of the parameters, transposed and split, on their device and in their
+dtype) and ``utils.safetensors_io.save_file`` (which casts and copies one
+tensor at a time to the host).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from mixgrpo_tpu_torch.utils.safetensors_io import save_file
 
 _FILE = "state.pt"
 
@@ -113,3 +122,83 @@ class CheckpointManager:
 
     def close(self):
         self.wait()
+
+
+# ---------------------------------------------------------------------------
+# diffusers interop export (inverse of models/flux/load.py)
+# ---------------------------------------------------------------------------
+
+
+def diffusers_state(params: Any, cfg) -> Dict[str, torch.Tensor]:
+    """FLUX parameters as diffusers ``FluxTransformer2DModel`` names: views
+    of ``params`` ((in, out) weights transposed to (out, in), fused
+    projections split, block stacks indexed), on their device and in their
+    dtype."""
+    st: Dict[str, torch.Tensor] = {}
+
+    def lin(name, p):
+        st[f"{name}.weight"] = p["w"].detach().t()
+        if "b" in p:
+            st[f"{name}.bias"] = p["b"].detach()
+
+    def lin_split(names, p, sizes):
+        w = p["w"].detach().t()  # (out, in)
+        off = 0
+        for name, s in zip(names, sizes):
+            st[f"{name}.weight"] = w[off:off + s]
+            if "b" in p:
+                st[f"{name}.bias"] = p["b"].detach()[off:off + s]
+            off += s
+
+    def embedder(name, p):
+        lin(f"{name}.linear_1", p["in"])
+        lin(f"{name}.linear_2", p["out"])
+
+    lin("x_embedder", params["x_embedder"])
+    lin("context_embedder", params["context_embedder"])
+    embedder("time_text_embed.timestep_embedder", params["time_in"])
+    embedder("time_text_embed.text_embedder", params["vector_in"])
+    if "guidance_in" in params:
+        embedder("time_text_embed.guidance_embedder", params["guidance_in"])
+    lin("norm_out.linear", params["final_mod"]["lin"])
+    lin("proj_out", params["proj_out"])
+
+    def block(stack, i):
+        return {k: block(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
+
+    h, mh = cfg.hidden_size, cfg.mlp_hidden
+    for i in range(cfg.depth_double):
+        p = block(params["double"], i)
+        b = f"transformer_blocks.{i}"
+        lin(f"{b}.norm1.linear", p["img_mod"]["lin"])
+        lin(f"{b}.norm1_context.linear", p["txt_mod"]["lin"])
+        lin_split([f"{b}.attn.to_q", f"{b}.attn.to_k", f"{b}.attn.to_v"],
+                  p["img_qkv"], [h, h, h])
+        lin_split([f"{b}.attn.add_q_proj", f"{b}.attn.add_k_proj", f"{b}.attn.add_v_proj"],
+                  p["txt_qkv"], [h, h, h])
+        st[f"{b}.attn.norm_q.weight"] = p["img_qnorm"].detach()
+        st[f"{b}.attn.norm_k.weight"] = p["img_knorm"].detach()
+        st[f"{b}.attn.norm_added_q.weight"] = p["txt_qnorm"].detach()
+        st[f"{b}.attn.norm_added_k.weight"] = p["txt_knorm"].detach()
+        lin(f"{b}.attn.to_out.0", p["img_attn_out"])
+        lin(f"{b}.attn.to_add_out", p["txt_attn_out"])
+        lin(f"{b}.ff.net.0.proj", p["img_mlp_in"])
+        lin(f"{b}.ff.net.2", p["img_mlp_out"])
+        lin(f"{b}.ff_context.net.0.proj", p["txt_mlp_in"])
+        lin(f"{b}.ff_context.net.2", p["txt_mlp_out"])
+
+    for i in range(cfg.depth_single):
+        p = block(params["single"], i)
+        b = f"single_transformer_blocks.{i}"
+        lin(f"{b}.norm.linear", p["mod"]["lin"])
+        lin_split([f"{b}.attn.to_q", f"{b}.attn.to_k", f"{b}.attn.to_v", f"{b}.proj_mlp"],
+                  p["linear1"], [h, h, h, mh])
+        st[f"{b}.attn.norm_q.weight"] = p["qnorm"].detach()
+        st[f"{b}.attn.norm_k.weight"] = p["knorm"].detach()
+        lin(f"{b}.proj_out", p["linear2"])
+    return st
+
+
+def export_flux_safetensors(params: Any, cfg, path: str) -> None:
+    """Write FLUX params as diffusers ``FluxTransformer2DModel`` names, F32."""
+    save_file(diffusers_state(params, cfg), path, dtype=torch.float32)

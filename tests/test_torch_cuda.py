@@ -2,7 +2,8 @@
 plain PyTorch versions (the forward with and without lse, the fused, dkv and
 dq backward kernels), what they refuse, and the model and update paths
 through them (LoRA's update among them), a MixGRPO-Flash rollout on the
-card against the CPU, and ``backend_smoke``.
+card against the CPU, ``backend_smoke``, the safetensors reader's BF16 path
+straight to the card, and T5 and CLIP on the card against the CPU.
 
 Every test carries the ``cuda`` marker and skips without a card.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -500,3 +501,65 @@ def test_backend_smoke(dev):
     from mixgrpo_tpu_torch.utils.timing import backend_smoke
 
     assert backend_smoke() >= 0.0
+
+
+def test_safetensors_bf16_straight_to_card(dev, tmp_path):
+    """The reader's BF16 (and F16) path: a file written by the port read to
+    the card bit for bit, in its own dtype and cast to f32 there; a FLUX
+    export loads onto the card in bf16 equal to the CPU load."""
+    from mixgrpo_tpu_torch.models.flux.load import load_flux_params
+    from mixgrpo_tpu_torch.utils.checkpoint import export_flux_safetensors
+    from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsFile, save_file
+
+    g = torch.Generator().manual_seed(0)
+    ts = {"w": torch.randn((300, 257), generator=g).bfloat16(),
+          "h": torch.randn((5, 7), generator=g).half()}
+    path = str(tmp_path / "x.safetensors")
+    save_file(ts, path)
+    f = SafetensorsFile(path)
+    for name, want in ts.items():
+        got = f.get(name, device=dev)
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(f.get(name, device=dev, dtype=torch.float32).cpu(), want.float())
+    cfg = M.FluxConfig.tiny()
+    export_flux_safetensors(M.init_flux(cfg, generator=torch.Generator().manual_seed(1),
+                                        device="cpu"), cfg, str(tmp_path / "t.safetensors"))
+    on_card = load_flux_params(str(tmp_path / "t.safetensors"), cfg, dtype=torch.bfloat16,
+                               device=dev)
+    on_cpu = load_flux_params(str(tmp_path / "t.safetensors"), cfg, dtype=torch.bfloat16,
+                              device="cpu")
+    assert all(a.is_cuda and torch.equal(a.cpu(), b)
+               for a, b in zip(M.param_leaves(on_card), M.param_leaves(on_cpu)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_text_encoders_on_card_match_cpu(dev, dtype):
+    """T5 (with a mask) and both CLIP towers on the card against the CPU
+    with the same random weights: f32 within 1e-4 absolute, bf16 within a
+    relative L2 of 2e-2 (bf16 matmuls round differently on the two)."""
+    from mixgrpo_tpu_torch.models.text import clip as C
+    from mixgrpo_tpu_torch.models.text import t5 as T5
+
+    tcfg, ccfg = T5.T5Config.tiny(), C.CLIPConfig.tiny()
+    g = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, tcfg.vocab, (2, 40), generator=g)
+    mask = torch.ones((2, 40), dtype=torch.bool)
+    mask[1, 30:] = False
+    cids = torch.randint(1, 60, (2, 16), generator=g)
+    cids[:, 9] = 63
+    images = torch.randn((2, 32, 32, 3), generator=g)
+    outs = {}
+    for d in ("cpu", dev):
+        tp = _to(T5.init_t5(tcfg, generator=torch.Generator().manual_seed(4), device="cpu"), d)
+        cp = _to(C.init_clip(ccfg, generator=torch.Generator().manual_seed(5), device="cpu"), d)
+        outs[d] = [T5.t5_encode(tp, tcfg, ids.to(d), mask.to(d), dtype=dtype),
+                   C.clip_text_features(cp, ccfg, cids.to(d), dtype=dtype, project=False,
+                                        normalize=False),
+                   C.clip_image_features(cp, ccfg, images.to(d), dtype=dtype)]
+    for cpu, card in zip(outs["cpu"], outs[dev]):
+        assert card.is_cuda and torch.isfinite(card).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-4)
+        else:
+            assert (card.cpu() - cpu).norm() / cpu.norm() <= 2e-2

@@ -1,6 +1,7 @@
 """The port stands alone: ``mixgrpo_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX (nor jaxlib, optax, orbax) nor the JAX package ``mixgrpo_tpu``;
-only the tests import both."""
+neither JAX (nor jaxlib, optax, orbax) nor the JAX package ``mixgrpo_tpu``,
+nor the packages the card's machine lacks (``transformers``,
+``tokenizers``, ``safetensors``); only the tests import them."""
 
 import ast
 import os
@@ -8,7 +9,8 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = {"jax", "jaxlib", "optax", "orbax", "mixgrpo_tpu"}
+BANNED = {"jax", "jaxlib", "optax", "orbax", "mixgrpo_tpu", "transformers", "tokenizers",
+          "safetensors"}
 
 
 def _port_files():
@@ -24,7 +26,11 @@ def test_port_package_is_present():
     assert os.path.exists(os.path.join(ROOT, "chip_smoke.py"))
     for module in ("ops/flash_attention.py", "trainer.py", "train.py", "config.py",
                    "rl/advantage.py", "utils/checkpoint.py", "data/dataset.py", "lora.py",
-                   "solvers/dpm.py", "utils/profiling.py", "utils/timing.py", "utils/env.py"):
+                   "solvers/dpm.py", "utils/profiling.py", "utils/timing.py", "utils/env.py",
+                   "utils/safetensors_io.py", "models/flux/load.py", "models/registry.py",
+                   "models/text/t5.py", "models/text/clip.py", "models/text/clip_load.py",
+                   "models/text/tokenizer_json.py", "rewards/tokenizer.py", "preprocess.py",
+                   "sample.py", "serve.py"):
         assert f"mixgrpo_tpu_torch/{module}" in files
 
 

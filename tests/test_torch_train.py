@@ -58,6 +58,7 @@ from mixgrpo_tpu_torch.config import (
 from mixgrpo_tpu_torch.convert import from_jax_params
 from mixgrpo_tpu_torch.data.dataset import EmbeddingCacheWriter, LatentDataset, PromptLoader
 from mixgrpo_tpu_torch.models.flux import model as M
+from mixgrpo_tpu_torch.models.flux.load import load_flux_params
 from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, init_vae_decoder
 from mixgrpo_tpu_torch.train import GRPOTrainer
 
@@ -364,13 +365,24 @@ def test_lora_flash_train_resume_and_profile(tmp_path, weights):
 
 @pytest.mark.parametrize("what", ["reward_zoo", "int8", "export_required", "mesh"])
 def test_trainer_refuses_what_is_not_ported(tmp_path, weights, what):
+    """The trainer refuses the reward zoo, int8 rollouts and meshes.  The
+    diffusers export is ported: with ``export_safetensors="required"`` a
+    checkpoint writes it, and it reads back to the parameters exactly."""
     cfg, kw = _cfg(tmp_path), {}
+    if what == "export_required":
+        cfg.run.export_safetensors = "required"
+        tr = _trainer(cfg, weights)
+        tr.save_checkpoint()
+        tr.close()
+        path = os.path.join(tr.run_dir, "export_0", "diffusion_pytorch_model.safetensors")
+        back = load_flux_params(path, M.FluxConfig.tiny(), device="cpu")
+        assert all(torch.equal(a, b.detach())
+                   for a, b in zip(M.param_leaves(back), M.param_leaves(tr.params)))
+        return
     if what == "reward_zoo":
         kw["reward_fn"] = None
     elif what == "int8":
         cfg.grpo.rollout_quant = "int8"
-    elif what == "export_required":
-        cfg.run.export_safetensors = "required"
     else:
         cfg.mesh = MeshConfig(fsdp=2)
     jcfg, _, jparams, jvae = weights
