@@ -51,11 +51,23 @@ a non-zero exit code.  Phases:
    prompt encoders in bf16 against f32, then ``sample.main`` and
    ``serve.build_server`` on it at 1024px and ``vae_encode`` of two decoded
    images; the directory is removed afterwards.
+9. rewards (right after checkpoints): the reward zoo at its published
+   geometries (HPSv2.1, PickScore_v1 and DFN5B CLIP-score ViT-H-14s,
+   ImageReward's BLIP ViT-L + BERT-base), written in their released layouts
+   with random weights, loaded in bf16 and in f32, 12 images at 720px scored
+   by each (bf16 within ``REWARD_BF16_BOUND`` of f32, no kernel launch),
+   UnifiedReward against a stub server on 127.0.0.1, ``eval_rewards.main``
+   and ``verify_weights.main`` on the files (``rewards_phase``);
+10. train_main (right after rewards, on its files): ``preprocess.main`` and
+   ``train.main --reward_model multi_reward`` for 2 recipe steps at full
+   width (2 + 4 blocks), with a checkpoint, then ``tsne_probe.main``
+   (``train_main_phase``); both phases' files are removed afterwards.
 Each path's kernel launches are counted from 0 just before it runs and read
 just after, and must equal the prediction exactly.  Last come the
 ``kernels`` line, the ``nvidia-smi`` line, and the final status line.
 
-Exits 2 without a CUDA card; without the package beside it the import fails.
+``--only`` with ``train_main`` needs ``rewards`` too.  Exits 2 without a CUDA
+card; without the package beside it the import fails.
 """
 
 from __future__ import annotations
@@ -984,6 +996,63 @@ def unigram_tokenizer_json(vocab_size, seed):
     }
 
 
+def smoke_family(M):
+    """The full-width FLUX.1-dev family of the checkpoint phases: the
+    transformer cut to ``TRAIN_DEPTH`` blocks, T5-XXL to 2 of 24 layers."""
+    import dataclasses
+
+    from mixgrpo_tpu_torch.models.flux.vae import VAEConfig
+    from mixgrpo_tpu_torch.models.text.clip import CLIPConfig
+    from mixgrpo_tpu_torch.models.text.t5 import T5Config
+
+    return {"flux": M.FluxConfig(depth_double=TRAIN_DEPTH[0], depth_single=TRAIN_DEPTH[1]),
+            "vae": VAEConfig.flux_dev(), "t5": dataclasses.replace(T5Config.xxl(), num_layers=2),
+            "clip": CLIPConfig.vit_l_14()}
+
+
+def write_flux_dir(torch, M, dev, fam, d):
+    """A FLUX.1-dev directory in the released layout at ``d``, written by the
+    port's writers: the bf16 transformer in two shards (seed 20), the F32 VAE
+    decoder and encoder (24, 25), T5 in bf16 (22) and the CLIP-L text tower
+    in F16 (23) with HF's initialisation statistics, a CLIP merges table and
+    a ``Unigram`` tokenizer.json (26).  Returns what was written: (the
+    transformer's tree, T5's and CLIP's state dicts, the VAE trees)."""
+    import json as _json
+
+    from mixgrpo_tpu_torch.models.flux.vae import init_vae_decoder, init_vae_encoder
+    from mixgrpo_tpu_torch.utils.checkpoint import diffusers_state
+    from mixgrpo_tpu_torch.utils.safetensors_io import save_file
+
+    base = M.init_flux(fam["flux"], generator=torch.Generator(dev).manual_seed(20), device=dev,
+                       dtype=torch.bfloat16)
+    st = diffusers_state(base, fam["flux"])
+    names = sorted(st)
+    for k, part in enumerate((names[:len(names) // 2], names[len(names) // 2:])):
+        save_file({n: st[n] for n in part}, os.path.join(
+            d, "transformer", f"diffusion_pytorch_model-{k + 1:05d}-of-00002.safetensors"))
+    t5_st = hf_t5_state(torch, fam["t5"], dev, 22)
+    save_file(t5_st, os.path.join(d, "text_encoder_2", "model.safetensors"))
+    clip_st = hf_clip_text_state(torch, fam["clip"], dev, 23)
+    save_file(clip_st, os.path.join(d, "text_encoder", "model.safetensors"))
+    vae_dec = init_vae_decoder(fam["vae"], generator=torch.Generator(dev).manual_seed(24),
+                               device=dev)
+    vae_enc = init_vae_encoder(fam["vae"], generator=torch.Generator(dev).manual_seed(25),
+                               device=dev)
+    save_file({**diffusers_vae_state(vae_dec, "decoder"),
+               **diffusers_vae_state(vae_enc, "encoder")},
+              os.path.join(d, "vae", "diffusion_pytorch_model.safetensors"))
+    os.makedirs(os.path.join(d, "tokenizer"))
+    with open(os.path.join(d, "tokenizer", "merges.txt"), "w") as f:
+        f.write("\n".join(CLIP_MERGES) + "\n")
+    os.makedirs(os.path.join(d, "tokenizer_2"))
+    with open(os.path.join(d, "tokenizer_2", "tokenizer.json"), "w") as f:
+        _json.dump(unigram_tokenizer_json(fam["t5"].vocab, 26), f)
+    with open(os.path.join(d, "tokenizer_2", "tokenizer_config.json"), "w") as f:
+        _json.dump({"tokenizer_class": "T5Tokenizer", "model_max_length": 512,
+                    "pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>"}, f)
+    return base, t5_st, clip_st, vae_dec, vae_enc
+
+
 def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
     """Released checkpoints in, at full FLUX.1-dev width: (1) a synthetic
     FLUX.1-dev directory written by the port's writers in the released
@@ -1000,7 +1069,6 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
     per pipeline call, nothing from the encoders or the VAE.  ``fam`` and
     ``res`` (default: the full-width cut family, 1024px) are arguments so
     that the phase can be rehearsed at a tiny size."""
-    import dataclasses
     import json as _json
     import resource
     import shutil
@@ -1014,20 +1082,14 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
     from mixgrpo_tpu_torch.models.flux.load import (
         load_flux_params, load_vae_decoder_params, load_vae_encoder_params,
     )
-    from mixgrpo_tpu_torch.models.flux.vae import (
-        VAEConfig, init_vae_decoder, init_vae_encoder, vae_encode,
-    )
-    from mixgrpo_tpu_torch.models.text.clip import CLIPConfig
+    from mixgrpo_tpu_torch.models.flux.vae import vae_encode
     from mixgrpo_tpu_torch.models.text.clip_load import load_clip_hf_text_only
-    from mixgrpo_tpu_torch.models.text.t5 import T5Config, load_t5_hf
+    from mixgrpo_tpu_torch.models.text.t5 import load_t5_hf
     from mixgrpo_tpu_torch.preprocess import build_prompt_encoder_from_dir
-    from mixgrpo_tpu_torch.utils.checkpoint import diffusers_state, export_flux_safetensors
-    from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir, save_file
+    from mixgrpo_tpu_torch.utils.checkpoint import export_flux_safetensors
+    from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir
 
-    fam = fam or {
-        "flux": M.FluxConfig(depth_double=TRAIN_DEPTH[0], depth_single=TRAIN_DEPTH[1]),
-        "vae": VAEConfig.flux_dev(), "t5": dataclasses.replace(T5Config.xxl(), num_layers=2),
-        "clip": CLIPConfig.vit_l_14()}
+    fam = fam or smoke_family(M)
     cfg, bf16 = fam["flux"], torch.bfloat16
     per_call = cfg.depth_double + cfg.depth_single
     tmp = tempfile.mkdtemp(dir=root, prefix=".smoke_ckpt_")
@@ -1035,38 +1097,12 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
         d = os.path.join(tmp, "FLUX.1-dev")
         # -- 1. write ------------------------------------------------------------
         t0 = time.perf_counter()
-        base = M.init_flux(cfg, generator=torch.Generator(dev).manual_seed(20), device=dev,
-                           dtype=bf16)
-        st = diffusers_state(base, cfg)
-        names = sorted(st)
-        for k, part in enumerate((names[:len(names) // 2], names[len(names) // 2:])):
-            save_file({n: st[n] for n in part}, os.path.join(
-                d, "transformer", f"diffusion_pytorch_model-{k + 1:05d}-of-00002.safetensors"))
+        base, t5_st, clip_st, vae_dec, vae_enc = write_flux_dir(torch, M, dev, fam, d)
         g = torch.Generator(dev).manual_seed(21)
         tuned = tree_map(lambda t: t + 1e-3 * torch.randn(t.shape, generator=g, device=dev,
                                                           dtype=bf16), base)
         tuned_path = os.path.join(tmp, "tuned.safetensors")
         export_flux_safetensors(tuned, cfg, tuned_path)
-        t5_st = hf_t5_state(torch, fam["t5"], dev, 22)
-        save_file(t5_st, os.path.join(d, "text_encoder_2", "model.safetensors"))
-        clip_st = hf_clip_text_state(torch, fam["clip"], dev, 23)
-        save_file(clip_st, os.path.join(d, "text_encoder", "model.safetensors"))
-        vae_dec = init_vae_decoder(fam["vae"], generator=torch.Generator(dev).manual_seed(24),
-                                   device=dev)
-        vae_enc = init_vae_encoder(fam["vae"], generator=torch.Generator(dev).manual_seed(25),
-                                   device=dev)
-        save_file({**diffusers_vae_state(vae_dec, "decoder"),
-                   **diffusers_vae_state(vae_enc, "encoder")},
-                  os.path.join(d, "vae", "diffusion_pytorch_model.safetensors"))
-        os.makedirs(os.path.join(d, "tokenizer"))
-        with open(os.path.join(d, "tokenizer", "merges.txt"), "w") as f:
-            f.write("\n".join(CLIP_MERGES) + "\n")
-        os.makedirs(os.path.join(d, "tokenizer_2"))
-        with open(os.path.join(d, "tokenizer_2", "tokenizer.json"), "w") as f:
-            _json.dump(unigram_tokenizer_json(fam["t5"].vocab, 26), f)
-        with open(os.path.join(d, "tokenizer_2", "tokenizer_config.json"), "w") as f:
-            _json.dump({"tokenizer_class": "T5Tokenizer", "model_max_length": 512,
-                        "pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>"}, f)
         torch.cuda.synchronize()
         write_s = time.perf_counter() - t0
         sizes = {}
@@ -1296,6 +1332,654 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
         shutil.rmtree(tmp, ignore_errors=True)  # cleanup only; failures propagate
     torch.cuda.empty_cache()
     return {"write_s": write_s, "sample_main_s": main_s}
+
+
+# ---------------------------------------------------------------------------
+# the reward zoo (phases rewards and train_main)
+# ---------------------------------------------------------------------------
+
+REWARD_PROMPTS = tuple(f"{p} #{i}" for i, p in enumerate(
+    [CKPT_PROMPTS[0], CKPT_PROMPTS[2], "a cat on the roof of the house", CKPT_PROMPTS[1],
+     "a dog in a field of flowers, oil painting", "Ünïcödé façade, 北京 at dawn!"] * 2))
+UR_FAIL_ONCE, UR_NO_SCORE = 3, 7  # prompt indices: HTTP 500 once; a reply with no score
+# max |bf16 - f32| of each model's scores at its published geometry, derived on
+# the CPU by reward_bf16_bound.py (this phase's files and loads with the towers
+# cut to depths 2, 4 and 8: 3x the largest error seen, times sqrt(full depth / 8),
+# rounded up); written down before the first run held to them
+REWARD_BF16_BOUND = {"hpsv2": 0.00431, "pick_score": 0.00651, "clip_score": 0.00446,
+                     "image_reward": 0.123}
+
+
+def reward_geometry():
+    """The published geometries: HPSv2.1 and PickScore_v1 are ViT-H-14 at
+    224 (GELU), DFN5B CLIP-score ViT-H-14 at 384 with quick-GELU, ImageReward
+    BLIP ViT-L/16 at 224 with BERT-base (vocab 30524, cross-attention width
+    1024)."""
+    import dataclasses
+
+    from mixgrpo_tpu_torch.models.text.blip import BlipTextConfig, BlipVisionConfig
+    from mixgrpo_tpu_torch.models.text.clip import CLIPConfig
+
+    return {"hps": CLIPConfig.vit_h_14(224), "pick_score": CLIPConfig.vit_h_14(224),
+            "clip_score": dataclasses.replace(CLIPConfig.vit_h_14(384), quick_gelu=True),
+            "blip_vision": BlipVisionConfig.vit_large(), "blip_text": BlipTextConfig.base()}
+
+
+def _blocks(blocks, i):
+    return {k: {n: t[i] for n, t in v.items()} for k, v in blocks.items()}
+
+
+def openclip_state(params):
+    """The port's CLIP tree under OpenCLIP names (``load_clip_openclip``'s
+    inverse)."""
+    v, t = params["vision"], params["text"]
+    ln = lambda name, p: {f"{name}.weight": p["scale"], f"{name}.bias": p["bias"]}
+    st = {"visual.conv1.weight": v["patch_embed"]["w"].permute(3, 2, 0, 1),
+          "visual.class_embedding": v["class_emb"], "visual.positional_embedding": v["pos_emb"],
+          **ln("visual.ln_pre", v["ln_pre"]), **ln("visual.ln_post", v["ln_post"]),
+          "visual.proj": v["proj"], "token_embedding.weight": t["token_emb"],
+          "positional_embedding": t["pos_emb"], **ln("ln_final", t["ln_final"]),
+          "text_projection": t["proj"], "logit_scale": params["logit_scale"]}
+    for prefix, blocks in (("visual.transformer", v["blocks"]), ("transformer", t["blocks"])):
+        for i in range(blocks["qkv"]["w"].shape[0]):
+            b, p = _blocks(blocks, i), f"{prefix}.resblocks.{i}"
+            st.update({f"{p}.attn.in_proj_weight": b["qkv"]["w"].t(),
+                       f"{p}.attn.in_proj_bias": b["qkv"]["b"],
+                       f"{p}.attn.out_proj.weight": b["out"]["w"].t(),
+                       f"{p}.attn.out_proj.bias": b["out"]["b"],
+                       **ln(f"{p}.ln_1", b["ln1"]), **ln(f"{p}.ln_2", b["ln2"]),
+                       f"{p}.mlp.c_fc.weight": b["fc1"]["w"].t(),
+                       f"{p}.mlp.c_fc.bias": b["fc1"]["b"],
+                       f"{p}.mlp.c_proj.weight": b["fc2"]["w"].t(),
+                       f"{p}.mlp.c_proj.bias": b["fc2"]["b"]})
+    return st
+
+
+def hf_clip_state(params):
+    """The port's CLIP tree under HF ``CLIPModel`` names (``load_clip_hf``'s
+    inverse)."""
+    v, t = params["vision"], params["text"]
+    ln = lambda name, p: {f"{name}.weight": p["scale"], f"{name}.bias": p["bias"]}
+    lin = lambda name, w, b: {f"{name}.weight": w.t(), f"{name}.bias": b}
+    vp, tp = "vision_model", "text_model"
+    st = {f"{vp}.embeddings.patch_embedding.weight": v["patch_embed"]["w"].permute(3, 2, 0, 1),
+          f"{vp}.embeddings.class_embedding": v["class_emb"],
+          f"{vp}.embeddings.position_embedding.weight": v["pos_emb"],
+          **ln(f"{vp}.pre_layrnorm", v["ln_pre"]), **ln(f"{vp}.post_layernorm", v["ln_post"]),
+          "visual_projection.weight": v["proj"].t(),
+          f"{tp}.embeddings.token_embedding.weight": t["token_emb"],
+          f"{tp}.embeddings.position_embedding.weight": t["pos_emb"],
+          **ln(f"{tp}.final_layer_norm", t["ln_final"]), "text_projection.weight": t["proj"].t(),
+          "logit_scale": params["logit_scale"]}
+    for prefix, blocks in ((vp, v["blocks"]), (tp, t["blocks"])):
+        for i in range(blocks["qkv"]["w"].shape[0]):
+            b, p = _blocks(blocks, i), f"{prefix}.encoder.layers.{i}"
+            w, bias = b["qkv"]["w"].chunk(3, dim=1), b["qkv"]["b"].chunk(3)
+            for x, wx, bx in zip("qkv", w, bias):
+                st.update(lin(f"{p}.self_attn.{x}_proj", wx, bx))
+            st.update({**lin(f"{p}.self_attn.out_proj", b["out"]["w"], b["out"]["b"]),
+                       **ln(f"{p}.layer_norm1", b["ln1"]), **ln(f"{p}.layer_norm2", b["ln2"]),
+                       **lin(f"{p}.mlp.fc1", b["fc1"]["w"], b["fc1"]["b"]),
+                       **lin(f"{p}.mlp.fc2", b["fc2"]["w"], b["fc2"]["b"])})
+    return st
+
+
+def openclip_config_json(cfg):
+    v, t = cfg.vision, cfg.text
+    return {"model_cfg": {
+        "embed_dim": cfg.embed_dim, "quick_gelu": cfg.quick_gelu,
+        "vision_cfg": {"image_size": v.image_size, "layers": v.layers, "width": v.width,
+                       "head_width": v.width // v.heads, "patch_size": v.patch},
+        "text_cfg": {"context_length": t.context, "vocab_size": t.vocab, "width": t.width,
+                     "heads": t.heads, "layers": t.layers}}}
+
+
+def hf_clip_config_json(cfg):
+    v, t = cfg.vision, cfg.text
+    act = "quick_gelu" if cfg.quick_gelu else "gelu"
+    return {"architectures": ["CLIPModel"], "model_type": "clip",
+            "projection_dim": cfg.embed_dim,
+            "vision_config": {"hidden_size": v.width, "num_hidden_layers": v.layers,
+                              "num_attention_heads": v.heads, "image_size": v.image_size,
+                              "patch_size": v.patch, "intermediate_size": 4 * v.width,
+                              "hidden_act": act},
+            "text_config": {"hidden_size": t.width, "num_hidden_layers": t.layers,
+                            "num_attention_heads": t.heads, "vocab_size": t.vocab,
+                            "max_position_embeddings": t.context,
+                            "intermediate_size": 4 * t.width, "hidden_act": act}}
+
+
+def blip_state(vp, tp, mlp, vcfg):
+    """The port's BLIP trees and MLP head under ImageReward.pt names
+    (``load_blip_vision``/``load_blip_text``'s inverse)."""
+    ln = lambda name, p: {f"{name}.weight": p["scale"], f"{name}.bias": p["bias"]}
+    lin = lambda name, p: {f"{name}.weight": p["w"].t(), f"{name}.bias": p["b"]}
+    pv, pt, p = "blip.visual_encoder.", "blip.text_encoder.", vcfg.patch
+    st = {f"{pv}patch_embed.proj.weight":
+              vp["patch_embed"]["w"].reshape(p, p, 3, vcfg.width).permute(3, 2, 0, 1),
+          f"{pv}patch_embed.proj.bias": vp["patch_embed"]["b"],
+          f"{pv}cls_token": vp["cls_token"].reshape(1, 1, -1),
+          f"{pv}pos_embed": vp["pos_embed"][None], **ln(f"{pv}norm", vp["norm"]),
+          f"{pt}embeddings.word_embeddings.weight": tp["word_emb"],
+          f"{pt}embeddings.position_embeddings.weight": tp["pos_emb"],
+          **ln(f"{pt}embeddings.LayerNorm", tp["emb_ln"])}
+    for i in range(vp["blocks"]["qkv"]["w"].shape[0]):
+        b, q = _blocks(vp["blocks"], i), f"{pv}blocks.{i}"
+        st.update({**ln(f"{q}.norm1", b["norm1"]), **lin(f"{q}.attn.qkv", b["qkv"]),
+                   **lin(f"{q}.attn.proj", b["proj"]), **ln(f"{q}.norm2", b["norm2"]),
+                   **lin(f"{q}.mlp.fc1", b["fc1"]), **lin(f"{q}.mlp.fc2", b["fc2"])})
+    for i in range(tp["blocks"]["sa_q"]["w"].shape[0]):
+        b, q = _blocks(tp["blocks"], i), f"{pt}encoder.layer.{i}"
+        st.update({**lin(f"{q}.attention.self.query", b["sa_q"]),
+                   **lin(f"{q}.attention.self.key", b["sa_k"]),
+                   **lin(f"{q}.attention.self.value", b["sa_v"]),
+                   **lin(f"{q}.attention.output.dense", b["sa_out"]),
+                   **ln(f"{q}.attention.output.LayerNorm", b["sa_ln"]),
+                   **lin(f"{q}.crossattention.self.query", b["ca_q"]),
+                   **lin(f"{q}.crossattention.self.key", b["ca_k"]),
+                   **lin(f"{q}.crossattention.self.value", b["ca_v"]),
+                   **lin(f"{q}.crossattention.output.dense", b["ca_out"]),
+                   **ln(f"{q}.crossattention.output.LayerNorm", b["ca_ln"]),
+                   **lin(f"{q}.intermediate.dense", b["ff_in"]),
+                   **lin(f"{q}.output.dense", b["ff_out"]),
+                   **ln(f"{q}.output.LayerNorm", b["ff_ln"])})
+    for i, layer in zip((0, 2, 4, 6, 7), mlp["layers"]):
+        st.update(lin(f"mlp.layers.{i}", layer))
+    return st
+
+
+def med_config_json(tcfg):
+    """BLIP's ``med_config.json`` (HF BERT keys) for ``tcfg``."""
+    return {"architectures": ["BertModel"], "model_type": "bert", "hidden_act": "gelu",
+            "hidden_size": tcfg.hidden, "num_hidden_layers": tcfg.layers,
+            "num_attention_heads": tcfg.heads, "intermediate_size": tcfg.intermediate,
+            "max_position_embeddings": tcfg.max_position, "vocab_size": tcfg.vocab,
+            "encoder_width": tcfg.encoder_width, "layer_norm_eps": tcfg.eps,
+            "add_cross_attention": True, "pad_token_id": 0, "type_vocab_size": 2}
+
+
+def bert_vocab(n, seed):
+    """A ``bert-base-uncased``-shaped vocabulary of ``n`` lines: [PAD],
+    [unused0-98], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, every
+    printable ASCII character and its ``##`` form, the lower-cased words of
+    the smoke prompts, then random pieces (a quarter of them ``##``)."""
+    import string
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    head = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                              "[MASK]"]
+    chars = [c for c in string.printable if not c.isspace() and not c.isupper()]
+    words = sorted({w for p in REWARD_PROMPTS for w in re.findall(r"[a-z]+", p.lower())})
+    vocab = head + chars + ["##" + c for c in chars] + words
+    seen, letters = set(vocab), list(string.ascii_lowercase)
+    while len(vocab) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        w = "##" + w if rng.random() < 0.25 else w
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    return vocab[:n]
+
+
+def write_reward_ckpts(torch, dev, geo, d):
+    """The four reward checkpoints in their released layouts under ``d``,
+    random weights from seeds 30-33 at ``geo``'s geometries (the port's
+    initialisers, written through the inverse name maps): HPSv2.1 as an
+    F16 OpenCLIP ``.pt`` nested under ``state_dict`` (bare, as released, when
+    the geometry is the published one), PickScore_v1 as an HF ``CLIPModel``
+    directory (``config.json`` + F32 ``model.safetensors`` by the port's
+    ``save_file``), DFN5B as an F16 OpenCLIP ``.bin`` beside its
+    ``open_clip_config.json``, ImageReward as an F32 ``ImageReward.pt`` with
+    ``med_config.json`` and a 30,522-line ``vocab.txt``; and a CLIP merges
+    table.  Returns the paths and each model's parameter count."""
+    from mixgrpo_tpu_torch.models.text.blip import init_blip_text, init_blip_vision
+    from mixgrpo_tpu_torch.models.text.clip import CLIPConfig, init_clip
+    from mixgrpo_tpu_torch.utils.safetensors_io import save_file
+
+    host = lambda st, dt: {k: v.to("cpu", dt).contiguous() for k, v in st.items()}
+    gen = lambda seed: torch.Generator(dev).manual_seed(seed)
+    count = lambda st: sum(v.numel() for v in st.values())
+    paths, params = {"root": d}, {}
+    os.makedirs(d, exist_ok=True)
+    paths["merges"] = os.path.join(d, "merges.txt")
+    with open(paths["merges"], "w") as f:
+        f.write("\n".join(CLIP_MERGES) + "\n")
+
+    os.makedirs(os.path.join(d, "hps"))
+    paths["hps"] = os.path.join(d, "hps", "HPS_v2.1_compressed.pt")
+    st = openclip_state(init_clip(geo["hps"], generator=gen(30), device=dev,
+                                  dtype=torch.bfloat16))
+    params["hps"] = count(st)
+    torch.save({"state_dict": host(st, torch.float16)}, paths["hps"])
+    if geo["hps"] != CLIPConfig.vit_h_14(224):
+        with open(os.path.join(d, "hps", "open_clip_config.json"), "w") as f:
+            json.dump(openclip_config_json(geo["hps"]), f)
+
+    paths["pick_score"] = os.path.join(d, "PickScore_v1")
+    st = hf_clip_state(init_clip(geo["pick_score"], generator=gen(31), device=dev,
+                                 dtype=torch.bfloat16))
+    params["pick_score"] = count(st)
+    save_file(st, os.path.join(paths["pick_score"], "model.safetensors"), dtype=torch.float32)
+    with open(os.path.join(paths["pick_score"], "config.json"), "w") as f:
+        json.dump(hf_clip_config_json(geo["pick_score"]), f)
+
+    os.makedirs(os.path.join(d, "DFN5B-CLIP-ViT-H-14-384"))
+    paths["clip_score"] = os.path.join(d, "DFN5B-CLIP-ViT-H-14-384",
+                                       "open_clip_pytorch_model.bin")
+    st = openclip_state(init_clip(geo["clip_score"], generator=gen(32), device=dev,
+                                  dtype=torch.bfloat16))
+    params["clip_score"] = count(st)
+    torch.save(host(st, torch.float16), paths["clip_score"])
+    with open(os.path.join(os.path.dirname(paths["clip_score"]), "open_clip_config.json"),
+              "w") as f:
+        json.dump(openclip_config_json(geo["clip_score"]), f)
+    del st
+
+    ird = os.path.join(d, "ImageReward")
+    os.makedirs(ird)
+    vcfg, tcfg = geo["blip_vision"], geo["blip_text"]
+    vp = init_blip_vision(vcfg, generator=gen(33), device=dev)
+    tp = init_blip_text(tcfg, generator=gen(34), device=dev)
+    g = gen(35)
+    dims = [(tcfg.hidden, 1024), (1024, 128), (128, 64), (64, 16), (16, 1)]
+    mlp = {"layers": [{"w": torch.randn(dd, generator=g, device=dev) * dd[0] ** -0.5,
+                       "b": torch.zeros(dd[1], device=dev)} for dd in dims]}
+    st = blip_state(vp, tp, mlp, vcfg)
+    params["image_reward"] = count(st)
+    paths["image_reward"] = os.path.join(ird, "ImageReward.pt")
+    torch.save(host(st, torch.float32), paths["image_reward"])
+    paths["med_config"] = os.path.join(ird, "med_config.json")
+    with open(paths["med_config"], "w") as f:
+        json.dump(med_config_json(tcfg), f)
+    with open(os.path.join(ird, "vocab.txt"), "w") as f:
+        f.write("\n".join(bert_vocab(30522, 36)) + "\n")
+    del vp, tp, st
+    return paths, params
+
+
+def dir_bytes(path):
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(r, n)) for r, _, ns in os.walk(path) for n in ns)
+
+
+def smoke_images(torch, dev, n, res, seed):
+    """``n`` smooth random RGB images in [0, 1] at ``res``, f32 on ``dev``:
+    12x12 noise upsampled bilinearly, plus a little fine noise."""
+    g = torch.Generator(dev).manual_seed(seed)
+    low = torch.rand((n, 3, 12, 12), generator=g, device=dev)
+    x = torch.nn.functional.interpolate(low, size=(res, res), mode="bilinear",
+                                        align_corners=False)
+    x = x + 0.05 * torch.randn(x.shape, generator=g, device=dev)
+    return x.clamp(0, 1).permute(0, 2, 3, 1).contiguous()
+
+
+class StubVLM:
+    """An OpenAI-style chat server on 127.0.0.1 in a thread: it answers
+    ``Final Score: s`` with s = 1.0 + 0.5 * (i % 8) for the prompt tagged
+    ``#i``; the prompt ``#UR_FAIL_ONCE`` first gets HTTP 500, and
+    ``#UR_NO_SCORE`` a reply with no score."""
+
+    def __init__(self):
+        import http.server
+
+        stub = self
+        self.lock, self.failed, self.requests = threading.Lock(), set(), 0
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                text = body["messages"][0]["content"][0]["text"]
+                i = int(re.findall(r"#(\d+)\]$", text)[-1])
+                with stub.lock:
+                    stub.requests += 1
+                    fail = i == UR_FAIL_ONCE and i not in stub.failed
+                    stub.failed.add(i)
+                if fail:
+                    self.send_response(500)
+                    self.end_headers()
+                    return
+                content = ("I cannot rate this." if i == UR_NO_SCORE
+                           else f"element (object): 1\nFinal Score: {StubVLM.score(i)}")
+                out = json.dumps({"choices": [{"message": {"content": content}}]}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    @staticmethod
+    def score(i):
+        return None if i == UR_NO_SCORE else 1.0 + 0.5 * (i % 8)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def rewards_phase(torch, FA, dev, card, root, geo=None, res=720):
+    """The reward zoo at the published geometries (``reward_geometry``):
+    (1) the four checkpoints written in their released layouts
+    (``write_reward_ckpts``); (2) each loaded with ``from_checkpoint`` in
+    bf16 onto the card, timed, with the host's peak RSS; (3) 12 images at
+    720x720 scored by each model in bf16 and again by the model loaded in
+    f32 (ms per batch, max |bf16 - f32| against ``REWARD_BF16_BOUND``, peak
+    GB, 0 launches of every hand-written kernel), PickScore against its
+    formula recomputed from the two feature sets; (4) UnifiedReward against
+    ``StubVLM``; (5) ``eval_rewards.main`` over PNGs of the images and a
+    metadata file, every model and the stub; (6) ``verify_weights.main``
+    recording goldens for the four models, checking them, and catching a
+    copy of the HPS file with one tensor changed.  Returns the paths for
+    ``train_main_phase``; the files stay on disk for it (the caller removes
+    them)."""
+    import numpy as np
+    from PIL import Image
+
+    from mixgrpo_tpu_torch import eval_rewards as ER
+    from mixgrpo_tpu_torch import verify_weights as VW
+    from mixgrpo_tpu_torch.rewards import (
+        CLIPScoreReward, HPSReward, PickScoreReward, UnifiedReward,
+    )
+    from mixgrpo_tpu_torch.rewards.image_reward import ImageRewardModel
+    from mixgrpo_tpu_torch.train import find_bert_vocab_dir
+
+    geo = geo or reward_geometry()
+    d = os.path.join(root, ".smoke_rewards")
+    t0 = time.perf_counter()
+    paths, n_params = write_reward_ckpts(torch, dev, geo, d)
+    torch.cuda.synchronize()
+    sizes = {k: dir_bytes(paths[k]) for k in ("hps", "pick_score", "clip_score",
+                                              "image_reward")}
+    emit({"phase": "rewards_write", "seconds": time.perf_counter() - t0,
+          "gb_written": dir_bytes(d) / 1e9, "gb_per_model": {k: v / 1e9 for k, v in sizes.items()},
+          "params": n_params, "device": card})
+    torch.cuda.empty_cache()
+
+    vocab = find_bert_vocab_dir(paths["med_config"], paths["image_reward"])
+    build = {
+        "hpsv2": lambda dt: HPSReward.from_checkpoint(paths["hps"], paths["merges"], device=dev,
+                                                      dtype=dt),
+        "pick_score": lambda dt: PickScoreReward.from_checkpoint(
+            paths["pick_score"], paths["merges"], device=dev, dtype=dt),
+        "clip_score": lambda dt: CLIPScoreReward.from_checkpoint(
+            paths["clip_score"], paths["merges"], device=dev, dtype=dt),
+        "image_reward": lambda dt: ImageRewardModel.from_checkpoint(
+            paths["image_reward"], paths["med_config"], vocab, device=dev, dtype=dt),
+    }
+    file_of = {"hpsv2": "hps", "pick_score": "pick_score", "clip_score": "clip_score",
+               "image_reward": "image_reward"}
+    images = smoke_images(torch, dev, len(REWARD_PROMPTS), res, 40)
+    prompts = list(REWARD_PROMPTS)
+    recs, ok = [], True
+    for name, make in build.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            model = make(torch.bfloat16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        FA.reset_launches()
+        model(images, prompts)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s16, ok16 = model(images, prompts)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        formula_err = None
+        if name == "pick_score":
+            ids = model.tokenizer(prompts)
+            img, txt = model.features(images, ids)
+            cos = (img.double() * txt.double()).sum(-1)
+            want = (torch.exp(model.params["logit_scale"].double()) * cos - 18.0) / 8.0
+            got = model.score(images, ids).double()
+            formula_err = float((got - want).abs().max())
+        on_card = model.device.type == torch.device(dev).type
+        del model
+        torch.cuda.empty_cache()
+        model = make(torch.float32)
+        s32, _ = model(images, prompts)
+        del model
+        torch.cuda.empty_cache()
+        err = float(np.abs(np.asarray(s16) - np.asarray(s32)).max())
+        bound = REWARD_BF16_BOUND[name]
+        rec = {"phase": "rewards_model", "model": name, "file_gb": sizes[file_of[name]] / 1e9,
+               "load_s": load_s, "load_gb_per_s": sizes[file_of[name]] / 1e9 / load_s,
+               "host_rss_before_gb": rss.before, "host_rss_peak_gb": rss.peak,
+               "host_rss_rise_gb": rss.peak - rss.before, "weights_gb_on_card": weights_gb,
+               "images": list(images.shape), "ms_per_batch_bf16": ms,
+               "scores_bf16": s16, "max_abs_bf16_vs_f32": err, "bound": bound,
+               "launches": launches, "peak_gb": peak, "on_card": on_card,
+               "formula_max_abs_err": formula_err, "device": card}
+        emit(rec)
+        recs.append(rec)
+        ok &= (err <= bound and not any(launches.values()) and on_card and all(ok16)
+               and np.isfinite(s16).all() and (formula_err is None or formula_err <= 1e-4))
+    if not ok:
+        raise AssertionError("rewards: a model failed its checks (records above)")
+
+    # -- UnifiedReward against the stub server ---------------------------------------
+    want = [StubVLM.score(i) for i in range(len(prompts))]
+    with StubVLM() as stub:
+        t0 = time.perf_counter()
+        scores, succ = UnifiedReward(stub.url, num_workers=4)(images, prompts)
+        ur_s = time.perf_counter() - t0
+        rec = {"phase": "rewards_unified", "url": stub.url, "scores": scores,
+               "successes": succ, "requests": stub.requests, "seconds": ur_s, "device": card}
+        emit(rec)
+        if scores != want or succ != [w is not None for w in want] or \
+                stub.requests != len(prompts) + 1:
+            raise AssertionError(f"UnifiedReward: {rec}")
+
+        # -- eval_rewards.main over PNGs and a metadata file --------------------------
+        img_dir = os.path.join(d, "eval_images")
+        os.makedirs(img_dir)
+        arr = (images.cpu().numpy() * 255).round().astype(np.uint8)
+        meta = []
+        for i, p in enumerate(prompts):
+            Image.fromarray(arr[i]).save(os.path.join(img_dir, f"img_{i:05d}.png"))
+            meta.append({"image": f"img_{i:05d}.png", "prompt": p, "seed": i})
+        with open(os.path.join(d, "metadata_0.json"), "w") as f:
+            json.dump(meta, f)
+        out = os.path.join(d, "eval_out")
+        t0 = time.perf_counter()
+        summary = ER.main(["--metadata", os.path.join(d, "metadata_0.json"), "--image_dir",
+                           img_dir, "--output_dir", out, "--reward_model", "all",
+                           "--batch_size", "6", "--hps_path", paths["hps"],
+                           "--clip_score_path", paths["clip_score"], "--pick_score_path",
+                           paths["pick_score"], "--image_reward_path", paths["image_reward"],
+                           "--image_reward_med_config", paths["med_config"],
+                           "--unified_reward_url", stub.url, "--clip_bpe_path",
+                           paths["merges"], "--device", str(dev)])
+        eval_s = time.perf_counter() - t0
+    means_path = os.path.join(out, "reward_means.txt")
+    ur_ok = [w for w in want if w is not None]
+    rec = {"phase": "rewards_eval", "summary": summary, "seconds": eval_s,
+           "reward_means_txt": os.path.exists(means_path), "device": card}
+    emit(rec)
+    names = ("hpsv2", "clip_score", "pick_score", "image_reward", "unified_reward")
+    if not (rec["reward_means_txt"] and all(f"{n}_mean" in summary for n in names)
+            and summary["unified_reward_count"] == len(ur_ok)
+            and abs(summary["unified_reward_mean"] - float(np.mean(ur_ok))) < 1e-9
+            and all(summary[f"{n}_count"] == len(prompts) for n in names[:4])):
+        raise AssertionError(f"eval_rewards: {rec}")
+
+    # -- verify_weights: record, check, catch a changed tensor -------------------------
+    goldens = os.path.join(d, "goldens.npz")
+    args = ["--hps", paths["hps"], "--pick-score", paths["pick_score"], "--clip-score",
+            paths["clip_score"], "--image-reward", paths["image_reward"],
+            "--image-reward-med-config", paths["med_config"], "--device", str(dev)]
+    t0 = time.perf_counter()
+    recorded = VW.main(["--goldens", goldens, "--record", *args])
+    checked = VW.main(["--goldens", goldens, *args])
+    st = torch.load(paths["hps"], map_location="cpu", weights_only=True, mmap=True)["state_dict"]
+    st = dict(st)
+    st["visual.proj"] = st["visual.proj"].clone()
+    st["visual.proj"][:, : st["visual.proj"].shape[1] // 2] *= -1
+    bad = os.path.join(d, "hps", "HPS_changed.pt")
+    torch.save({"state_dict": st}, bad)
+    del st
+    corrupt = VW.run_checks({"hps": {"path": bad, "device": dev}}, goldens, record=False)
+    rec = {"phase": "rewards_verify_weights", "recorded": recorded, "checked": checked,
+           "changed_tensor": corrupt, "seconds": time.perf_counter() - t0, "device": card}
+    emit(rec)
+    if not (all(v == "recorded" for v in recorded.values()) and len(recorded) == 4
+            and all(v == "ok" for v in checked.values())
+            and corrupt["hps"].startswith("MISMATCH")):
+        raise AssertionError(f"verify_weights: {rec}")
+    torch.cuda.empty_cache()
+    return paths
+
+
+def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
+    """``preprocess.main`` then ``train.main`` on the recipe (``config.py``
+    defaults: 720px, 25 steps, eta 0.7, 12 generations, window 4, fp32
+    masters, AdamW) with ``--reward_model multi_reward`` on the ``rewards``
+    phase's files, 2 steps, a checkpoint at the last one; then
+    ``tsne_probe.main`` (1 prompt, 2 generations, SDE steps 0-3).  The FLUX
+    directory is ``write_flux_dir``'s at full width, cut to ``TRAIN_DEPTH``
+    blocks.  Each iteration's launches are counted from 0 just before it and
+    read just after (a wrapper around ``train_one_step``), and the reward
+    call's launches alone (around ``_compute_rewards``)."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch import preprocess as Pre
+    from mixgrpo_tpu_torch import train as T
+    from mixgrpo_tpu_torch import tsne_probe as TP
+
+    fam = fam or smoke_family(M)
+    blocks = fam["flux"].depth_double + fam["flux"].depth_single
+    tmp = os.path.join(root, ".smoke_train_main")
+    d = os.path.join(tmp, "FLUX.1-dev")
+    t0 = time.perf_counter()
+    write_flux_dir(torch, M, dev, fam, d)
+    torch.cuda.synchronize()
+    with open(os.path.join(tmp, "prompts.txt"), "w") as f:
+        f.write("\n".join(REWARD_PROMPTS[:4]) + "\n")
+    cache = os.path.join(tmp, "cache")
+    Pre.main(["--prompt_dir", os.path.join(tmp, "prompts.txt"), "--output_dir", cache,
+              "--model_path", d, "--device", str(dev)], family=fam)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    iters, reward_launches, advs = [], [], []
+    step, rewards, mix_adv = T.GRPOTrainer.train_one_step, T.GRPOTrainer._compute_rewards, \
+        T.masked_mix_advantages
+
+    def counted_step(self, *a, **k):
+        FA.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(self, *a, **k)
+        torch.cuda.synchronize()
+        iters.append({"seconds": time.perf_counter() - t,
+                      "launches": {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()},
+                      **{k: m[k] for k in ("rollout_time", "decode_time", "reward_time",
+                                           "update_time", "loss", "reward")},
+                      **{k: v for k, v in m.items() if k.startswith("reward/")}})
+        return m
+
+    def counted_rewards(self, *a, **k):
+        before = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+        out = rewards(self, *a, **k)
+        reward_launches.append({n: f.launches - before[n] for n, f in FA.KERNEL_WRAPPERS.items()})
+        return out
+
+    def recorded_adv(*a, **k):
+        adv = mix_adv(*a, **k)
+        advs.append(adv.detach().float().cpu().numpy())
+        return adv
+
+    out = os.path.join(tmp, "out")
+    argv = ["--pretrained_model_name_or_path", d, "--data_json_path", cache,
+            "--output_dir", out, "--experiment_name", "smoke", "--h", str(res), "--w", str(res),
+            "--reward_model", "multi_reward", "--hps_path", paths["hps"],
+            "--pick_score_path", paths["pick_score"], "--clip_score_path", paths["clip_score"],
+            "--image_reward_path", paths["image_reward"],
+            "--image_reward_med_config", paths["med_config"], "--max_train_steps", "2",
+            "--checkpointing_steps", "2", "--export_safetensors", "off", "--device", str(dev)]
+    T.GRPOTrainer.train_one_step, T.GRPOTrainer._compute_rewards = counted_step, counted_rewards
+    T.masked_mix_advantages = recorded_adv
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        trainer = T.main(argv, family=fam)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+    finally:
+        T.GRPOTrainer.train_one_step, T.GRPOTrainer._compute_rewards = step, rewards
+        T.masked_mix_advantages = mix_adv
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = trainer.cfg
+    g = cfg.grpo
+    n_groups = g.num_generations // cfg.optim.gradient_accumulation_steps
+    want = {"flash_attn_fwd": g.num_generations // g.rollout_chunk * g.sampling_steps * blocks,
+            "flash_attn_fwd_lse": n_groups * 2 * blocks, "flash_attn_bwd_fused": n_groups * blocks,
+            "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+    names = ("hpsv2", "clip_score", "image_reward", "pick_score")
+    with open(os.path.join(trainer.run_dir, "rewards.txt")) as f:
+        txt = f.read()
+    means = {n: [float(v) for v in re.findall(rf"^{n}: (\S+)$", txt, re.M)] for n in names}
+    with open(os.path.join(trainer.run_dir, "rewards_samples_rank0.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    ckpt = trainer.ckpt.latest_step()
+    disk = {"reward_files_gb": dir_bytes(paths["root"]) / 1e9,
+            "flux_dir_gb": dir_bytes(d) / 1e9,
+            "checkpoint_gb": dir_bytes(os.path.join(trainer.run_dir, "checkpoints")) / 1e9}
+    rec = {"phase": "train_main", "setup_s": setup_s, "main_s": main_s, "iterations": iters,
+           "expected_launches": want, "reward_launches": reward_launches,
+           "advantages_finite": bool(advs) and all(np.isfinite(a).all() for a in advs),
+           "advantage_shapes": [list(a.shape) for a in advs],
+           "reward_means": means, "sample_rows": len(rows), "checkpoint_step": ckpt,
+           "disk_gb": disk, "max_memory_allocated_gb": peak, "device": card}
+    emit(rec)
+    if not (len(iters) == 2 and all(it["launches"] == want for it in iters)
+            and all(not any(r.values()) for r in reward_launches) and rec["advantages_finite"]
+            and all(len(v) == 2 and np.isfinite(v).all() for v in means.values())
+            and len(rows) == 2 * g.num_generations
+            and all(n in rows[0] and np.isfinite(rows[0][n]) for n in names)
+            and ckpt == 2 and peak < 80):
+        raise AssertionError(f"train.main failed its checks: {rec}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # -- tsne_probe.main on the same directory ------------------------------------------
+    probe = os.path.join(tmp, "probe")
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    TP.main(["--model_path", d, "--data_json_path", cache, "--output_dir", probe,
+             "--num_prompts", "1", "--num_generations", "2", "--SDE_sampling_start_step", "0",
+             "--SDE_sampling_end_step", "4", "--device", str(dev)], family=fam)
+    torch.cuda.synchronize()
+    lat = np.load(os.path.join(probe, "latents_all_steps.npy"))
+    T_steps, L = 25, (512 // 16) ** 2
+    rec = {"phase": "tsne_probe", "seconds": time.perf_counter() - t0,
+           "latents_all_steps": list(lat.shape), "finite": bool(np.isfinite(lat).all()),
+           "launches": {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()},
+           "expected_forward": blocks * T_steps, "device": card}
+    emit(rec)
+    if lat.shape != (2, T_steps + 1, L, fam["flux"].in_channels) or not rec["finite"] or \
+            rec["launches"]["flash_attn_fwd"] != blocks * T_steps or \
+            sum(rec["launches"].values()) != blocks * T_steps:
+        raise AssertionError(f"tsne_probe: {rec}")
+    return {"main_s": main_s, "peak_gb": peak}
 
 
 def brightness_reward(images01, captions):
@@ -1712,8 +2396,8 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
     return launches
 
 
-PHASES = ("build", "kernels", "serve", "checkpoints", "train", "update_full_depth",
-          "train_flash_lora")
+PHASES = ("build", "kernels", "serve", "checkpoints", "rewards", "train_main", "train",
+          "update_full_depth", "train_flash_lora")
 TRAIN_DEPTH = (2, 4)
 FULL_DEPTH = (19, 38)
 
@@ -1728,6 +2412,8 @@ def main() -> int:
     only = set(ap.parse_args().only.split(","))
     if not only <= set(PHASES):
         ap.error(f"unknown phase in {sorted(only)}")
+    if "train_main" in only and "rewards" not in only:
+        ap.error("train_main runs on the rewards phase's files: add rewards to --only")
     t_start = time.perf_counter()
     import torch
 
@@ -1786,6 +2472,17 @@ def main() -> int:
         serve_phase(torch, FA, F, M, dev, card, rows)
     if "checkpoints" in only:
         checkpoints_phase(torch, FA, M, dev, card, root)
+    if "rewards" in only:
+        import shutil
+
+        try:
+            paths = rewards_phase(torch, FA, dev, card, root)
+            if "train_main" in only:
+                train_main_phase(torch, FA, M, dev, card, root, paths)
+        finally:  # cleanup only; failures propagate
+            for d in (".smoke_rewards", ".smoke_train_main"):
+                shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+        torch.cuda.empty_cache()
     if "train" in only:
         launches = train_phase(torch, FA, M, dev, card, root)
         for n in ("flash_attn_fwd_lse", "flash_attn_bwd_fused"):

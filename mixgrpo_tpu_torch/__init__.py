@@ -12,5 +12,8 @@ one GRPO iteration on one card (``train.py`` -> ``sampler.chunked_rollout``,
 VAE decode, ``rl/``, ``trainer.py`` -> the CUDA forward with logsumexp and
 backward kernels under ``torch.autograd``), with MixGRPO-Flash
 (``solvers/dpm.py``), LoRA (``lora.py``) and profiler traces
-(``utils/profiling.py``).
+(``utils/profiling.py``); released checkpoints and the prompt encoders
+(``models/flux/load.py``, ``models/text/``, ``preprocess.py``); the reward
+zoo (``rewards/``) and the CLIs ``sample``, ``serve``, ``preprocess``,
+``train``, ``eval_rewards``, ``verify_weights`` and ``tsne_probe``.
 """

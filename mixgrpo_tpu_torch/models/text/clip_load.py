@@ -27,10 +27,13 @@ from mixgrpo_tpu_torch.utils.safetensors_io import (
 
 def load_torch_state(path: str) -> Mapping[str, torch.Tensor]:
     """A torch ``.pt``/``.bin`` state dict (HPS nests it under
-    ``state_dict``), or a ``.safetensors`` file read lazily."""
+    ``state_dict``), or a ``.safetensors`` file read lazily.  A ``.pt`` is
+    memory-mapped (``mmap=True``): its tensors are views of the file's
+    pages, read as each one is copied to the device, with no whole-file
+    copy in the process's own memory."""
     if path.endswith(".safetensors"):
         return SafetensorsDir(path)
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return dict(obj)

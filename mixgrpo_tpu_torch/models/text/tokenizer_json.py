@@ -1,9 +1,12 @@
-"""A reader of HF ``tokenizer.json`` files for the T5 tokenizer (``tokenizer_2``).
+"""A reader of HF ``tokenizer.json`` files: the T5 tokenizer (``tokenizer_2``)
+and ImageReward's BERT WordPiece tokenizer.
 
 The JAX package tokenizes T5 prompts with
 ``transformers.AutoTokenizer.from_pretrained(tokenizer_2)``
-(mixgrpo_tpu/preprocess.py:125,141, sample.py:238,266); the card's machine
-has neither ``transformers`` nor ``tokenizers``, so the port reads the file
+(mixgrpo_tpu/preprocess.py:125,141, sample.py:238,266) and ImageReward's
+prompts with ``transformers.BertTokenizerFast.from_pretrained``
+(mixgrpo_tpu/rewards/image_reward.py:125-128); the card's machine has
+neither ``transformers`` nor ``tokenizers``, so the port reads the file
 itself and runs the same pipeline, id for id:
 
   added tokens (split out of the raw text, or out of the normalized text
@@ -21,14 +24,31 @@ skipped):
   trie over UTF-8 bytes plus a blob of replacement strings; as in
   ``tokenizers``, a grapheme cluster shorter than 6 bytes is replaced by the
   value of its shortest prefix in the trie, else each character is looked
-  up alone) and ``Sequence``;
+  up alone), ``BertNormalizer`` (control characters dropped and whitespace
+  made a space, CJK ideographs spaced out, accents stripped by NFD and
+  dropping nonspacing marks, lower-casing character by character) and
+  ``Sequence``;
 - pre-tokenizers: ``Whitespace`` (``\\w+|[^\\w\\s]+``), ``WhitespaceSplit``,
   ``Metaspace`` (``prepend_scheme`` "always" or "never", or the older
-  ``add_prefix_space``; ``split``) and ``Sequence``;
-- models: ``WordLevel`` and ``Unigram`` (Viterbi over the scored pieces,
+  ``add_prefix_space``; ``split``), ``BertPreTokenizer`` (split on
+  whitespace, each punctuation character a piece of its own) and
+  ``Sequence``;
+- models: ``WordLevel``, ``Unigram`` (Viterbi over the scored pieces,
   ties to the earliest start; a character no piece covers becomes ``unk_id``
-  scored ``min_score - 10``; runs of unknowns fuse into one);
-- post-processor: ``TemplateProcessing`` (single-sequence template).
+  scored ``min_score - 10``; runs of unknowns fuse into one) and
+  ``WordPiece`` (greedy longest match from the left, continuations prefixed
+  ``##``; a word with an unmatched rest, or over
+  ``max_input_chars_per_word`` characters, becomes the unk token);
+- post-processors: ``TemplateProcessing`` (single-sequence template) and
+  ``BertProcessing`` (``[CLS] ... [SEP]``).
+
+``load_bert_tokenizer`` reads a directory's ``tokenizer.json``, or, where it
+ships only ``vocab.txt`` (as ``bert-base-uncased``'s older layout does),
+builds the pipeline ``BertTokenizerFast`` converts it to: BertNormalizer
+(lower-casing per ``do_lower_case``, default on), BertPreTokenizer,
+WordPiece with ``[UNK]`` and ``##``, and the ``[CLS] $A [SEP]`` template,
+with the five special tokens as added tokens.  Every call pads to
+``max_length`` and returns the attention mask beside the ids.
 
 Grapheme clusters (used only by ``Precompiled``) follow a subset of Unicode
 UAX #29: a base character with the combining marks, ZWJ sequences,
@@ -142,10 +162,45 @@ class _Precompiled:
         return "".join(out)
 
 
+_CJK_RANGES = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+               (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def _is_cjk(ch: str) -> bool:
+    cp = ord(ch)
+    return any(a <= cp <= b for a, b in _CJK_RANGES)
+
+
+def _bert_normalizer(spec) -> callable:
+    """``tokenizers``' BertNormalizer: clean text, space out CJK ideographs,
+    strip accents (default: when lower-casing), lower-case per character."""
+    clean, cjk = spec.get("clean_text", True), spec.get("handle_chinese_chars", True)
+    lower = spec.get("lowercase", True)
+    strip = spec.get("strip_accents")
+    strip = lower if strip is None else strip
+
+    def run(s: str) -> str:
+        if clean:
+            s = "".join(" " if ch in "\t\n\r" or ch.isspace() else ch for ch in s
+                        if not (ord(ch) in (0, 0xFFFD) or (ch not in "\t\n\r" and
+                                unicodedata.category(ch)[0] == "C")))
+        if cjk:
+            s = "".join(f" {ch} " if _is_cjk(ch) else ch for ch in s)
+        if strip:
+            s = "".join(ch for ch in unicodedata.normalize("NFD", s)
+                        if unicodedata.category(ch) != "Mn")
+        if lower:
+            s = "".join(ch.lower() for ch in s)
+        return s
+    return run
+
+
 def _normalizer(spec) -> callable:
     if spec is None:
         return lambda s: s
     kind = spec.get("type")
+    if kind == "BertNormalizer":
+        return _bert_normalizer(spec)
     if kind in ("NFC", "NFD", "NFKC", "NFKD"):
         return lambda s: unicodedata.normalize(kind, s)
     if kind == "Lowercase":
@@ -202,10 +257,34 @@ def _whitespace(piece: str) -> List[str]:
     return out
 
 
+def _is_bert_punct(ch: str) -> bool:
+    return (ch.isascii() and not ch.isalnum() and ch.isprintable() and not ch.isspace()) \
+        or unicodedata.category(ch)[0] == "P"
+
+
+def _bert_split(piece: str) -> List[str]:
+    """Split on whitespace; every punctuation character is a piece alone."""
+    out, cur = [], []
+    for ch in piece:
+        if ch.isspace() or _is_bert_punct(ch):
+            if cur:
+                out.append("".join(cur))
+                cur = []
+            if not ch.isspace():
+                out.append(ch)
+        else:
+            cur.append(ch)
+    if cur:
+        out.append("".join(cur))
+    return out
+
+
 def _pre_tokenizer(spec) -> callable:
     if spec is None:
         return lambda pieces: pieces
     kind = spec.get("type")
+    if kind == "BertPreTokenizer":
+        return lambda pieces: [w for p in pieces for w in _bert_split(p)]
     if kind == "Whitespace":
         return lambda pieces: [w for p in pieces for w in _whitespace(p)]
     if kind == "WhitespaceSplit":
@@ -319,8 +398,40 @@ class _Unigram:
                 for t, unk in reversed(toks)]
 
 
+class _WordPiece:
+    def __init__(self, spec):
+        self.vocab: Dict[str, int] = spec["vocab"]
+        self.unk = spec.get("unk_token", "[UNK]")
+        self.prefix = spec.get("continuing_subword_prefix", "##")
+        self.max_chars = spec.get("max_input_chars_per_word", 100)
+        if self.unk not in self.vocab:
+            raise ValueError(f"WordPiece: unk token {self.unk!r} is not in the vocab")
+
+    def token_id(self, tok: str) -> Optional[int]:
+        return self.vocab.get(tok)
+
+    def __call__(self, piece: str) -> List[int]:
+        if len(piece) > self.max_chars:
+            return [self.vocab[self.unk]]
+        out, start = [], 0
+        while start < len(piece):
+            end = len(piece)
+            while end > start:
+                sub = piece[start:end] if start == 0 else self.prefix + piece[start:end]
+                if sub in self.vocab:
+                    out.append(self.vocab[sub])
+                    break
+                end -= 1
+            else:
+                return [self.vocab[self.unk]]
+            start = end
+        return out
+
+
 def _model(spec):
     kind = spec.get("type")
+    if kind == "WordPiece":
+        return _WordPiece(spec)
     if kind == "WordLevel":
         return _WordLevel(spec)
     if kind == "Unigram":
@@ -337,13 +448,21 @@ class TokenizerJSON:
     """``tokenizer.json`` (+ ``tokenizer_config.json``) of a directory, called
     as ``AutoTokenizer`` is by ``preprocess.PromptEncoder``."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, defaults: Optional[dict] = None):
+        """``defaults``: tokenizer_config entries the directory's own file
+        does not set (a tokenizer class's defaults, such as BERT's pad
+        token)."""
         with open(os.path.join(directory, "tokenizer.json")) as f:
             spec = json.load(f)
-        cfg = {}
-        if os.path.exists(os.path.join(directory, "tokenizer_config.json")):
-            with open(os.path.join(directory, "tokenizer_config.json")) as f:
-                cfg = json.load(f)
+        self._setup(spec, {**(defaults or {}), **_read_config(directory)})
+
+    @classmethod
+    def from_spec(cls, spec: dict, cfg: dict) -> "TokenizerJSON":
+        tok = cls.__new__(cls)
+        tok._setup(spec, cfg)
+        return tok
+
+    def _setup(self, spec: dict, cfg: dict):
         self.normalize = _normalizer(spec.get("normalizer"))
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
         self.model = _model(spec["model"])
@@ -361,7 +480,8 @@ class TokenizerJSON:
                     raise ValueError(f"tokenizer.json: added token {t['content']!r} has "
                                      f"{opt}, which is not handled here")
             self.added[t["content"]] = (t["id"], bool(t.get("normalized", False)))
-        for key in ("pad_token", "eos_token", "unk_token", "bos_token"):
+        for key in ("pad_token", "eos_token", "unk_token", "bos_token", "cls_token",
+                    "sep_token", "mask_token"):
             tok = cfg.get(key)
             tok = tok.get("content") if isinstance(tok, dict) else tok
             if tok and tok not in self.added:
@@ -376,6 +496,10 @@ class TokenizerJSON:
     def _template(self, spec):
         self.template: List = [("A", None)]
         if spec is None:
+            return
+        if spec.get("type") == "BertProcessing":
+            self.template = [("special", [spec["cls"][1]]), ("A", None),
+                             ("special", [spec["sep"][1]])]
             return
         if spec.get("type") != "TemplateProcessing":
             raise ValueError(f"tokenizer.json: unknown post_processor type {spec.get('type')!r}")
@@ -432,14 +556,16 @@ class TokenizerJSON:
 
     def __call__(self, texts: Sequence[str], padding="max_length", truncation=True,
                  max_length: int = 512, return_tensors="np"):
-        """``{"input_ids": (B, max_length) int64}``: each text truncated to
-        ``max_length`` minus the template's special tokens, post-processed,
-        then padded on the right with the pad token (``AutoTokenizer``'s
-        order; only this call shape is taken)."""
+        """``{"input_ids", "attention_mask"}``, (B, max_length) int64 each:
+        each text truncated to ``max_length`` minus the template's special
+        tokens, post-processed, then padded on the right with the pad token
+        (``AutoTokenizer``'s order; only this call shape is taken); the mask
+        is 1 on the ids that are not padding."""
         if padding != "max_length" or return_tensors != "np":
             raise ValueError(f"padding={padding!r}, return_tensors={return_tensors!r}: only "
                              "'max_length' and 'np' are handled here")
         out = np.full((len(texts), max_length), -1, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
         for i, t in enumerate(texts):
             ids = self.encode(t)
             if truncation:
@@ -453,4 +579,51 @@ class TokenizerJSON:
                 raise ValueError("padding needs a pad token (tokenizer_config.json pad_token)")
             out[i, :len(full)] = full
             out[i, len(full):] = self.pad_id if len(full) < max_length else 0
-        return {"input_ids": out}
+            mask[i, :len(full)] = 1
+        return {"input_ids": out, "attention_mask": mask}
+
+
+def _read_config(directory: str) -> dict:
+    path = os.path.join(directory, "tokenizer_config.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+BERT_SPECIALS = {"pad_token": "[PAD]", "unk_token": "[UNK]", "cls_token": "[CLS]",
+                 "sep_token": "[SEP]", "mask_token": "[MASK]"}
+
+
+def load_bert_tokenizer(directory: str) -> TokenizerJSON:
+    """The BERT WordPiece tokenizer of ``directory``, as
+    ``BertTokenizerFast.from_pretrained`` builds it: from its
+    ``tokenizer.json``, else from its ``vocab.txt`` (one token per line, the
+    line number its id) with ``bert-base-uncased``'s defaults; raises
+    ``FileNotFoundError`` when it holds neither."""
+    if os.path.exists(os.path.join(directory, "tokenizer.json")):
+        return TokenizerJSON(directory, defaults=BERT_SPECIALS)
+    path = os.path.join(directory, "vocab.txt")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{directory!r} holds neither tokenizer.json nor vocab.txt")
+    vocab: Dict[str, int] = {}
+    with open(path, encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            vocab.setdefault(line.rstrip("\n"), i)
+    cfg = {**BERT_SPECIALS, **_read_config(directory)}
+    lower = cfg.get("do_lower_case", True)
+    specials = [cfg[k] for k in BERT_SPECIALS if cfg.get(k) in vocab]
+    spec = {
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": cfg.get("tokenize_chinese_chars", True),
+                       "strip_accents": cfg.get("strip_accents"), "lowercase": lower},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "model": {"type": "WordPiece", "vocab": vocab, "unk_token": cfg["unk_token"],
+                  "continuing_subword_prefix": "##", "max_input_chars_per_word": 100},
+        "post_processor": {"type": "BertProcessing",
+                           "cls": [cfg["cls_token"], vocab[cfg["cls_token"]]],
+                           "sep": [cfg["sep_token"], vocab[cfg["sep_token"]]]},
+        "added_tokens": [{"id": vocab[t], "content": t, "normalized": False}
+                         for t in specials],
+    }
+    return TokenizerJSON.from_spec(spec, cfg)

@@ -8,7 +8,9 @@ iteration (``train_one_step``):
   2. roll the group out with the sliding-window ODE/SDE mask, in chunks of
      ``rollout_chunk`` images (``FluxSampler.chunked_rollout``), keeping
      every latent and the SDE steps' log-probs;
-  3. decode the final latents with the VAE and score them with ``reward_fn``;
+  3. decode the final latents with the VAE and score them with the reward
+     models (``reward_models``, through ``rewards.compute_reward``), or with
+     ``reward_fn`` where one is given;
   4. group-relative advantages with per-model success masks;
   5. optional positive/negative balancing of the sample order;
   6. PPO updates: each accumulation group of (sample, window timestep)
@@ -38,10 +40,14 @@ warns once and is skipped for the rest of the run, with ``"required"`` it
 raises.  As in JAX, a LoRA run exports the frozen base (its factors are in
 the checkpoint).
 
-Waiting for later slices, and refused here: the reward model zoo (a
-``reward_fn`` is required), int8 rollouts, meshes of more than one device;
-not ported at all yet: image dumps and the CLI ``main`` (which waits for
-the reward models, ROADMAP Queue 1 item 4).
+``main`` is the CLI (``python -m mixgrpo_tpu_torch.train``, the reference's
+flag names plus ``--device``, default ``cuda``): the FLUX transformer and VAE
+of ``--pretrained_model_name_or_path`` (fp32 masters, or the base at the
+compute dtype under LoRA), the reward models of ``--reward_model``
+(``build_reward_models``) and the embedding cache of ``--data_json_path``.
+
+Waiting for later slices, and refused here: int8 rollouts, meshes of more
+than one device.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ import signal
 import time
 import uuid
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -82,10 +88,10 @@ from mixgrpo_tpu_torch.utils.ema import ema_init, ema_update
 from mixgrpo_tpu_torch.utils.logging import MetricLogger, main_print
 
 
-def _refuse_unported(cfg: TrainConfig, reward_fn):
-    if reward_fn is None:
-        raise NotImplementedError("the reward model zoo waits for the port of rewards/; "
-                                  "pass reward_fn")
+def _refuse_unported(cfg: TrainConfig, reward_fn, reward_models):
+    if reward_fn is None and not reward_models:
+        raise ValueError("GRPOTrainer needs reward_models (see build_reward_models) or a "
+                         "reward_fn")
     if cfg.grpo.rollout_quant != "none":
         raise NotImplementedError("rollout_quant waits for the port of ops/quant.py")
     if cfg.mesh.resolved(1) != MeshConfig(1, 1, 1, 1):
@@ -102,6 +108,7 @@ class GRPOTrainer:
         vae_cfg: Optional[VAEConfig] = None,
         vae_params=None,
         reward_fn: Optional[Callable] = None,
+        reward_models: Optional[Mapping] = None,
         text_len: int = 512,
         attn_impl: str = "auto",
         dtype=torch.bfloat16,
@@ -110,15 +117,17 @@ class GRPOTrainer:
         lora_rank: Optional[int] = None,
         lora_alpha: Optional[float] = None,
     ):
-        """``reward_fn(images01, captions) -> (rewards_dict, successes_dict)``
-        (numpy arrays per model) scores the decoded images, (B, H, W, 3) in
-        [0, 1] on the device.  ``params`` (fp32 master weights, updated in
+        """``reward_models`` (name -> model, as ``build_reward_models`` makes
+        them) score the decoded images, (B, H, W, 3) in [0, 1] on the device;
+        ``reward_fn(images01, captions) -> (rewards_dict, successes_dict)``
+        (numpy arrays per model), where given, replaces them.  ``params``
+        (fp32 master weights, updated in
         place; under LoRA the frozen base, any dtype) default to
         ``init_flux`` seeded from ``cfg.grpo.seed``.  ``use_lora`` trains a
         rank-``lora_rank`` adapter over ``lora.DEFAULT_TARGETS``, its ``a``
         factors drawn from ``cfg.grpo.seed + 1``; each of the three defaults
         to its field of ``cfg.runtime``."""
-        _refuse_unported(cfg, reward_fn)
+        _refuse_unported(cfg, reward_fn, reward_models)
         rt = cfg.runtime
         use_lora = rt.use_lora if use_lora is None else use_lora
         lora_rank = rt.lora_rank if lora_rank is None else lora_rank
@@ -137,6 +146,8 @@ class GRPOTrainer:
 
         self.vae_cfg, self.vae_params = vae_cfg, vae_params
         self.reward_fn = reward_fn
+        self.reward_models = dict(reward_models or {})
+        self.save_images = False
         self.reward_weights = cfg.reward.weights()
 
         self.sampler_cfg = cfg.sampler_config()
@@ -249,6 +260,31 @@ class GRPOTrainer:
             return sig, det, n
         return self.base_sigmas, det, T
 
+    def _compute_rewards(self, images01, captions):
+        """(rewards_dict, successes_dict) of numpy arrays."""
+        if self.reward_fn is not None:
+            return self.reward_fn(images01, captions)
+        from mixgrpo_tpu_torch.rewards.base import compute_reward
+
+        _, _, rd, sd = compute_reward(images01, captions, self.reward_models,
+                                      self.reward_weights)
+        return ({k: np.asarray(v) for k, v in rd.items()},
+                {k: np.asarray(v) for k, v in sd.items()})
+
+    def _save_first_image(self, images01):
+        """The first decoded image of each step, ``images/flux_<step>_0.png``;
+        best effort: a failure is printed and skipped."""
+        try:
+            from PIL import Image
+
+            img_dir = os.path.join(self.run_dir, "images")
+            os.makedirs(img_dir, exist_ok=True)
+            arr = images01[0].float().cpu().numpy()
+            Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(img_dir, f"flux_{self.global_step}_0.png"))
+        except Exception as e:  # image dumps are observability, not training
+            main_print(f"image save skipped: {e}")
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -301,8 +337,13 @@ class GRPOTrainer:
             self._sync()
         t2 = time.perf_counter()
         main_print(f"##### Sampling time per iteration: {t2 - t0:.2f} s")
+        if self.vae_params is not None and self.save_images:
+            self._save_first_image(images01)
 
-        rewards_dict, successes_dict = self.reward_fn(images01, captions)
+        with profiling.annotate("reward"):
+            rewards_dict, successes_dict = self._compute_rewards(images01, captions)
+            self._sync()
+        t_r = time.perf_counter()
         # per-model success masks: a failed score leaves the group
         # statistics and gets zero advantage
         rd = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
@@ -386,7 +427,8 @@ class GRPOTrainer:
         metrics["sampling_time"] = t2 - t0
         metrics["rollout_time"] = t1 - t0
         metrics["decode_time"] = t2 - t1
-        metrics["update_time"] = t3 - t2
+        metrics["reward_time"] = t_r - t2
+        metrics["update_time"] = t3 - t_r
         metrics["num_steps"] = num_steps
         self._dump_reward_stream(captions, rewards_dict, sd, rewards, metrics)
         return metrics
@@ -415,14 +457,16 @@ class GRPOTrainer:
         except OSError as e:
             main_print(f"reward stream write failed: {e}")
 
-    def train(self, loader: PromptLoader):
-        """Iterate until ``max_train_steps``; SIGTERM/SIGINT finish the
-        current iteration, checkpoint and stop.  With ``profile_steps`` > 0
+    def train(self, loader: PromptLoader, save_images: bool = False):
+        """Iterate until ``max_train_steps`` (``save_images``: the first
+        decoded image of each step to ``<run_dir>/images``); SIGTERM/SIGINT
+        finish the current iteration, checkpoint and stop.  With ``profile_steps`` > 0
         the iterations from ``global_step + 1`` on (the first one of this
         call is skipped: it allocates and warms up) are traced into
         ``profile_dir`` (default ``<run_dir>/profile``); the trace is closed
         and written even when an iteration raises."""
         self._preempted = False
+        self.save_images = save_images
 
         def _on_term(signum, frame):
             self._preempted = True
@@ -501,3 +545,118 @@ class GRPOTrainer:
         """Join an in-flight checkpoint write and close the metrics file."""
         self.ckpt.close()
         self.metrics.close()
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+
+def find_bert_vocab_dir(*paths: Optional[str]) -> str:
+    """The first directory of ``paths`` (files or directories) that holds a
+    ``vocab.txt`` or a ``tokenizer.json``; raises naming every directory
+    searched when none does."""
+    dirs = []
+    for p in paths:
+        if not p:
+            continue
+        d = p if os.path.isdir(p) else os.path.dirname(os.path.abspath(p))
+        if d in dirs:
+            continue
+        dirs.append(d)
+        if any(os.path.exists(os.path.join(d, n)) for n in ("vocab.txt", "tokenizer.json")):
+            return d
+    raise FileNotFoundError(f"image_reward needs its BERT tokenizer: no vocab.txt or "
+                            f"tokenizer.json in {dirs}")
+
+
+def build_reward_models(cfg: TrainConfig, device="cuda", names=None,
+                        merges: Optional[str] = None) -> Dict[str, object]:
+    """The reward models ``names`` (default ``cfg.reward.active_models()``)
+    from ``cfg.reward``'s paths, loaded to ``device`` (bf16 on a card, f32
+    on the CPU).
+
+    Every tokenizer is found here, and a missing one raises here: the CLIP
+    merges for HPS, PickScore and CLIP-score (``merges``, else found as JAX
+    finds them: ``CLIP_BPE_PATH``, else ``<pretrained>/tokenizer/merges.txt``)
+    and ImageReward's BERT vocabulary (``vocab.txt`` or ``tokenizer.json``
+    beside ``image_reward_med_config`` or ``image_reward_path``).  JAX's
+    ``build_reward_models`` passes ImageReward no vocabulary
+    (``mixgrpo_tpu/train.py:734-739``), so its first reward call fails on
+    ``assert self.tokenizer is not None``."""
+    from mixgrpo_tpu_torch.rewards import (
+        CLIPScoreReward, HPSReward, PickScoreReward, UnifiedReward,
+    )
+    from mixgrpo_tpu_torch.rewards.image_reward import ImageRewardModel
+
+    r = cfg.reward
+    active = names or r.active_models()
+    kw = dict(device=device)
+    if {"hpsv2", "pick_score", "clip_score"} & set(active):
+        cand = os.path.join(cfg.paths.pretrained_model_name_or_path, "tokenizer", "merges.txt")
+        merges = merges or os.environ.get("CLIP_BPE_PATH") or (
+            cand if os.path.exists(cand) else None)
+        if merges is None:
+            raise FileNotFoundError(
+                "the CLIP reward models need the CLIP BPE table: pass its path, set "
+                f"CLIP_BPE_PATH or put it at {cand}")
+    vocab_dir = None
+    if "image_reward" in active:
+        vocab_dir = find_bert_vocab_dir(r.image_reward_med_config, r.image_reward_path)
+    out = {}
+    if "hpsv2" in active:
+        out["hpsv2"] = HPSReward.from_checkpoint(r.hps_path, merges, **kw)
+    if "pick_score" in active:
+        out["pick_score"] = PickScoreReward.from_checkpoint(r.pick_score_path, merges, **kw)
+    if "clip_score" in active:
+        out["clip_score"] = CLIPScoreReward.from_checkpoint(r.clip_score_path, merges, **kw)
+    if "unified_reward" in active and r.unified_reward_url:
+        out["unified_reward"] = UnifiedReward(
+            r.unified_reward_url, r.unified_reward_default_question_type or "score",
+            r.unified_reward_num_workers)
+    if "image_reward" in active:
+        out["image_reward"] = ImageRewardModel.from_checkpoint(
+            r.image_reward_path, r.image_reward_med_config, vocab_dir, **kw)
+    return out
+
+
+def main(argv=None, family=None):
+    """Train from a FLUX directory and an embedding cache.  ``family``
+    defaults to ``presets.flux_family()`` (``MIXGRPO_MODEL_PRESET``).
+    Returns the trainer, closed, after its last checkpoint."""
+    from mixgrpo_tpu_torch.config import build_arg_parser, config_from_args
+    from mixgrpo_tpu_torch.data.dataset import LatentDataset
+    from mixgrpo_tpu_torch.models.flux.load import load_flux_params, load_vae_decoder_params
+    from mixgrpo_tpu_torch.preprocess import compute_dtype
+    from mixgrpo_tpu_torch.presets import flux_family
+
+    p = build_arg_parser()
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+    cfg = config_from_args(args)
+    if cfg.grpo.rollout_quant != "none":  # before any weight is read
+        raise NotImplementedError("rollout_quant waits for the port of ops/quant.py "
+                                  "(ROADMAP Queue 1 item 6)")
+
+    fam = family or flux_family()
+    dev, dtype = torch.device(args.device), compute_dtype(args.device)
+    root = cfg.paths.pretrained_model_name_or_path
+    flux_cfg, vae_cfg = fam["flux"], fam["vae"]
+    reward_models = build_reward_models(cfg, device=dev)
+    # fp32 master weights; under LoRA the frozen base at the compute dtype
+    params = load_flux_params(cfg.paths.dit_model_name_or_path or
+                              os.path.join(root, "transformer"), flux_cfg,
+                              dtype=dtype if cfg.runtime.use_lora else torch.float32,
+                              device=dev)
+    vae_params = load_vae_decoder_params(cfg.paths.vae_model_path or os.path.join(root, "vae"),
+                                         vae_cfg, dtype=dtype, device=dev)
+    trainer = GRPOTrainer(cfg, flux_cfg=flux_cfg, params=params, vae_cfg=vae_cfg,
+                          vae_params=vae_params, reward_models=reward_models,
+                          attn_impl=cfg.runtime.attn_impl, dtype=dtype, device=dev)
+    ds = LatentDataset(cfg.data.data_json_path, cfg_rate=cfg.data.cfg_rate, seed=cfg.grpo.seed)
+    trainer.train(PromptLoader(ds, cfg.data.train_batch_size, seed=cfg.grpo.seed))
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@ plain PyTorch versions (the forward with and without lse, the fused, dkv and
 dq backward kernels), what they refuse, and the model and update paths
 through them (LoRA's update among them), a MixGRPO-Flash rollout on the
 card against the CPU, ``backend_smoke``, the safetensors reader's BF16 path
-straight to the card, and T5 and CLIP on the card against the CPU.
+straight to the card, T5 and CLIP on the card against the CPU, and the four
+reward models on a CUDA batch (bf16 against f32, no kernel launch).
 
 Every test carries the ``cuda`` marker and skips without a card.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -563,3 +564,62 @@ def test_text_encoders_on_card_match_cpu(dev, dtype):
             torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-4)
         else:
             assert (card.cpu() - cpu).norm() / cpu.norm() <= 2e-2
+
+
+@pytest.fixture(scope="module")
+def reward_files(tmp_path_factory):
+    """The four reward checkpoints at full width, cut to 2 blocks per tower,
+    written by ``chip_smoke.write_reward_ckpts`` (released layouts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import chip_smoke as CS
+
+    cut = lambda c: dataclasses.replace(c, vision=dataclasses.replace(c.vision, layers=2),
+                                        text=dataclasses.replace(c.text, layers=2))
+    geo = CS.reward_geometry()
+    geo = {**{k: cut(geo[k]) for k in ("hps", "pick_score", "clip_score")},
+           "blip_vision": dataclasses.replace(geo["blip_vision"], layers=2),
+           "blip_text": dataclasses.replace(geo["blip_text"], layers=2)}
+    paths, _ = CS.write_reward_ckpts(torch, torch.device("cuda"), geo,
+                                     str(tmp_path_factory.mktemp("rewards") / "r"))
+    return paths, geo
+
+
+@pytest.mark.parametrize("name", ["hpsv2", "pick_score", "clip_score", "image_reward"])
+def test_reward_models_on_card(dev, reward_files, name):
+    """Each reward model (full width, 2 blocks per tower) scores a CUDA batch
+    of four 720px images where it lies (the batch is not copied; the scores
+    are computed on the card), launches no hand-written kernel, and its bf16
+    scores are within ``chip_smoke.REWARD_BF16_BOUND`` of its f32 model's."""
+    import chip_smoke as CS
+    from mixgrpo_tpu_torch.rewards import CLIPScoreReward, HPSReward, PickScoreReward
+    from mixgrpo_tpu_torch.rewards.image_reward import ImageRewardModel
+    from mixgrpo_tpu_torch.rewards.preprocess import as_image_batch
+    from mixgrpo_tpu_torch.train import find_bert_vocab_dir
+
+    paths, geo = reward_files
+
+    def make(dtype):
+        if name == "image_reward":
+            return ImageRewardModel.from_checkpoint(
+                paths["image_reward"], paths["med_config"],
+                find_bert_vocab_dir(paths["med_config"]), vision_cfg=geo["blip_vision"],
+                device=dev, dtype=dtype)
+        cls, key = {"hpsv2": (HPSReward, "hps"), "pick_score": (PickScoreReward, "pick_score"),
+                    "clip_score": (CLIPScoreReward, "clip_score")}[name]
+        return cls.from_checkpoint(paths[key], paths["merges"], device=dev, dtype=dtype)
+
+    images = CS.smoke_images(torch, dev, 4, 720, 40)
+    assert as_image_batch(images, dev).data_ptr() == images.data_ptr()
+    prompts = list(CS.REWARD_PROMPTS[:4])
+    m16 = make(torch.bfloat16)
+    assert m16.dtype == torch.bfloat16 and m16.device.type == "cuda"
+    FA.reset_launches()
+    s16, ok = m16(images, prompts)
+    assert not any(f.launches for f in FA.KERNEL_WRAPPERS.values())
+    assert ok == [1.0] * 4 and all(map(lambda s: s == s, s16))
+    s32, _ = make(torch.float32)(images, prompts)
+    err = max(abs(a - b) for a, b in zip(s16, s32))
+    assert err <= CS.REWARD_BF16_BOUND[name], (s16, s32)

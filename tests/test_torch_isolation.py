@@ -1,7 +1,8 @@
 """The port stands alone: ``mixgrpo_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX (nor jaxlib, optax, orbax) nor the JAX package ``mixgrpo_tpu``,
-nor the packages the card's machine lacks (``transformers``,
-``tokenizers``, ``safetensors``); only the tests import them."""
+nor the packages the card's machine lacks or is not known to have
+(``transformers``, ``tokenizers``, ``safetensors``, ``requests``); only the
+tests import them."""
 
 import ast
 import os
@@ -10,11 +11,11 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = {"jax", "jaxlib", "optax", "orbax", "mixgrpo_tpu", "transformers", "tokenizers",
-          "safetensors"}
+          "safetensors", "requests"}
 
 
 def _port_files():
-    files = ["chip_smoke.py"]
+    files = ["chip_smoke.py", "reward_bf16_bound.py"]
     for d, _, names in os.walk(os.path.join(ROOT, "mixgrpo_tpu_torch")):
         files += [os.path.relpath(os.path.join(d, n), ROOT)
                   for n in names if n.endswith(".py")]
@@ -30,7 +31,11 @@ def test_port_package_is_present():
                    "utils/safetensors_io.py", "models/flux/load.py", "models/registry.py",
                    "models/text/t5.py", "models/text/clip.py", "models/text/clip_load.py",
                    "models/text/tokenizer_json.py", "rewards/tokenizer.py", "preprocess.py",
-                   "sample.py", "serve.py"):
+                   "sample.py", "serve.py", "rewards/base.py", "rewards/preprocess.py",
+                   "rewards/clip_family.py", "rewards/image_reward.py",
+                   "rewards/unified_reward.py", "rewards/vqa.py", "rewards/__init__.py",
+                   "models/text/blip.py", "eval_rewards.py", "verify_weights.py",
+                   "tsne_probe.py"):
         assert f"mixgrpo_tpu_torch/{module}" in files
 
 

@@ -410,7 +410,7 @@ def test_precompiled_matches_tokenizers():
 
 
 BAD = [
-    ("normalizer", {"type": "BertNormalizer"}),
+    ("normalizer", {"type": "Nmt"}),  # not taken (BertNormalizer is: BERT's WordPiece)
     ("pre_tokenizer", {"type": "ByteLevel", "add_prefix_space": False}),
     ("pre_tokenizer", dict(META, prepend_scheme="first")),
     ("model", {"type": "BPE", "vocab": {}, "merges": []}),

@@ -32,6 +32,7 @@ Flash, with a profiler trace of the second iteration.
 import dataclasses
 import json
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,7 @@ import pytest
 import torch
 
 from mixgrpo_tpu import lora as JLoRA
+from mixgrpo_tpu import train as JTrain
 from mixgrpo_tpu import sampler as JS
 from mixgrpo_tpu import trainer as JT
 from mixgrpo_tpu.models.flux import latents as JL
@@ -121,11 +123,37 @@ def _prompt(seed=0):
             "captions": ["a tiny prompt"]}
 
 
-def _jax_iteration(cfg, weights, batch, ts, factors=None):
+_JAX_FNS = {}
+
+
+def _jax_fns(jcfg, jvcfg, scfg, lora):
+    """JAX's sampler, jitted decode, optimizer and update step (the LoRA one
+    when ``lora``) for ``scfg``, built once per module: iterations on one
+    schedule share their compiled programs."""
+    key = (repr(scfg), lora)
+    if key not in _JAX_FNS:
+        js = JS.FluxSampler(jcfg, scfg, height=RES, width=RES, text_len=TEXT_LEN,
+                            dtype=jnp.float32, attn_impl="xla")
+        decode = jax.jit(lambda p, z: JV.vae_decode(p, jvcfg, z, dtype=jnp.float32))
+        jopt = JT.make_optimizer(learning_rate=1e-4, weight_decay=1e-2)
+        kw = dict(dtype=jnp.float32, attn_impl="xla", remat=False)  # remat changes no value
+        if lora:
+            step = JT.make_lora_update_fns(jcfg, scfg, JPPO(clip_range=0.2), jopt, js.rope_cos,
+                                           js.rope_sin, **kw)
+        else:
+            step = JT.make_update_fns(jcfg, scfg, JPPO(clip_range=0.2), jopt, js.rope_cos,
+                                      js.rope_sin, **kw)[0]
+        _JAX_FNS[key] = (js, decode, jopt, step)
+    return _JAX_FNS[key]
+
+
+def _jax_iteration(cfg, weights, batch, ts, factors=None, reward_models=None):
     """JAX's ``train_one_step``, function by function: the schedule (Flash
     "post" when ``cfg.dpm`` names a DPM-Solver), the rollout (on
     ``apply_lora`` of the base when LoRA ``factors``, numpy, are given), the
-    decode, the reward, the advantages and one update per accumulation group
+    decode, the reward (JAX's ``GRPOTrainer._compute_rewards`` over
+    ``reward_models`` with ``cfg.reward``'s weights, else the brightness),
+    the advantages and one update per accumulation group
     (``make_lora_update_fns`` under LoRA).  Returns what the port is held to,
     with JAX's initial noise and SDE draws for the port to take."""
     jcfg, jvcfg, jparams_np, jvae_np = weights
@@ -140,32 +168,32 @@ def _jax_iteration(cfg, weights, batch, ts, factors=None):
     k_noise, k_roll, _ = jax.random.split(
         jax.random.fold_in(jax.random.key(cfg.grpo.sampler_seed), 0), 3)
     scfg = JR.SamplerConfig(**dataclasses.asdict(cfg.sampler_config()))
-    js = JS.FluxSampler(jcfg, scfg, height=RES, width=RES, text_len=TEXT_LEN,
-                        dtype=jnp.float32, attn_impl="xla")
+    js, decode, jopt, make_step = _jax_fns(jcfg, jvcfg, scfg, factors is not None)
     z0 = js.init_noise(k_noise, B, same_noise_groups=G)
     lora = None if factors is None else {"factors": jax.tree.map(jnp.asarray, factors),
                                          "rank": 4, "alpha": 8.0}
     rollout_params = jparams if lora is None else JLoRA.apply_lora(jparams, lora)
     out = js.chunked_rollout(rollout_params, z0, txt, pooled, sig, det, n, k_roll, chunk=2)
     lat = JL.denormalize_latents(JL.unpack_latents(out.final_latents, RES, RES))
-    decode = jax.jit(lambda p, z: JV.vae_decode(p, jvcfg, z, dtype=jnp.float32))
     images = JV.postprocess_images(decode(jax.tree.map(jnp.asarray, jvae_np), lat))
-    r = np.asarray(jnp.mean(images, axis=(1, 2, 3)), np.float64)
-    rd, sd = {"synthetic": jnp.asarray(r)}, {"synthetic": jnp.ones(B)}
-    rewards = JA.masked_mix_rewards(rd, sd, {"synthetic": 1.0})
-    adv = JA.masked_mix_advantages(rd, sd, {"synthetic": 1.0}, G, 0.0)
-    jopt = JT.make_optimizer(learning_rate=1e-4, weight_decay=1e-2)
-    kw = dict(dtype=jnp.float32, attn_impl="xla", remat=False)  # remat changes no value
-    if lora is None:
-        jstep, _, _ = JT.make_update_fns(jcfg, scfg, JPPO(clip_range=0.2), jopt, js.rope_cos,
-                                         js.rope_sin, **kw)
-        trained, step = jparams, lambda t, s, ub: jstep(t, s, ub, jnp.asarray(sig))
+    if reward_models is None:
+        r = np.asarray(jnp.mean(images, axis=(1, 2, 3)), np.float64)
+        rd_np, sd_np, w = {"synthetic": r}, {"synthetic": np.ones(B)}, {"synthetic": 1.0}
     else:
-        lstep = JT.make_lora_update_fns(jcfg, scfg, JPPO(clip_range=0.2), jopt, js.rope_cos,
-                                        js.rope_sin, **kw)
+        w = cfg.reward.weights()
+        ns = SimpleNamespace(reward_fn=None, reward_models=reward_models, reward_weights=w)
+        captions = [c for c in batch["captions"] for _ in range(G)]
+        rd_np, sd_np = JTrain.GRPOTrainer._compute_rewards(ns, np.asarray(images), captions)
+    rd = {k: jnp.asarray(v) for k, v in rd_np.items()}
+    sd = {k: jnp.asarray(v) for k, v in sd_np.items()}
+    rewards = JA.masked_mix_rewards(rd, sd, w)
+    adv = JA.masked_mix_advantages(rd, sd, w, G, 0.0)
+    if lora is None:
+        trained, step = jparams, lambda t, s, ub: make_step(t, s, ub, jnp.asarray(sig))
+    else:
         meta = {"rank": 4, "alpha": 8.0}
         trained = lora["factors"]
-        step = lambda t, s, ub: lstep(t, s, meta, jparams, ub, jnp.asarray(sig))
+        step = lambda t, s, ub: make_step(t, s, meta, jparams, ub, jnp.asarray(sig))
     jstate = jopt.init(trained)
     jmetrics = []
     for gstart in range(0, B, 2):
@@ -179,7 +207,7 @@ def _jax_iteration(cfg, weights, batch, ts, factors=None):
         k = k_roll if j is None else jax.random.fold_in(k_roll, j)
         return np.array(jax.random.normal(jax.random.fold_in(k, i), shape, jnp.float32))
 
-    return dict(out=out, n=n, rewards=rewards, r=r, adv=adv, metrics=jmetrics,
+    return dict(out=out, n=n, rewards=rewards, rd=rd_np, adv=adv, metrics=jmetrics,
                 trained=trained, z0=np.array(z0), noise=noise)
 
 
@@ -201,7 +229,8 @@ def _check_port_iteration(tr, want, batch, ts, update_name):
                                rtol=1e-4, atol=2e-4)
     np.testing.assert_allclose(metrics["reward"], float(jnp.mean(want["rewards"])), rtol=0,
                                atol=1e-4)
-    np.testing.assert_allclose(metrics["reward/synthetic"], want["r"].mean(), rtol=0, atol=1e-4)
+    for name, r in want["rd"].items():
+        np.testing.assert_allclose(metrics[f"reward/{name}"], np.mean(r), rtol=0, atol=1e-4)
     np.testing.assert_allclose(torch.cat(seen["adv"]).numpy(),
                                np.repeat(np.asarray(want["adv"]), len(ts)), rtol=0, atol=1e-3)
     for k in ("clip_frac", "ratio_mean", "grad_norm"):
@@ -223,6 +252,55 @@ def test_iteration_matches_jax(tmp_path, weights):
     _check_port_iteration(tr, want, batch, ts, "update_step")
     for a, w in zip(M.param_leaves(tr.params), jax.tree.leaves(want["trained"])):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(w), rtol=0, atol=2e-5)
+    tr.close()
+
+
+def test_iteration_with_reward_models_matches_jax(tmp_path, weights):
+    """The whole slice with the reward zoo in place of the brightness: HPS,
+    PickScore and CLIP-score from files (``from_checkpoint`` in both
+    packages) and a tiny ImageReward (the port's ``from_checkpoint``; JAX's
+    constructor, as its ``from_checkpoint`` hard-codes ViT-L), weighted
+    unevenly, mixed by ``advantage_aggr``; no ``reward_fn``.  The per-model
+    rewards of every sample, the advantages and the loss against JAX's."""
+    from mixgrpo_tpu.rewards import clip_family as JCF
+    from mixgrpo_tpu_torch.rewards import clip_family as CF
+    from mixgrpo_tpu_torch.rewards.image_reward import ImageRewardModel
+    from tests.test_torch_blip import VCFG, jax_image_reward, write_image_reward
+    from tests.test_torch_rewards import write_clip_ckpts
+
+    ck = write_clip_ckpts(str(tmp_path / "clip"))
+    ir_dir = str(tmp_path / "ir")
+    ir_path, med, _ = write_image_reward(ir_dir)
+    cfg = _cfg(tmp_path)
+    cfg.reward.hps_weight, cfg.reward.pick_score_weight = 2.0, 0.5
+    classes = {"hpsv2": (CF.HPSReward, JCF.HPSReward, "hps"),
+               "pick_score": (CF.PickScoreReward, JCF.PickScoreReward, "pick_score"),
+               "clip_score": (CF.CLIPScoreReward, JCF.CLIPScoreReward, "clip_score")}
+    mine = {n: c.from_checkpoint(ck[f], ck["merges"], device="cpu")
+            for n, (c, _, f) in classes.items()}
+    mine["image_reward"] = ImageRewardModel.from_checkpoint(ir_path, med, ir_dir,
+                                                            vision_cfg=VCFG, device="cpu")
+    ref = {n: c.from_checkpoint(ck[f], ck["merges"], dtype=jnp.float32)
+           for n, (_, c, f) in classes.items()}
+    ref["image_reward"] = jax_image_reward(ir_path, ir_dir)
+
+    jcfg, jvcfg, jparams, jvae = weights
+    tr = GRPOTrainer(cfg, flux_cfg=M.FluxConfig.tiny(), params=from_jax_params(jparams, "cpu"),
+                     vae_cfg=VAEConfig.tiny(latent_channels=jcfg.in_channels // 4),
+                     vae_params=from_jax_params(jvae, "cpu"), reward_models=mine,
+                     text_len=TEXT_LEN, attn_impl="eager", dtype=torch.float32, device="cpu")
+    batch = _prompt()
+    batch["captions"] = ["the cat on a mat, a tiny prompt"]
+    ts = tr.window.get_current_timesteps()
+    want = _jax_iteration(cfg, weights, batch, ts, reward_models=ref)
+    assert sorted(want["rd"]) == sorted(mine)
+    _check_port_iteration(tr, want, batch, ts, "update_step")
+    rows = [json.loads(x) for x in open(os.path.join(tr.run_dir, "rewards_samples_rank0.jsonl"))]
+    for name, r in want["rd"].items():
+        np.testing.assert_allclose([row[name] for row in rows], r, rtol=0, atol=1e-4)
+        assert all(row[f"{name}_ok"] == 1.0 for row in rows)
+    np.testing.assert_allclose([row["reward"] for row in rows], np.asarray(want["rewards"]),
+                               rtol=0, atol=1e-4)
     tr.close()
 
 
@@ -365,7 +443,8 @@ def test_lora_flash_train_resume_and_profile(tmp_path, weights):
 
 @pytest.mark.parametrize("what", ["reward_zoo", "int8", "export_required", "mesh"])
 def test_trainer_refuses_what_is_not_ported(tmp_path, weights, what):
-    """The trainer refuses the reward zoo, int8 rollouts and meshes.  The
+    """The trainer refuses to start with no reward (neither ``reward_models``
+    nor a ``reward_fn``: case "reward_zoo"), int8 rollouts and meshes.  The
     diffusers export is ported: with ``export_safetensors="required"`` a
     checkpoint writes it, and it reads back to the parameters exactly."""
     cfg, kw = _cfg(tmp_path), {}
