@@ -30,11 +30,18 @@ a non-zero exit code.  Phases:
    random bf16 weights (``DualFluxPipeline`` at 1024x1024, 4 steps, behind
    ``RequestBatcher`` and ``InferenceServer``; then one 720px call), the
    model path through the kernel against eager attention, and the profile of
-   one forward;
+   one forward; on the same weights, continuous batching
+   (``ContinuousBatcher``, 2 slots, one step per engine call, behind the
+   server: a staggered burst of 4 requests and a lone one, each image
+   against RequestBatcher's for its (prompt, seed)), and int8 serving
+   (``ops/quant.py``: the base tree quantised, the forward in int8 against
+   bf16 with the matmuls' bf16, ``_int_mm`` and ``qlinear`` times,
+   ``_int_mm`` on the card against the CPU, one request through an int8
+   ``DualFluxPipeline``);
 5. train: two recipe GRPO iterations through ``GRPOTrainer.train_one_step``
    at full width, depth cut to 2 double + 4 single blocks (fp32 master
    weights, grads and AdamW moments), the full random VAE decoder and a
-   synthetic brightness reward;
+   synthetic brightness reward; then a third with ``rollout_quant="int8"``;
 6. update_full_depth: one ``update_step`` at ``virtual_depth=(19, 38)`` over a
    1 + 2 block stack, at 720px (12 pairs, fused backward) and 1024px (2
    pairs, split backward).
@@ -48,9 +55,10 @@ a non-zero exit code.  Phases:
    (transformer cut to 2 + 4 blocks, T5-XXL cut to 2 of 24 layers, the whole
    CLIP-L text tower, the full VAE, an F32 tuned export, the tokenizers),
    loaded onto the card in bf16 with a dozen leaves held bit for bit, the
-   prompt encoders in bf16 against f32, then ``sample.main`` and
-   ``serve.build_server`` on it at 1024px and ``vae_encode`` of two decoded
-   images; the directory is removed afterwards.
+   prompt encoders in bf16 against f32, then ``sample.main`` (also with
+   ``--quant int8``) and ``serve.build_server`` (also with ``--quant int8``
+   and with ``--continuous``) on it at 1024px and ``vae_encode`` of two
+   decoded images; the directory is removed afterwards.
 9. rewards (right after checkpoints): the reward zoo at its published
    geometries (HPSv2.1, PickScore_v1 and DFN5B CLIP-score ViT-H-14s,
    ImageReward's BLIP ViT-L + BERT-base), written in their released layouts
@@ -58,10 +66,14 @@ a non-zero exit code.  Phases:
    by each (bf16 within ``REWARD_BF16_BOUND`` of f32, no kernel launch),
    UnifiedReward against a stub server on 127.0.0.1, ``eval_rewards.main``
    and ``verify_weights.main`` on the files (``rewards_phase``);
-10. train_main (right after rewards, on its files): ``preprocess.main`` and
-   ``train.main --reward_model multi_reward`` for 2 recipe steps at full
-   width (2 + 4 blocks), with a checkpoint, then ``tsne_probe.main``
-   (``train_main_phase``); both phases' files are removed afterwards.
+10. train_main (right after rewards, on its files): ``preprocess.main``, the
+   cache's rows through the native reader and the numpy memmap (bit for
+   bit, rows/s), ``train.main --reward_model multi_reward`` for 2 recipe
+   steps at full width (2 + 4 blocks), reading through the native reader,
+   with a checkpoint and the loader's share of each iteration, then
+   ``tsne_probe.main``, then ``train.main --rollout_quant int8`` for one
+   step with HPS (``train_main_phase``); both phases' files are removed
+   afterwards.
 Each path's kernel launches are counted from 0 just before it runs and read
 just after, and must equal the prediction exactly.  Last come the
 ``kernels`` line, the ``nvidia-smi`` line, and the final status line.
@@ -799,6 +811,15 @@ def serve_phase(torch, FA, F, M, dev, card, rows):
           "s_per_image_alone": results[2][3],
           "max_memory_allocated_gb": serve_peak / 1e9, "device": card})
 
+    # the same (prompt, seed)s through RequestBatcher's path, as 8-bit images
+    u8 = lambda img: (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    refs = {("warm-up prompt", 100): u8(warm[0]), ("warm-up prompt 2", 101): u8(warm[1]),
+            ("a photo of a red fox, take 0", 0): png_pixels(results[0][2]),
+            ("a photo of a red fox, take 1", 1): png_pixels(results[1][2]),
+            ("a lighthouse at dusk", 7): png_pixels(results[2][2])}
+    continuous_serve(torch, FA, dev, card, cfg, base, tuned, vae, vcfg, encode, refs,
+                     [results[i][3] for i in range(3)])
+
     # 720px: S = 512 + 45*45 = 2537, padded to 2560 with kv_valid = 2537
     pipe720 = DualFluxPipeline(cfg, base, tuned, height=720, width=720, num_steps=2,
                                mix_sampling_steps=1, dtype=torch.bfloat16, device=dev)
@@ -818,7 +839,279 @@ def serve_phase(torch, FA, F, M, dev, card, rows):
 
     profile_forward(torch, M, base, cfg, dev, card)
     rows.setdefault("flash_attn_fwd", {})["launches"] = serve_launches
-    del base, tuned, vae, pipe, pipe720, gen, v_flash, v_eager
+    del pipe, pipe720, gen
+    torch.cuda.empty_cache()
+    int8_serve(torch, FA, M, dev, card, cfg, base, tuned, vae, vcfg, encode, refs)
+    del base, tuned, vae, v_flash, v_eager
+    torch.cuda.empty_cache()
+
+
+def png_pixels(body):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+def images_close(torch, got_u8, want_u8):
+    """``close_bf16`` of two 8-bit images, scaled to [0, 1]."""
+    f = lambda a: torch.from_numpy(a.astype("float32") / 255.0)
+    ok, err, rel = close_bf16(f(got_u8), f(want_u8))
+    return {"ok": ok, "max_abs_err": err, "rel_l2": rel}
+
+
+def staggered_posts(port, requests, waits):
+    """POST each (prompt, seed) on its own thread once ``waits[i]()`` returns;
+    {i: (status, content type, body, latency s)}, each request's start (s
+    after the first thread started) and the wall."""
+    results, starts = {}, {}
+    t0 = time.perf_counter()
+
+    def one(i):
+        waits[i]()
+        starts[i] = time.perf_counter() - t0
+        prompt, seed = requests[i]
+        results[i] = post(port, {"prompt": prompt, "seed": seed})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    return results, [starts.get(i) for i in range(len(requests))], time.perf_counter() - t0
+
+
+def after(seconds):
+    return lambda: time.sleep(seconds)
+
+
+def continuous_serve(torch, FA, dev, card, cfg, base, tuned, vae, vcfg, encode, refs,
+                     request_batcher_s, res=1024):
+    """Continuous batching on the serve phase's weights: ``ContinuousBatcher``
+    (2 slots, one step per engine call, the latency tier) behind
+    ``InferenceServer``; a burst of 4 requests (a pair 0.05 s apart, then one
+    after each of the engine's first two rounds), then a lone request.  Each image must match the same (prompt, seed) through
+    ``RequestBatcher`` (``refs``) within ``close_bf16``; the burst must admit
+    mid-flight, move all 4 rows from the tuned pool to the base pool and
+    fail none.  ``request_batcher_s`` (RequestBatcher's pair and lone
+    latencies in this run) is recorded beside the burst's.  Launches,
+    counted from 0 before the burst and again before
+    the lone request: one forward per DiT block per DiT call, where the
+    engine makes ``chunk`` DiT calls per batch and the tier ``SERVE_STEPS``
+    per dispatch.  The engine's row-steps are counted: a frozen row (past
+    its pool's ``t_end``, or an empty slot) is computed and discarded."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.sample import DualFluxPipeline
+    from mixgrpo_tpu_torch.serve import ContinuousBatcher, InferenceServer, make_generate_fn
+
+    pipe = DualFluxPipeline(cfg, base, tuned, vae_cfg=vcfg, vae_params=vae, height=res,
+                            width=res, num_steps=SERVE_STEPS, mix_sampling_steps=SERVE_MIX,
+                            dtype=torch.bfloat16, max_steps_per_call=1, device=dev)
+    per_call = cfg.depth_double + cfg.depth_single
+    burst = [k for k in refs if k[0] != "a lighthouse at dusk"]
+    row_steps = []
+    torch.cuda.reset_peak_memory_stats()
+    cb = ContinuousBatcher(pipe, encode, batch_size=2, single_fn=make_generate_fn(pipe, encode))
+    run, chunk = cb.engine.run, cb.engine.chunk
+
+    def counted_run(params, z, txt, pooled, offsets, t_end):
+        off = np.asarray(offsets)
+        row_steps.append((len(off) * chunk, int(np.clip(t_end - off, 0, chunk).sum())))
+        return run(params, z, txt, pooled, offsets, t_end)
+
+    cb.engine.run = counted_run
+    def after_round(n):  # the burst's first pair is then n steps into its trajectory
+        def wait():
+            while cb.stats["rounds"] < n:
+                time.sleep(0.005)
+        return wait
+
+    srv = InferenceServer(cb, host="127.0.0.1", port=0).start()
+    try:
+        FA.reset_launches()
+        results, starts, wall = staggered_posts(
+            srv.port, burst, (after(0.0), after(0.05), after_round(1), after_round(2)))
+        torch.cuda.synchronize()
+        burst_stats, burst_launches = dict(cb.stats), FA.flash_attn_fwd.launches
+        check_launches(FA, "continuous_burst", burst_launches, per_call,
+                       chunk * burst_stats["batches"]
+                       + SERVE_STEPS * burst_stats["single_dispatches"])
+        FA.reset_launches()
+        lone = post(srv.port, {"prompt": "a lighthouse at dusk", "seed": 7})
+        torch.cuda.synchronize()
+        stats = dict(cb.stats)
+        check_launches(FA, "continuous_lone", FA.flash_attn_fwd.launches, per_call,
+                       SERVE_STEPS * (stats["single_dispatches"] - burst_stats["single_dispatches"]))
+    finally:
+        srv.stop()
+    checks = []
+    for (prompt, seed), (status, ctype, body, _) in zip(burst + [("a lighthouse at dusk", 7)],
+                                                        [results[i] for i in range(4)] + [lone]):
+        got = png_pixels(body) if status == 200 and ctype == "image/png" else None
+        checks.append({"prompt": prompt, "seed": seed, "status": status,
+                       **(images_close(torch, got, refs[(prompt, seed)]) if got is not None
+                          else {"ok": False})})
+    computed, live = (sum(x) for x in zip(*row_steps))
+    rec = {"phase": "serve_continuous", "resolution": res, "steps": SERVE_STEPS,
+           "mix_sampling_steps": SERVE_MIX, "batch_size": 2, "max_steps_per_call": chunk,
+           "posted_at_s": starts, "burst_wall_s": wall,
+           "latency_s": [results[i][3] for i in range(4)], "lone_latency_s": lone[3],
+           "burst_stats": burst_stats, "stats": stats, "burst_launches": burst_launches,
+           "launch_formula": "(depth_double + depth_single) x (chunk x batches + SERVE_STEPS"
+                             " x single_dispatches)",
+           "engine_calls": len(row_steps), "row_steps_computed": computed,
+           "row_steps_live": live, "frozen_row_share": 1 - live / computed,
+           "images_vs_request_batcher": checks,
+           "request_batcher_latency_s": request_batcher_s,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "device": card}
+    emit(rec)
+    if not (burst_stats["mid_flight_admissions"] >= 1 and burst_stats["migrations"] == 4
+            and burst_stats["errors"] == 0 and burst_stats["requests"] == 4
+            and stats["single_dispatches"] == burst_stats["single_dispatches"] + 1
+            and stats["errors"] == 0 and all(c["ok"] for c in checks)):
+        raise AssertionError(f"continuous batching failed its checks: {rec}")
+
+
+def serve_forward_inputs(torch, cfg, dev, B=2, res=1024, seed=9):
+    """One serving DiT call's inputs at ``res`` (text length 512), bf16."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.models.flux.rope import make_image_ids, make_text_ids, rope_tables
+
+    lt, lat = 512, res // 8
+    ids = np.concatenate([make_text_ids(lt), make_image_ids(lat, lat)])
+    cos, sin = rope_tables(ids, cfg.axes_dims, cfg.theta, device=dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    img = torch.randn((B, (lat // 2) ** 2, cfg.in_channels), generator=g, device=dev)
+    txt = torch.randn((B, lt, cfg.context_dim), generator=g, device=dev).bfloat16()
+    pooled = torch.randn((B, cfg.pooled_dim), generator=g, device=dev).bfloat16()
+    t = torch.full((B,), 0.5, device=dev)
+    gs = torch.full((B,), 3.5, device=dev)
+    return img, txt, pooled, t, gs, cos, sin
+
+
+def qlinear_shapes(cfg, B=2, res=1024, text_len=512):
+    """(rows, in, out, calls per forward) of every quantised matmul of one
+    serving DiT call."""
+    img, txt = B * (res // 16) ** 2, B * text_len
+    h, mlp = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
+    nd, ns = cfg.depth_double, cfg.depth_single
+    return [(img, h, 3 * h, nd), (txt, h, 3 * h, nd), (img, h, h, nd), (txt, h, h, nd),
+            (img, h, mlp, nd), (img, mlp, h, nd), (txt, h, mlp, nd), (txt, mlp, h, nd),
+            (img + txt, h, 3 * h + mlp, ns), (img + txt, h + mlp, h, ns)]
+
+
+def int8_serve(torch, FA, M, dev, card, cfg, base, tuned, vae, vcfg, encode, refs, res=1024):
+    """Int8 serving on the serve phase's weights (``ops/quant.py``): the base
+    tree quantised (time, GB added); the B = 2, 1024px forward in int8
+    against bf16 in turns (bf16, int8, int8, bf16), with the relative L2 and
+    cosine of the int8 output against the bf16 one (JAX's bounds, 0.05 and
+    0.995); each quantised matmul shape timed as a bf16 product, as
+    ``_int_mm`` alone and as ``qlinear`` (whose excess over ``_int_mm`` is
+    the per-token quantisation and dequantisation), summed over a forward;
+    ``_int_mm`` on the card against the CPU on the same int8 inputs (int32
+    sums equal); then one request through an int8 ``DualFluxPipeline``,
+    whose quantised base and tuned trees live beside the bf16 ones."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.ops import quant as Q
+    from mixgrpo_tpu_torch.sample import DualFluxPipeline
+    from mixgrpo_tpu_torch.serve import make_generate_fn
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qbase = Q.quantize_flux_params(base)
+    torch.cuda.synchronize()
+    quant_s, added_gb = time.perf_counter() - t0, (torch.cuda.memory_allocated() - before) / 1e9
+    quant_peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    w_q = qbase["single"]["linear1"]["w_q"]
+    layout = {"shape": list(w_q.shape), "stride": list(w_q.stride())}
+
+    args = serve_forward_inputs(torch, cfg, dev, res=res)
+    outs, times = {}, {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        params = base if name == "bf16" else qbase
+
+        def fwd(params=params, name=name):
+            with torch.no_grad():
+                outs[name] = M.flux_forward(params, cfg, *args)
+
+        times[name].append(time_ms(torch, fwd, 2, warmup=1))
+    y, yq = outs["bf16"].double(), outs["int8"].double()
+    rel = ((yq - y).norm() / y.norm()).item()
+    cos = ((y * yq).sum() / (y.norm() * yq.norm())).item()
+
+    shapes, per_shape = qlinear_shapes(cfg, res=res), []
+    g = torch.Generator(dev).manual_seed(4)
+    for rows, k, n, calls in shapes:
+        x = torch.randn((rows, k), generator=g, device=dev).bfloat16()
+        p = Q.quantize_linear_params({"w": (torch.randn((k, n), generator=g, device=dev)
+                                            * k ** -0.5).bfloat16()})
+        w = p["w_q"].float().mul(p["w_s"]).bfloat16()
+        xq = torch.randint(-127, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
+        ms = {"bf16_matmul": time_ms(torch, lambda: x @ w, 5),
+              "int_mm": time_ms(torch, lambda: torch._int_mm(xq, p["w_q"]), 5),
+              "qlinear": time_ms(torch, lambda: Q.qlinear(p, x, torch.bfloat16), 5)}
+        per_shape.append({"rows": rows, "in": k, "out": n, "calls": calls, **ms,
+                          "int8_tops": 2 * rows * k * n / ms["int_mm"] / 1e9})
+        del x, w, p, xq
+    total = {key: sum(r[key] * r["calls"] for r in per_shape)
+             for key in ("bf16_matmul", "int_mm", "qlinear")}
+    int8_ms = min(times["int8"])
+
+    # _int_mm on the card against the CPU, same int8 inputs: 64 quantised
+    # activation rows of the int8 forward's first single block
+    x = torch.randn((64, cfg.hidden_size), generator=g, device=dev)
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    xq = torch.round(x / (amax / 127.0)).to(torch.int8)
+    w_q0 = qbase["single"]["linear1"]["w_q"][0]
+    got = torch._int_mm(xq, w_q0).cpu()
+    want = torch._int_mm(xq.cpu(), w_q0.cpu())
+    int_mm_equal = bool(torch.equal(got, want))
+    del qbase, outs, y, yq, x, xq, w_q0
+    torch.cuda.empty_cache()
+
+    # one request through an int8 DualFluxPipeline
+    t0 = time.perf_counter()
+    pipe = DualFluxPipeline(cfg, base, tuned, vae_cfg=vcfg, vae_params=vae, height=res,
+                            width=res, num_steps=SERVE_STEPS, mix_sampling_steps=SERVE_MIX,
+                            dtype=torch.bfloat16, quant="int8", device=dev)
+    torch.cuda.synchronize()
+    pipe_quant_s = time.perf_counter() - t0
+    gen = make_generate_fn(pipe, encode)
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    image = gen(["a lighthouse at dusk"], [7])
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    check_launches(FA, "int8_pipeline", FA.flash_attn_fwd.launches,
+                   cfg.depth_double + cfg.depth_single, SERVE_STEPS)
+    vs_bf16 = images_close(torch, (np.clip(image[0], 0, 1) * 255).astype(np.uint8),
+                           refs[("a lighthouse at dusk", 7)])
+    rec = {"phase": "serve_int8", "resolution": res, "batch": 2,
+           "quantize_base_s": quant_s, "quantized_gb_added": added_gb,
+           "quantize_peak_temporary_gb": quant_peak_gb - added_gb, "w_q_layout": layout,
+           "forward_ms": times,
+           "rel_l2_int8_vs_bf16": rel, "cosine_int8_vs_bf16": cos,
+           "jax_bounds": {"rel_l2": 0.05, "cosine": 0.995},
+           "matmuls_per_forward": per_shape, "matmul_ms_per_forward": total,
+           "quant_dequant_ms_per_forward": total["qlinear"] - total["int_mm"],
+           "quant_dequant_share_of_int8_forward": (total["qlinear"] - total["int_mm"]) / int8_ms,
+           "int_mm_card_equals_cpu": int_mm_equal,
+           "pipeline_quantize_both_s": pipe_quant_s, "pipeline_request_s": request_s,
+           "pipeline_image_finite": bool(np.isfinite(image).all()),
+           "pipeline_image_shape": list(image.shape),
+           "pipeline_image_vs_bf16_request_batcher": vs_bf16,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "device": card}
+    emit(rec)
+    if not (int_mm_equal and rel < 0.05 and cos > 0.995 and rec["pipeline_image_finite"]
+            and tuple(image.shape) == (1, res, res, 3)
+            and tuple(layout["stride"][1:]) == (1, cfg.hidden_size)):
+        raise AssertionError(f"int8 serving failed its checks: {rec}")
+    del pipe, gen
     torch.cuda.empty_cache()
 
 
@@ -1264,6 +1557,34 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
             raise AssertionError(f"sample.main: {rec}")
         torch.cuda.empty_cache()
 
+        # -- 3b. sample.main --quant int8 ----------------------------------------------
+        outq = os.path.join(tmp, "samples_int8")
+        FA.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        Sa.main(["--model_path", d, "--new_model_ckpt", tuned_path, "--prompt_path", prompts,
+                 "--output_dir", outq, "--h", str(res), "--w", str(res), "--sampling_steps",
+                 str(SERVE_STEPS), "--mix_sampling_steps", str(SERVE_MIX), "--batch_size", "2",
+                 "--seed", "5", "--quant", "int8", "--device", str(dev)], family=fam)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        check_launches(FA, "sample_main_int8", FA.flash_attn_fwd.launches, per_call,
+                       calls * SERVE_STEPS)
+        with open(os.path.join(outq, "metadata_0.json")) as f:
+            meta_q = _json.load(f)
+        vs_bf16 = [images_close(torch, png_pixels(open(os.path.join(outq, mq["image"]), "rb")
+                                                  .read()),
+                                png_pixels(open(os.path.join(outdir, m["image"]), "rb").read()))
+                   for mq, m in zip(meta_q, meta)]
+        rec = {"phase": "checkpoints_sample_main_int8", "images": len(meta_q), "seconds": q_s,
+               "seconds_bf16": main_s, "images_vs_bf16": vs_bf16,
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "device": card}
+        emit(rec)
+        if [m["prompt"] for m in meta_q] != list(CKPT_PROMPTS):
+            raise AssertionError(f"sample.main --quant int8: {rec}")
+        torch.cuda.empty_cache()
+
         # -- 4. serve.build_server -------------------------------------------------
         args = Se.arg_parser().parse_args(
             ["--model_path", d, "--tuned_path", tuned_path, "--host", "127.0.0.1", "--port",
@@ -1307,6 +1628,67 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
         emit(rec)
         if stats["batches"] != 2 or stats["single_dispatches"] != 1 or stats["errors"]:
             raise AssertionError(f"serve.build_server: {rec}")
+        del srv
+        torch.cuda.empty_cache()
+
+        # -- 4b. serve.build_server --quant int8: the lone request again ---------------
+        args = Se.arg_parser().parse_args(
+            ["--model_path", d, "--tuned_path", tuned_path, "--host", "127.0.0.1", "--port",
+             "0", "--batch_size", "2", "--max_wait_ms", "500", "--num_steps", str(SERVE_STEPS),
+             "--mix_sampling_steps", str(SERVE_MIX), "--height", str(res), "--width", str(res),
+             "--quant", "int8", "--device", str(dev)])
+        t0 = time.perf_counter()
+        srv = Se.build_server(args, family=fam)
+        build_q_s = time.perf_counter() - t0
+        FA.reset_launches()
+        srv.start()
+        try:
+            res_q = post(srv.port, {"prompt": CKPT_PROMPTS[2], "seed": 7})
+            stats_q = dict(srv.batcher.stats)
+        finally:
+            srv.stop()
+        check_launches(FA, "serve_main_int8", FA.flash_attn_fwd.launches, per_call,
+                       SERVE_STEPS)
+        # the int8 path rounds otherwise than bf16: close to the bf16 image, not equal
+        vs_bf16 = images_close(torch, png_pixels(res_q[2]), pngs[2])
+        rec = {"phase": "checkpoints_serve_int8", "build_server_s": build_q_s, "stats": stats_q,
+               "latency_s": res_q[3], "bf16_latency_s": results[2][3],
+               "image_vs_bf16": vs_bf16, "device": card}
+        emit(rec)
+        if not (res_q[0] == 200 and stats_q["single_dispatches"] == 1 and not stats_q["errors"]
+                and vs_bf16["ok"] and vs_bf16["rel_l2"] > 0):
+            raise AssertionError(f"serve.build_server --quant int8: {rec}")
+        del srv
+        torch.cuda.empty_cache()
+
+        # -- 4c. serve.build_server --continuous: the same pair, one step per call ------
+        args = Se.arg_parser().parse_args(
+            ["--model_path", d, "--tuned_path", tuned_path, "--host", "127.0.0.1", "--port",
+             "0", "--batch_size", "2", "--num_steps", str(SERVE_STEPS), "--mix_sampling_steps",
+             str(SERVE_MIX), "--height", str(res), "--width", str(res), "--continuous",
+             "--max_steps_per_call", "1", "--device", str(dev)])
+        t0 = time.perf_counter()
+        srv = Se.build_server(args, family=fam)
+        build_c_s = time.perf_counter() - t0
+        FA.reset_launches()
+        srv.start()
+        try:
+            res_c, _, wall_c = staggered_posts(
+                srv.port, [(CKPT_PROMPTS[0], 0), (CKPT_PROMPTS[1], 1)], (after(0.0), after(0.05)))
+            stats_c = dict(srv.batcher.stats)
+        finally:
+            srv.stop()
+        check_launches(FA, "serve_main_continuous", FA.flash_attn_fwd.launches, per_call,
+                       stats_c["batches"] + SERVE_STEPS * stats_c["single_dispatches"])
+        checks_c = [images_close(torch, png_pixels(res_c[i][2]), pngs[i]) for i in range(2)]
+        rec = {"phase": "checkpoints_serve_continuous", "build_server_s": build_c_s,
+               "stats": stats_c, "pair_wall_s": wall_c,
+               "latency_s": [res_c[i][3] for i in range(2)],
+               "images_vs_request_batcher": checks_c, "device": card}
+        emit(rec)
+        if not (stats_c["requests"] == 2 and stats_c["migrations"] == 2 and not stats_c["errors"]
+                and all(c["ok"] for c in checks_c)):
+            raise AssertionError(f"serve.build_server --continuous: {rec}")
         del srv
         torch.cuda.empty_cache()
 
@@ -1853,7 +2235,8 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
     defaults: 720px, 25 steps, eta 0.7, 12 generations, window 4, fp32
     masters, AdamW) with ``--reward_model multi_reward`` on the ``rewards``
     phase's files, 2 steps, a checkpoint at the last one; then
-    ``tsne_probe.main`` (1 prompt, 2 generations, SDE steps 0-3).  The FLUX
+    ``tsne_probe.main`` (1 prompt, 2 generations, SDE steps 0-3); then one
+    ``train.main --rollout_quant int8`` step with HPS.  The FLUX
     directory is ``write_flux_dir``'s at full width, cut to ``TRAIN_DEPTH``
     blocks.  Each iteration's launches are counted from 0 just before it and
     read just after (a wrapper around ``train_one_step``), and the reward
@@ -1863,6 +2246,7 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
     from mixgrpo_tpu_torch import preprocess as Pre
     from mixgrpo_tpu_torch import train as T
     from mixgrpo_tpu_torch import tsne_probe as TP
+    from mixgrpo_tpu_torch.data import native_loader as NL
 
     fam = fam or smoke_family(M)
     blocks = fam["flux"].depth_double + fam["flux"].depth_single
@@ -1878,8 +2262,9 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
               "--model_path", d, "--device", str(dev)], family=fam)
     setup_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    readers = compare_readers(cache, card)
 
-    iters, reward_launches, advs = [], [], []
+    iters, reward_launches, advs, load_s = [], [], [], []
     step, rewards, mix_adv = T.GRPOTrainer.train_one_step, T.GRPOTrainer._compute_rewards, \
         T.masked_mix_advantages
 
@@ -1892,7 +2277,7 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
         iters.append({"seconds": time.perf_counter() - t,
                       "launches": {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()},
                       **{k: m[k] for k in ("rollout_time", "decode_time", "reward_time",
-                                           "update_time", "loss", "reward")},
+                                           "update_time", "loss", "reward", "clip_frac")},
                       **{k: v for k, v in m.items() if k.startswith("reward/")}})
         return m
 
@@ -1907,6 +2292,21 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
         advs.append(adv.detach().float().cpu().numpy())
         return adv
 
+    loader_iter, gather = T.PromptLoader.__iter__, NL.NativeShardReader.gather_rows
+    native_gathers = []
+
+    def counted_gather(self, *a, **k):
+        native_gathers.append(1)
+        return gather(self, *a, **k)
+
+    def timed_iter(self):  # the time the trainer waits for each batch
+        it = loader_iter(self)
+        while True:
+            t = time.perf_counter()
+            batch = next(it)
+            load_s.append(time.perf_counter() - t)
+            yield batch
+
     out = os.path.join(tmp, "out")
     argv = ["--pretrained_model_name_or_path", d, "--data_json_path", cache,
             "--output_dir", out, "--experiment_name", "smoke", "--h", str(res), "--w", str(res),
@@ -1916,7 +2316,8 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
             "--image_reward_med_config", paths["med_config"], "--max_train_steps", "2",
             "--checkpointing_steps", "2", "--export_safetensors", "off", "--device", str(dev)]
     T.GRPOTrainer.train_one_step, T.GRPOTrainer._compute_rewards = counted_step, counted_rewards
-    T.masked_mix_advantages = recorded_adv
+    T.masked_mix_advantages, T.PromptLoader.__iter__ = recorded_adv, timed_iter
+    NL.NativeShardReader.gather_rows = counted_gather
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
@@ -1925,7 +2326,8 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
         main_s = time.perf_counter() - t0
     finally:
         T.GRPOTrainer.train_one_step, T.GRPOTrainer._compute_rewards = step, rewards
-        T.masked_mix_advantages = mix_adv
+        T.masked_mix_advantages, T.PromptLoader.__iter__ = mix_adv, loader_iter
+        NL.NativeShardReader.gather_rows = gather
     peak = torch.cuda.max_memory_allocated() / 1e9
     cfg = trainer.cfg
     g = cfg.grpo
@@ -1948,9 +2350,13 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
            "advantages_finite": bool(advs) and all(np.isfinite(a).all() for a in advs),
            "advantage_shapes": [list(a.shape) for a in advs],
            "reward_means": means, "sample_rows": len(rows), "checkpoint_step": ckpt,
-           "disk_gb": disk, "max_memory_allocated_gb": peak, "device": card}
+           "disk_gb": disk, "max_memory_allocated_gb": peak, "device": card,
+           "native_reader_gathers": len(native_gathers),
+           "loader_s": load_s, "loader_share_of_iteration": [
+               ls / (ls + it["seconds"]) for ls, it in zip(load_s, iters)]}
     emit(rec)
     if not (len(iters) == 2 and all(it["launches"] == want for it in iters)
+            and native_gathers and len(load_s) == 2
             and all(not any(r.values()) for r in reward_launches) and rec["advantages_finite"]
             and all(len(v) == 2 and np.isfinite(v).all() for v in means.values())
             and len(rows) == 2 * g.num_generations
@@ -1979,7 +2385,68 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
             rec["launches"]["flash_attn_fwd"] != blocks * T_steps or \
             sum(rec["launches"].values()) != blocks * T_steps:
         raise AssertionError(f"tsne_probe: {rec}")
+
+    # -- train.main --rollout_quant int8: one step with HPS, on the same files ---------
+    import shutil
+
+    shutil.rmtree(out)  # the bf16 run's 16 GB checkpoint
+    iters.clear()
+    argv_q = ["--pretrained_model_name_or_path", d, "--data_json_path", cache,
+              "--output_dir", os.path.join(tmp, "out_int8"), "--experiment_name", "smoke",
+              "--h", str(res), "--w", str(res), "--reward_model", "hpsv2", "--hps_path",
+              paths["hps"], "--rollout_quant", "int8", "--max_train_steps", "1",
+              "--export_safetensors", "off", "--device", str(dev)]
+    T.GRPOTrainer.train_one_step = counted_step
+    try:
+        t0 = time.perf_counter()
+        trainer = T.main(argv_q, family=fam)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+    finally:
+        T.GRPOTrainer.train_one_step = step
+    rec = {"phase": "train_main_int8", "main_s": q_s, "bf16_main_s": main_s,
+           "rollout_quant": trainer.cfg.grpo.rollout_quant, "iterations": iters,
+           "expected_launches": want, "device": card}
+    emit(rec)
+    if not (trainer.cfg.grpo.rollout_quant == "int8" and len(iters) == 1
+            and iters[0]["launches"] == want
+            and all(np.isfinite(iters[0][k]) for k in ("loss", "reward", "clip_frac"))):
+        raise AssertionError(f"train.main --rollout_quant int8 failed its checks: {rec}")
+    del trainer
+    torch.cuda.empty_cache()
     return {"main_s": main_s, "peak_gb": peak}
+
+
+def compare_readers(cache, card, reps=16):
+    """The embedding cache's rows through the native reader and the numpy
+    memmap: equal bit for bit, and each reader's rows/s with every row
+    gathered ``reps`` times (after one pass that opens the shards)."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.data.dataset import LatentDataset
+
+    out, rows = {}, {}
+    for name, native in (("native", True), ("memmap", False)):
+        ds = LatentDataset(cache, use_native=native)
+        rows[name] = [ds.get(i) for i in range(len(ds))]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for i in range(len(ds)):
+                ds.get(i)
+        sec = time.perf_counter() - t0
+        nbytes = sum(r["prompt_embed"].nbytes + r["pooled"].nbytes for r in rows[name])
+        out[name] = {"rows_per_s": reps * len(ds) / sec, "f32_gb_per_s": reps * nbytes / sec / 1e9,
+                     "seconds": sec}
+    same = all(np.array_equal(a[k].view(np.uint32), b[k].view(np.uint32))
+               for a, b in zip(rows["native"], rows["memmap"]) for k in ("prompt_embed", "pooled"))
+    first = rows["native"][0]
+    rec = {"phase": "train_main_readers", "rows": len(rows["native"]), "gathers_per_row": reps,
+           "row_shape": list(first["prompt_embed"].shape), "bit_for_bit": same, **out,
+           "device": card}
+    emit(rec)
+    if not same:
+        raise AssertionError(f"the native reader and the memmap differ: {rec}")
+    return rec
 
 
 def brightness_reward(images01, captions):
@@ -2078,6 +2545,32 @@ def train_phase(torch, FA, M, dev, card, root):
               "device": card})
         if not changed:
             raise AssertionError("train: the update left the parameters unchanged")
+
+        # a third iteration with an int8 rollout: the same attention calls
+        cfg.grpo.rollout_quant = "int8"
+        timesteps = trainer.window.get_current_timesteps()
+        trainer.window.update_iteration(rng=g.seed + trainer.global_step)
+        batch = next(loader)
+        FA.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = trainer.train_one_step(batch, timesteps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer.global_step += 1
+        used = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+        rec = {"phase": "train_iteration_int8", "rollout_quant": "int8", "window": timesteps,
+               "seconds": wall, "rollout_s": m["rollout_time"], "decode_s": m["decode_time"],
+               "update_s": m["update_time"], "rollout_s_bf16": [r["rollout_s"] for r in iters],
+               "loss": m["loss"], "clip_frac": m["clip_frac"], "ratio_mean": m["ratio_mean"],
+               "grad_norm": m["grad_norm"], "reward": m["reward"], "launches": used,
+               "expected_launches": want,
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "device": card}
+        emit(rec)
+        if used != want or not all(np.isfinite(m[k]) for k in ("loss", "grad_norm", "reward",
+                                                                 "clip_frac")):
+            raise AssertionError(f"int8 train iteration failed its checks: {rec}")
         trainer.close()
         del trainer, vae
     return launches

@@ -115,8 +115,8 @@ class GRPOConfig:
     frozen_init_timesteps: int = -1
     kl_coeff: float = 0.0
     guidance_scale: float = 3.5
-    # "int8": rollout weights in int8 (the quantized net is the behaviour
-    # policy); waits for the port of ops/quant.py, so the trainer refuses it
+    # "int8": rollout weights in int8 (ops/quant.py; the quantized net is the
+    # behaviour policy)
     rollout_quant: str = "none"  # none|int8
     # images per rollout call: the group rollout runs as G/chunk calls in
     # row order (sampler.FluxSampler.chunked_rollout); 0 = the whole group

@@ -119,7 +119,9 @@ def gather_result_shards(output_dir: str) -> List[dict]:
 def score_single_image(
     image_path: str, prompt: str, reward_models: Dict[str, object]
 ) -> Dict[str, float]:
-    """One-shot scoring mode."""
+    """One-shot scoring mode.  An item a model could not score (score
+    ``None``) reads 0.0 with success False, as in ``rewards.compute_reward``
+    (JAX's ``float(None)`` raises)."""
     from PIL import Image
 
     arr = np.asarray(Image.open(image_path).convert("RGB"), np.float32) / 255.0
@@ -127,8 +129,9 @@ def score_single_image(
     out: Dict[str, float] = {}
     for name, model in reward_models.items():
         scores, successes = model(images, [prompt])
-        out[f"{name}_reward"] = float(scores[0])
-        out[f"{name}_success"] = bool(successes[0])
+        failed = scores[0] is None
+        out[f"{name}_reward"] = 0.0 if failed else float(scores[0])
+        out[f"{name}_success"] = not failed and bool(successes[0])
     return out
 
 

@@ -6,7 +6,7 @@ converting weights is a tree map:
   - ``apply`` casts to a compute dtype at the matmul inputs;
   - LayerNorms inside blocks have no affine (eps 1e-6); RMS QK-norm has a
     per-head-dim scale; statistics in fp32.
-The int8 branch of ``linear`` waits for the port of ``ops/quant.py``.
+``linear`` dispatches on ``w_q`` to the int8 product of ``ops/quant.py``.
 """
 
 from __future__ import annotations
@@ -32,8 +32,10 @@ def linear_init(generator, in_dim: int, out_dim: int, bias: bool = True, *,
 
 def linear(p, x, dtype=None):
     dtype = dtype or x.dtype
-    if "w_q" in p:
-        raise NotImplementedError("int8 weights wait for the port of ops/quant.py")
+    if "w_q" in p:  # int8-quantised weights (ops/quant.py)
+        from mixgrpo_tpu_torch.ops.quant import qlinear
+
+        return qlinear(p, x, dtype)
     y = x.to(dtype) @ p["w"].to(dtype)
     if "b" in p:
         y = y + p["b"].to(dtype)

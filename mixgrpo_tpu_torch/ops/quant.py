@@ -1,0 +1,110 @@
+"""Int8 weights with dynamic per-token activation quantisation, for rollouts
+and serving.
+
+Port of mixgrpo_tpu/ops/quant.py.  The GRPO rollout and serving take no
+gradient, so the block matmuls that carry nearly all of a FLUX forward's
+FLOPs can run as int8 x int8 -> int32 products (``torch._int_mm``: a
+cuBLASLt int8 GEMM on the card, at twice the bf16 tensor-core rate on paper).
+
+Scheme (as in JAX):
+  - weights: symmetric per output channel, scale = max|w| / 127 over the
+    contraction axis (-2); a stacked block weight (L, in, out) becomes an
+    (L, in, out) int8 tensor and an (L, 1, out) f32 scale, so
+    ``models/flux/model.py::_unstack`` slices both unchanged.  The int8
+    tensor is stored column-major (its memory is (L, out, in)), the layout
+    in which cuBLASLt's int8 GEMM takes its second operand without a copy
+    per call; its logical shape and values are JAX's.  A leaf is quantised
+    one (in, out) slice at a time, so a full-depth FLUX.1-dev
+    ``single.linear1`` (38, 3072, 21504) needs 0.26 GB of f32 temporaries,
+    not the 10 GB of the whole stack;
+  - activations: per token (max|x| over the last axis), rounded half to
+    even, an int32 product, then ``y.float() * x_scale * w_scale``, the bias
+    in f32, and a cast to the compute dtype.
+
+The per-token quantisation and the dequantisation are torch ops; a fused pass
+waits for a measurement (ROADMAP Queue 2).  ``_int_mm``'s constraints on the
+card (more than 16 rows, K and N multiples of 8) are met by FLUX's block
+matmuls; a shape it refuses raises, and no float product takes its place.
+
+The quantised network is the behaviour policy of an int8 rollout: its
+log-probs are the PPO "old" log-probs, so the importance ratio stays a
+correct off-policy correction; watch ``clip_frac`` (JAX's docstring).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+# Per-token matmuls that carry nearly all of the forward FLOPs (model.py blocks).
+DOUBLE_QUANT_KEYS = (
+    "img_qkv", "txt_qkv", "img_attn_out", "txt_attn_out",
+    "img_mlp_in", "img_mlp_out", "txt_mlp_in", "txt_mlp_out",
+)
+SINGLE_QUANT_KEYS = ("linear1", "linear2")
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """max|v| / 127 (1/127 where max|v| is 0).  The divisor is a tensor on
+    amax's device: CUDA divides by a Python number as a product with its
+    reciprocal, which can differ in the last bit from the CPU's and JAX's
+    division."""
+    return torch.where(amax > 0, amax, torch.ones_like(amax)) / amax.new_full((), 127.0)
+
+
+def _quantize_slice(w: torch.Tensor):
+    wf = w.float()
+    scale = _scale(wf.abs().amax(dim=-2, keepdim=True))
+    return torch.round(wf / scale).to(torch.int8), scale
+
+
+@torch.no_grad()
+def quantize_weight(w: torch.Tensor):
+    """(..., in, out) weights -> (int8 weights (..., in, out), column-major;
+    f32 scales (..., 1, out)), one (in, out) slice at a time."""
+    *lead, k, n = w.shape
+    w_q = torch.empty((*lead, n, k), dtype=torch.int8, device=w.device).transpose(-1, -2)
+    scale = torch.empty((*lead, 1, n), dtype=torch.float32, device=w.device)
+    flat_w, flat_q, flat_s = w.reshape(-1, k, n), w_q.view(-1, k, n), scale.view(-1, 1, n)
+    for i in range(flat_w.shape[0]):
+        flat_q[i], flat_s[i] = _quantize_slice(flat_w[i])
+    return w_q, scale
+
+
+def quantize_linear_params(p: Dict[str, Any]) -> Dict[str, Any]:
+    """{"w", "b"?} -> {"w_q", "w_s", "b"?} (``layers.linear`` dispatches on
+    ``w_q``); the bias is the input's tensor."""
+    w_q, w_s = quantize_weight(p["w"])
+    out = {"w_q": w_q, "w_s": w_s}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def qlinear(p: Dict[str, Any], x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Int8 matmul with dynamic per-token activation quantisation."""
+    dtype = dtype or x.dtype
+    xf = x.float()
+    xs = _scale(xf.abs().amax(dim=-1, keepdim=True))
+    xq = torch.round(xf / xs).to(torch.int8)
+    y = torch._int_mm(xq.reshape(-1, xq.shape[-1]), p["w_q"])
+    y = y.reshape(*x.shape[:-1], y.shape[-1]).float() * xs * p["w_s"]
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(dtype)
+
+
+def quantize_flux_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Quantise the stacked double/single block matmuls of a FLUX parameter
+    tree; embedders, modulation heads and norms (few per-token FLOPs) stay
+    the input's tensors.  The result drops into ``flux_forward`` unchanged."""
+    out = dict(params)
+    d = dict(params["double"])
+    for k in DOUBLE_QUANT_KEYS:
+        d[k] = quantize_linear_params(d[k])
+    s = dict(params["single"])
+    for k in SINGLE_QUANT_KEYS:
+        s[k] = quantize_linear_params(s[k])
+    out["double"], out["single"] = d, s
+    return out

@@ -9,6 +9,12 @@ advantages downstream).
 The models on the card take the decoded batch as the CUDA tensor it already
 is (JAX copies it to the host and back); only UnifiedReward, an HTTP client,
 brings images to the host.
+
+An item a model could not score (UnifiedReward returns the score ``None``)
+gets the score 0.0 and the success 0: the masks multiply, so a NaN would
+spread, and the success-0 sample leaves its group's statistics
+(``rl/advantage.py``).  JAX's ``float(None)`` raises ``TypeError`` there and
+stops training at the first failed request.
 """
 
 from __future__ import annotations
@@ -40,8 +46,9 @@ def compute_reward(
     for name, model in reward_models.items():
         scores, successes = model(images, prompts)
         assert len(scores) == n, (name, len(scores), n)
-        rewards_dict[name] = [float(s) for s in scores]
-        successes_dict[name] = [float(s) for s in successes]
+        rewards_dict[name] = [0.0 if s is None else float(s) for s in scores]
+        successes_dict[name] = [0.0 if s is None else float(ok)
+                                for s, ok in zip(scores, successes)]
 
     total = np.zeros(n, np.float64)
     ok = np.ones(n, np.float64)

@@ -14,7 +14,9 @@ tests ask for ``cpu``, which computes in f32).  Each prompt batch's
 initial noise comes from ``torch.Generator(device).manual_seed(seed)``, so
 the same ``--seed`` gives other images than JAX's ``jax.random.key(seed)``.
 One process samples every prompt (JAX shards them by process).
-``quant="int8"`` waits for the port of ``ops/quant.py``.
+``quant="int8"`` quantises the base and tuned trees' block matmuls
+(``ops/quant.py``); the pipeline holds only the quantised trees, whose other
+leaves are the input's tensors.
 
 Run: ``python -m mixgrpo_tpu_torch.sample --model_path FLUX.1-dev
 --prompt_path prompts.txt --output_dir out``.
@@ -85,8 +87,12 @@ class DualFluxPipeline:
         device="cuda",
     ):
         if quant == "int8":
-            raise NotImplementedError("quant='int8' waits for the port of ops/quant.py")
-        if quant != "none":
+            from mixgrpo_tpu_torch.ops.quant import quantize_flux_params
+
+            base_params = quantize_flux_params(base_params)
+            tuned_params = quantize_flux_params(tuned_params) if tuned_params is not None \
+                else None
+        elif quant != "none":
             raise ValueError(f"unknown quant {quant!r}")
         if vae_tiling not in ("auto", "on", "off"):
             raise ValueError(f"unknown vae_tiling {vae_tiling!r}")
@@ -221,22 +227,20 @@ def main(argv=None, family=None):
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8"])
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
-    if args.quant == "int8":  # before any weight is read
-        raise NotImplementedError("--quant int8 waits for the port of ops/quant.py "
-                                  "(ROADMAP Queue 1 item 6)")
 
     fam = family or flux_family()
     dev, dtype = torch.device(args.device), compute_dtype(args.device)
     flux_cfg, vae_cfg = fam["flux"], fam["vae"]
     kw = dict(dtype=dtype, device=dev)
-    base = load_flux_params(os.path.join(args.model_path, "transformer"), flux_cfg, **kw)
-    tuned = load_flux_params(args.new_model_ckpt, flux_cfg, **kw) if args.new_model_ckpt \
-        else None
     vae = load_vae_decoder_params(os.path.join(args.model_path, "vae"), vae_cfg, **kw)
     enc = build_prompt_encoder_from_dir(args.model_path, clip_bpe_path=args.clip_bpe_path,
                                         family=fam, **kw)
+    # the trees go straight to the pipeline, so that under --quant int8 only
+    # their quantised copies stay alive
     pipe = DualFluxPipeline(
-        flux_cfg, base, tuned, vae_cfg=vae_cfg, vae_params=vae, height=args.h, width=args.w,
+        flux_cfg, load_flux_params(os.path.join(args.model_path, "transformer"), flux_cfg, **kw),
+        load_flux_params(args.new_model_ckpt, flux_cfg, **kw) if args.new_model_ckpt else None,
+        vae_cfg=vae_cfg, vae_params=vae, height=args.h, width=args.w,
         num_steps=args.sampling_steps, mix_sampling_steps=args.mix_sampling_steps,
         guidance_scale=args.guidance_scale, dtype=dtype, quant=args.quant,
         vae_tiling=args.vae_tiling, device=dev)

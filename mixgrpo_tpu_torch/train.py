@@ -46,8 +46,12 @@ of ``--pretrained_model_name_or_path`` (fp32 masters, or the base at the
 compute dtype under LoRA), the reward models of ``--reward_model``
 (``build_reward_models``) and the embedding cache of ``--data_json_path``.
 
-Waiting for later slices, and refused here: int8 rollouts, meshes of more
-than one device.
+With ``cfg.grpo.rollout_quant == "int8"`` the rollout runs on int8 block
+matmuls (``ops/quant.py``), quantised each iteration after the LoRA merge;
+the quantised network is the behaviour policy whose log-probs the PPO ratio
+divides by, and the update stays bf16 over the fp32 masters.
+
+Waiting for a later slice, and refused here: meshes of more than one device.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from mixgrpo_tpu_torch.lora import apply_lora, init_lora
 from mixgrpo_tpu_torch.models.flux.latents import denormalize_latents, unpack_latents
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, init_flux, param_leaves
 from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, postprocess_images, vae_decode
+from mixgrpo_tpu_torch.ops.quant import quantize_flux_params
 from mixgrpo_tpu_torch.rl.advantage import (
     global_advantages, group_advantages, masked_mix_advantages, masked_mix_rewards,
 )
@@ -92,8 +97,8 @@ def _refuse_unported(cfg: TrainConfig, reward_fn, reward_models):
     if reward_fn is None and not reward_models:
         raise ValueError("GRPOTrainer needs reward_models (see build_reward_models) or a "
                          "reward_fn")
-    if cfg.grpo.rollout_quant != "none":
-        raise NotImplementedError("rollout_quant waits for the port of ops/quant.py")
+    if cfg.grpo.rollout_quant not in ("none", "int8"):
+        raise ValueError(f"unknown rollout_quant {cfg.grpo.rollout_quant!r}")
     if cfg.mesh.resolved(1) != MeshConfig(1, 1, 1, 1):
         raise ValueError(f"the port's trainer runs on one device, not mesh {cfg.mesh}")
 
@@ -326,6 +331,8 @@ class GRPOTrainer:
                 with torch.no_grad():
                     rollout_params = apply_lora(self.params, {**self.lora_meta,
                                                               "factors": self.lora_factors})
+            if cfg.grpo.rollout_quant == "int8":
+                rollout_params = quantize_flux_params(rollout_params)
             out = self.sampler.chunked_rollout(rollout_params, z0, txt, pooled, sigmas, det,
                                                num_steps, gens, chunk=chunk, noise_fn=noise_fn)
             del rollout_params
@@ -634,9 +641,6 @@ def main(argv=None, family=None):
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     cfg = config_from_args(args)
-    if cfg.grpo.rollout_quant != "none":  # before any weight is read
-        raise NotImplementedError("rollout_quant waits for the port of ops/quant.py "
-                                  "(ROADMAP Queue 1 item 6)")
 
     fam = family or flux_family()
     dev, dtype = torch.device(args.device), compute_dtype(args.device)
@@ -654,7 +658,10 @@ def main(argv=None, family=None):
                           vae_params=vae_params, reward_models=reward_models,
                           attn_impl=cfg.runtime.attn_impl, dtype=dtype, device=dev)
     ds = LatentDataset(cfg.data.data_json_path, cfg_rate=cfg.data.cfg_rate, seed=cfg.grpo.seed)
-    trainer.train(PromptLoader(ds, cfg.data.train_batch_size, seed=cfg.grpo.seed))
+    # one process: JAX passes jax.process_index() and jax.process_count() here,
+    # which wait for the port of parallel/ (ROADMAP Queue 1 item 8)
+    trainer.train(PromptLoader(ds, cfg.data.train_batch_size, seed=cfg.grpo.seed,
+                               process_index=0, process_count=1))
     return trainer
 
 

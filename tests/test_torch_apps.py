@@ -9,8 +9,10 @@ at the tiny preset) against the JAX package.
   8-bit level; every batch's images and metadata entries are kept.
 - ``preprocess.main`` against JAX's ``PromptEncoder`` in f32 (the cache
   stores f16: within f16 rounding).
-- ``serve.build_server`` answering one request on the CPU; ``--continuous``
-  and ``--quant int8`` raise before any weight is read.
+- ``serve.build_server`` answering one request on the CPU; with
+  ``--continuous``, two concurrent requests through ``ContinuousBatcher``
+  equal the one-shot pipeline's images; with ``--quant int8`` the server,
+  ``sample.main`` and ``train.main --rollout_quant int8`` run.
 - the ``t5`` and ``clip`` preset entries equal JAX's.
 - ``train.main --reward_model hpsv2 --device cpu`` for 2 steps;
   ``build_reward_models`` giving ImageReward its tokenizer where JAX's gives
@@ -25,6 +27,7 @@ import dataclasses
 import io
 import json
 import os
+import threading
 import urllib.request
 
 import jax.numpy as jnp
@@ -172,14 +175,74 @@ def test_serve_build_server_answers(tree):
 
 
 @pytest.mark.parametrize("flag", ["--continuous", "--quant=int8"])
-def test_clis_refuse_unported_before_loading(flag):
-    """Raised before any weight is read (the model path does not exist)."""
-    with pytest.raises(NotImplementedError, match="item"):
-        Se.build_server(_args("/nonexistent", flag))
-    if flag.startswith("--quant"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            Sa.main(["--model_path", "/nonexistent", "--prompt_path", "x", "--output_dir", "y",
-                     flag, "--device", "cpu"])
+def test_clis_refuse_unported_before_loading(flag, tree, cache, tmp_path):
+    """Both flags are ported and run on the rehearsal tree; what the CLIs do
+    not know is still refused before any weight is read.
+
+    ``--continuous`` (no latency tier, one step per engine call): two
+    concurrent requests ride the two slot pools, each moves from the tuned
+    pool to the base pool once, and each PNG is the one-shot pipeline's for
+    its (prompt, seed) within one 8-bit level.  ``--quant=int8``: the server
+    answers, ``sample.main --quant int8`` writes its image, ``train.main
+    --rollout_quant int8`` takes a step with a finite loss."""
+    with pytest.raises(SystemExit):  # argparse's choices, before any file is read
+        _args("/nonexistent", flag, "--quant=int4")
+    if flag == "--continuous":
+        tuned = os.path.join(os.path.dirname(tree), "tuned.safetensors")
+        srv = Se.build_server(_args(tree, flag, "--no-latency_tier", "--max_steps_per_call", "1",
+                                    "--tuned_path", tuned), family=P.flux_family("tiny"))
+        assert isinstance(srv.batcher, Se.ContinuousBatcher) and len(srv.batcher.pools) == 2
+        results = {}
+        with srv:
+            threads = [threading.Thread(target=lambda i=i: results.__setitem__(i, urllib.request.urlopen(
+                urllib.request.Request(
+                    f"http://127.0.0.1:{srv.port}/generate",
+                    data=json.dumps({"prompt": PROMPTS[i], "seed": 3 + i}).encode(),
+                    headers={"Content-Type": "application/json"}), timeout=120).read()))
+                for i in (0, 2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            stats = dict(srv.batcher.stats)
+        assert stats["requests"] == 2 and stats["migrations"] == 2 and stats["errors"] == 0
+        gen = Se.make_generate_fn(srv.batcher.pipe, srv.batcher.encode_fn)
+        for i in (0, 2):
+            want = (np.clip(gen([PROMPTS[i]], [3 + i])[0], 0, 1) * 255).astype(np.uint8)
+            got = _png(io.BytesIO(results[i]))
+            assert np.abs(got - want.astype(np.int16)).max() <= 1
+        return
+    srv = Se.build_server(_args(tree, flag), family=P.flux_family("tiny"))
+    with srv:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/generate",
+            data=json.dumps({"prompt": PROMPTS[0], "seed": 1}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200 and _png(io.BytesIO(r.read())).shape == (RES, RES, 3)
+    out, prompts = str(tmp_path / "samples"), tmp_path / "prompts.txt"
+    prompts.write_text(PROMPTS[0] + "\n")
+    Sa.main(["--model_path", tree, "--prompt_path", str(prompts), "--output_dir", out,
+             "--h", str(RES), "--w", str(RES), "--sampling_steps", str(STEPS),
+             "--mix_sampling_steps", str(MIX), flag, "--device", "cpu"],
+            family=P.flux_family("tiny"))
+    meta = json.load(open(os.path.join(out, "metadata_0.json")))
+    assert [m["prompt"] for m in meta] == PROMPTS[:1]
+    assert _png(os.path.join(out, meta[0]["image"])).shape == (RES, RES, 3)
+    from mixgrpo_tpu_torch import train as T
+
+    root = os.path.dirname(tree)
+    tr = T.main(["--pretrained_model_name_or_path", tree, "--data_json_path", cache,
+                 "--output_dir", str(tmp_path / "out"), "--h", str(RES), "--w", str(RES),
+                 "--sampling_steps", "4", "--num_generations", "2", "--rollout_chunk", "2",
+                 "--gradient_accumulation_steps", "1", "--reward_model", "hpsv2",
+                 "--hps_path", os.path.join(root, "HPS_v2.1_compressed.pt"),
+                 "--rollout_quant", "int8", "--max_train_steps", "1", "--checkpointing_steps",
+                 "100", "--export_safetensors", "off", "--device", "cpu"],
+                family=P.flux_family("tiny"))
+    lines = [json.loads(x) for x in open(tr.metrics.path)]
+    assert tr.cfg.grpo.rollout_quant == "int8" and tr.global_step == 1
+    assert np.isfinite(lines[0]["loss"]) and np.isfinite(lines[0]["reward"])
 
 
 def test_presets_match_jax():

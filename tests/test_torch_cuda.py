@@ -623,3 +623,47 @@ def test_reward_models_on_card(dev, reward_files, name):
     s32, _ = make(torch.float32)(images, prompts)
     err = max(abs(a - b) for a, b in zip(s16, s32))
     assert err <= CS.REWARD_BF16_BOUND[name], (s16, s32)
+
+
+@pytest.mark.parametrize("m,k,n", [(2 * 4608, 3072, 9216), (1024, 15360, 3072), (17, 8, 8)])
+def test_qlinear_on_card_matches_cpu(dev, m, k, n):
+    """``torch._int_mm`` on the card (cuBLASLt, the column-major int8 weight
+    of ``quantize_weight``) gives the CPU's int32 sums exactly, at FLUX's
+    block shapes and at _int_mm's smallest (17 rows, K = N = 8); ``qlinear``
+    in f32 on the card equals the CPU's to f32 rounding."""
+    from mixgrpo_tpu_torch.ops import quant as Q
+
+    g = torch.Generator().manual_seed(m + k)
+    p = Q.quantize_linear_params({"w": torch.randn((k, n), generator=g) * 0.02,
+                                  "b": torch.randn((n,), generator=g) * 0.01})
+    x = torch.randn((m, k), generator=g)
+    xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    pc = {key: t.to(dev) for key, t in p.items()}
+    assert pc["w_q"].stride() == p["w_q"].stride() == (1, k)
+    got = torch._int_mm(xq.to(dev), pc["w_q"])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), torch._int_mm(xq, p["w_q"]))
+    y = Q.qlinear(pc, x.to(dev), torch.float32).cpu()
+    want = Q.qlinear(p, x, torch.float32)
+    assert ((y - want).abs() <= 1e-6 * want.abs().max()).all()
+
+
+def test_native_reader_rows_to_card(dev, tmp_path):
+    """``NativeShardReader`` rows (f16 -> f32 on the host) moved to the card
+    equal the memmap reader's, bit for bit."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.data.dataset import EmbeddingCacheWriter, LatentDataset
+
+    rng = np.random.default_rng(0)
+    w = EmbeddingCacheWriter(str(tmp_path), shard_size=3)
+    for i in range(5):
+        w.add(rng.normal(size=(16, 32)).astype(np.float32), rng.normal(size=(8,)), f"p{i}")
+    w.finish()
+    native, plain = LatentDataset(str(tmp_path)), LatentDataset(str(tmp_path), use_native=False)
+    for i in range(5):
+        a, b = native.get(i), plain.get(i)
+        for key in ("prompt_embed", "pooled"):
+            on_card = torch.from_numpy(a[key]).to(dev)
+            assert on_card.dtype == torch.float32
+            assert torch.equal(on_card.cpu(), torch.from_numpy(b[key]))

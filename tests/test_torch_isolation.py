@@ -35,8 +35,27 @@ def test_port_package_is_present():
                    "rewards/clip_family.py", "rewards/image_reward.py",
                    "rewards/unified_reward.py", "rewards/vqa.py", "rewards/__init__.py",
                    "models/text/blip.py", "eval_rewards.py", "verify_weights.py",
-                   "tsne_probe.py"):
+                   "tsne_probe.py", "data/sampler.py", "data/native_loader.py",
+                   "ops/quant.py"):
         assert f"mixgrpo_tpu_torch/{module}" in files
+
+
+def test_native_sources_stay_inside_the_package():
+    """The port builds only its own sources: the native reader's C++ source
+    and the kernels' CUDA sources resolve to ``mixgrpo_tpu_torch/csrc/`` (its
+    own copy of ``cacheloader.cpp``, not the repository's ``csrc/`` one),
+    and so do their build directories."""
+    from mixgrpo_tpu_torch.data import native_loader
+    from mixgrpo_tpu_torch.ops import build
+
+    pkg_csrc = os.path.join(ROOT, "mixgrpo_tpu_torch", "csrc")
+    assert os.path.dirname(native_loader.SOURCE) == build.CSRC == pkg_csrc
+    assert native_loader.BUILD_DIR == build.BUILD_DIR == os.path.join(pkg_csrc, "build")
+    assert not os.path.samefile(native_loader.SOURCE, os.path.join(ROOT, "csrc", "cacheloader.cpp"))
+    with open(native_loader.SOURCE) as f:
+        src = f.read()
+    for fn in ("cl_open", "cl_close", "cl_size", "cl_prefetch", "cl_read", "cl_gather_f16_rows"):
+        assert f" {fn}(" in src
 
 
 @pytest.mark.parametrize("path", _port_files())

@@ -279,6 +279,53 @@ def test_unified_reward_urllib_session_against_local_server(monkeypatch):
     assert not ok[CS.UR_NO_SCORE] and ok[CS.UR_FAIL_ONCE]
 
 
+
+def test_failed_unified_reward_item_is_masked_not_fatal(tmp_path, monkeypatch):
+    """The JAX fault: UnifiedReward scores an item it could not score as
+    ``None`` and ``compute_reward`` calls ``float`` on it
+    (``mixgrpo_tpu/rewards/base.py:41``), so training stops with a
+    ``TypeError`` at the first failed request; ``eval_rewards``' single-image
+    mode fails the same way (``mixgrpo_tpu/eval_rewards.py:128``).  The port
+    gives the item the score 0.0 and the success 0, and the advantages leave
+    it out of its group's statistics."""
+    from PIL import Image
+
+    from mixgrpo_tpu import eval_rewards as JEval
+    from mixgrpo_tpu_torch import eval_rewards as Eval
+    from mixgrpo_tpu_torch.rl import advantage as A
+
+    monkeypatch.setattr(UR.time, "sleep", lambda s: None)
+    monkeypatch.setattr(JUR.time, "sleep", lambda s: None)
+    prompts = [f"prompt {i}" for i in range(4)]
+    answers = {p: f"Final Score: {1 + i}" for i, p in enumerate(prompts)}
+    answers[prompts[2]] = "no score in this reply"
+    imgs = _images((4, 8, 8, 3), seed=5)
+    jm = {"unified_reward": JUR.UnifiedReward("http://stub/", num_workers=2,
+                                              session=_Session(dict(answers))),
+          "a": _Fake([0.5] * 4, [1.0] * 4)}
+    with pytest.raises(TypeError):
+        JBase.compute_reward(imgs, prompts, jm, {"a": 1.0})
+    pm = {"unified_reward": UR.UnifiedReward("http://stub/", num_workers=2,
+                                             session=_Session(dict(answers))),
+          "a": _Fake([0.5] * 4, [1.0] * 4)}
+    total, ok, rd, sd = Base.compute_reward(torch.from_numpy(imgs), prompts, pm, {"a": 1.0})
+    assert rd["unified_reward"] == [1.0, 2.0, 0.0, 4.0]
+    assert sd["unified_reward"] == [1.0, 1.0, 0.0, 1.0] and ok == [1.0, 1.0, 0.0, 1.0]
+    assert total == [1.5, 2.5, 0.5, 4.5] and all(np.isfinite(total))
+    rdt = {k: torch.tensor(v) for k, v in rd.items()}
+    sdt = {k: torch.tensor(v) for k, v in sd.items()}
+    adv = A.masked_mix_advantages(rdt, sdt, {"unified_reward": 1.0, "a": 1.0}, 4, 0.0)
+    assert torch.isfinite(adv).all() and adv[2] == 0.0
+
+    path = str(tmp_path / "one.png")
+    Image.fromarray((imgs[2] * 255).astype(np.uint8)).save(path)
+    one = lambda mod: {"unified_reward": mod.UnifiedReward(
+        "http://stub/", session=_Session({prompts[2]: answers[prompts[2]]}))}
+    with pytest.raises(TypeError):
+        JEval.score_single_image(path, prompts[2], one(JUR))
+    assert Eval.score_single_image(path, prompts[2], one(UR)) == {
+        "unified_reward_reward": 0.0, "unified_reward_success": False}
+
 @pytest.mark.parametrize("ans", ["(b) 7 years", "(B)", "7 years", "b", "  B  ", "(a) 5 years",
                                  "blah b blah", "7", "", "(b)7 years", "B)"])
 def test_is_answer_match_matches_jax(ans):

@@ -47,6 +47,7 @@ from mixgrpo_tpu import trainer as JT
 from mixgrpo_tpu.models.flux import latents as JL
 from mixgrpo_tpu.models.flux import model as JM
 from mixgrpo_tpu.models.flux import vae as JV
+from mixgrpo_tpu.ops import quant as JQ
 from mixgrpo_tpu.rl import advantage as JA
 from mixgrpo_tpu.rl.ppo import PPOConfig as JPPO
 from mixgrpo_tpu.solvers import rollout as JR
@@ -173,6 +174,8 @@ def _jax_iteration(cfg, weights, batch, ts, factors=None, reward_models=None):
     lora = None if factors is None else {"factors": jax.tree.map(jnp.asarray, factors),
                                          "rank": 4, "alpha": 8.0}
     rollout_params = jparams if lora is None else JLoRA.apply_lora(jparams, lora)
+    if cfg.grpo.rollout_quant == "int8":  # op by op, as tests/test_torch_quant.py says
+        rollout_params = JQ.quantize_flux_params(rollout_params)
     out = js.chunked_rollout(rollout_params, z0, txt, pooled, sig, det, n, k_roll, chunk=2)
     lat = JL.denormalize_latents(JL.unpack_latents(out.final_latents, RES, RES))
     images = JV.postprocess_images(decode(jax.tree.map(jnp.asarray, jvae_np), lat))
@@ -444,10 +447,24 @@ def test_lora_flash_train_resume_and_profile(tmp_path, weights):
 @pytest.mark.parametrize("what", ["reward_zoo", "int8", "export_required", "mesh"])
 def test_trainer_refuses_what_is_not_ported(tmp_path, weights, what):
     """The trainer refuses to start with no reward (neither ``reward_models``
-    nor a ``reward_fn``: case "reward_zoo"), int8 rollouts and meshes.  The
-    diffusers export is ported: with ``export_safetensors="required"`` a
-    checkpoint writes it, and it reads back to the parameters exactly."""
+    nor a ``reward_fn``: case "reward_zoo"), meshes, and an unknown
+    ``rollout_quant``.  The diffusers export is ported: with
+    ``export_safetensors="required"`` a checkpoint writes it, and it reads
+    back to the parameters exactly.  So are int8 rollouts: one iteration
+    with ``rollout_quant="int8"`` against JAX's on the same draws, within
+    ``test_iteration_matches_jax``'s tolerances (the int8 products and the
+    per-token quantisation agree to f32 rounding on these inputs)."""
     cfg, kw = _cfg(tmp_path), {}
+    if what == "int8":
+        cfg.grpo.rollout_quant = "int8"
+        tr = _trainer(cfg, weights)
+        batch = _prompt()
+        ts = tr.window.get_current_timesteps()
+        want = _jax_iteration(cfg, weights, batch, ts)
+        m = _check_port_iteration(tr, want, batch, ts, "update_step")
+        assert all(np.isfinite(m[k]) for k in ("loss", "reward", "clip_frac"))
+        tr.close()
+        cfg.grpo.rollout_quant = "int4"
     if what == "export_required":
         cfg.run.export_safetensors = "required"
         tr = _trainer(cfg, weights)
@@ -460,9 +477,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, weights, what):
         return
     if what == "reward_zoo":
         kw["reward_fn"] = None
-    elif what == "int8":
-        cfg.grpo.rollout_quant = "int8"
-    else:
+    elif what == "mesh":
         cfg.mesh = MeshConfig(fsdp=2)
     jcfg, _, jparams, jvae = weights
     with pytest.raises((NotImplementedError, ValueError)):
