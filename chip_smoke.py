@@ -74,11 +74,35 @@ a non-zero exit code.  Phases:
    ``tsne_probe.main``, then ``train.main --rollout_quant int8`` for one
    step with HPS (``train_main_phase``); both phases' files are removed
    afterwards.
+11. parallel_attention: several ranks, spawned as ``python3 chip_smoke.py
+   --rank ...`` (``parallel_layout``: on a one-card machine two ranks share
+   the card over ``gloo``, since NCCL refuses two ranks of one communicator
+   on one device; with 2-4 cards one rank per card over NCCL): Ulysses and
+   ring attention (sp = ranks) through ``attention(impl=...)`` at
+   FLUX.1-dev width (B = 2, H = 24, S = 4608, D = 128, bf16), forward and
+   backward, with and without a key mask, each held against one-rank
+   ``attention(impl="flash")`` with ``close_bf16``; each rank's flash
+   launches, the collectives' transport (direct, or staged through the host
+   with its count) and one all-to-all, all-gather and send/recv timed;
+12. parallel_train: one recipe iteration (full width, 2 + 4 blocks, 2
+   generations per prompt) on mesh (dp 1, fsdp = ranks), one prompt per
+   rank, against one rank (its own process, run first) on every prompt with
+   the same injected noise: the parameters' update and the gradient norm,
+   each rank's peak (under 80 GB per card) and launches; then the sharded
+   checkpoint, its resume into a new trainer and the export;
+13. parallel_cli (needs checkpoints and rewards): ``sample.main`` over the
+   ranks on the checkpoints phase's directory and ``eval_rewards.main``
+   (HPSv2.1) over them on its images: JAX's file names and seeds, and rank
+   0's summary over every image.
+A rank that fails or outlives its phase's timeout fails the run (every rank
+is killed, each failed rank's log printed).  Times of ranks sharing one card
+say nothing of separate cards.
 Each path's kernel launches are counted from 0 just before it runs and read
 just after, and must equal the prediction exactly.  Last come the
 ``kernels`` line, the ``nvidia-smi`` line, and the final status line.
 
-``--only`` with ``train_main`` needs ``rewards`` too.  Exits 2 without a CUDA
+``--only`` with ``train_main`` needs ``rewards`` too, ``parallel_cli`` needs
+``checkpoints`` and ``rewards``.  Exits 2 without a CUDA
 card; without the package beside it the import fails.
 """
 
@@ -1346,7 +1370,7 @@ def write_flux_dir(torch, M, dev, fam, d):
     return base, t5_st, clip_st, vae_dec, vae_enc
 
 
-def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
+def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=False):
     """Released checkpoints in, at full FLUX.1-dev width: (1) a synthetic
     FLUX.1-dev directory written by the port's writers in the released
     layout (a bf16 transformer cut to 2 + 4 blocks in two shards, an F32
@@ -1361,7 +1385,8 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
     (5) ``vae_encode`` of two decoded images.  Launches: exactly 24 forwards
     per pipeline call, nothing from the encoders or the VAE.  ``fam`` and
     ``res`` (default: the full-width cut family, 1024px) are arguments so
-    that the phase can be rehearsed at a tiny size."""
+    that the phase can be rehearsed at a tiny size.  With ``keep`` the
+    directory stays for ``parallel_cli`` (the caller removes it)."""
     import json as _json
     import resource
     import shutil
@@ -1711,9 +1736,11 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024):
             raise AssertionError(f"vae_encode: {rec}")
         del enc_p, imgs, lat, base
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)  # cleanup only; failures propagate
+        if not keep:
+            shutil.rmtree(tmp, ignore_errors=True)  # cleanup only; failures propagate
     torch.cuda.empty_cache()
-    return {"write_s": write_s, "sample_main_s": main_s}
+    return {"write_s": write_s, "sample_main_s": main_s, "root": tmp, "dir": d,
+            "tuned": tuned_path, "prompts": prompts}
 
 
 # ---------------------------------------------------------------------------
@@ -2889,14 +2916,563 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# several ranks (parallel/)
+# ----------------------------------------------------------------------------
+
+PAR_ATTN = dict(B=2, H=24, S=4608, D=128)  # FLUX.1-dev heads at 1024px
+PAR_TRAIN_G = 2  # generations per prompt; one prompt per rank
+# parallel_train's limits on the ranks' update against one rank's: the rel L2
+# of the sampled parameter change, and the grad norm's rel difference.  On an
+# H100 80GB HBM3 (700 W) sound runs read 0.0065 and 1.8e-5; planted faults in
+# parallel/sharding.py::reduce_grads read 0.149 and 0.049 (fsdp-sharded
+# gradients summed, not averaged) and 0.79 and 0.29 (replicated leaves not
+# all-reduced, so each rank steps them on half the batch)
+PAR_UPDATE_REL_L2 = 0.05
+PAR_GRAD_NORM_REL = 1e-3
+
+
+def parallel_layout(torch):
+    """The number of ranks of the multi-rank phases: one per card where the
+    machine has two cards or more (up to 4), else two sharing the one card.
+    Rank r runs on ``cuda:<r mod cards>``; ``parallel.mesh.backend_for``
+    picks the backend (NCCL for a card each, gloo for ranks sharing one:
+    NCCL refuses two ranks of one communicator on one device)."""
+    n = torch.cuda.device_count()
+    return min(n, 4) if n >= 2 else 2
+
+
+def layout_note(world, backend):
+    if backend == "gloo":
+        return f"{world} ranks sharing one card: times say nothing of {world} cards"
+    return f"{world} ranks, one card each"
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(case, d, timeout, world, extra=()):
+    """``case`` on ``world`` ranks (``python3 chip_smoke.py --rank ...``, one
+    process each, placed by ``parallel_layout``, rendezvous at ``localhost``); each
+    rank's output goes to ``d/rank<r>.log`` and its record to
+    ``d/rank<r>.json``.  Raises, after printing every failed rank's log tail
+    (its traceback), when a rank fails or any rank is still running after
+    ``timeout`` seconds (then every rank is killed)."""
+    port = free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        log = open(os.path.join(d, f"rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", case, str(r), str(world),
+             str(port), d, *extra], stdout=log, stderr=subprocess.STDOUT, env=env))
+    deadline = time.monotonic() + timeout
+    hung = False
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                hung = True
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in bad:
+        with open(os.path.join(d, f"rank{r}.log")) as f:
+            tail = f.read()[-5000:]
+        print(f"chip_smoke: {case} rank {r} exit {procs[r].returncode}"
+              f"{' (killed: a rank outlived the timeout)' if hung else ''}:\n{tail}",
+              file=sys.stderr, flush=True)
+    if hung or bad:
+        raise AssertionError(f"{case}: ranks {bad} failed" +
+                             (f" or hung past {timeout} s" if hung else ""))
+    out = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def rank_main(argv):
+    """One rank of a multi-rank phase (``--rank CASE RANK WORLD PORT DIR
+    [ARGS]``)."""
+    case, rank, world, port, d = argv[:5]
+    rank, world = int(rank), int(world)
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    from mixgrpo_tpu_torch.ops import flash_attention as FA
+    from mixgrpo_tpu_torch.parallel import collectives as C
+    from mixgrpo_tpu_torch.parallel.mesh import init_distributed
+
+    if case != "train_ref":  # the CLIs start torch.distributed themselves
+        if case in ("attention", "train"):
+            init_distributed(f"localhost:{port}", world, rank, device=dev)
+    rec = {"rank": rank, "case": case}
+    fn = {"attention": rank_attention, "train": rank_train, "train_ref": rank_train,
+          "sample": rank_sample, "eval": rank_eval}[case]
+    fn(torch, FA, C, dev, rank, world, d, rec, argv[5:])
+    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    import torch.distributed as dist
+
+    rec["backend"] = dist.get_backend() if dist.is_initialized() else None
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def rank_attention(torch, FA, C, dev, rank, world, d, rec, extra):
+    """Ulysses and ring (sp = ranks) through ``attention(impl=...)`` on whole
+    bf16 tensors at FLUX.1-dev width, forward and backward, with and without
+    a key mask; each run held against one-rank ``attention(impl="flash")``
+    on the rank's card (``close_bf16``)."""
+    from mixgrpo_tpu_torch.ops.attention import attention
+    from mixgrpo_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from mixgrpo_tpu_torch.parallel.ulysses import set_sp_context
+
+    mesh = make_mesh(MeshConfig(dp=1, sp=world), device=dev)
+    set_sp_context(mesh, "sp")
+    B, H, S, D = (PAR_ATTN[k] for k in "BHSD")
+    g = torch.Generator(dev).manual_seed(61)  # the same tensors on every rank
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device=dev).bfloat16()
+                   for _ in range(4))
+    keep = torch.rand((B, S), generator=g, device=dev) > 0.1
+    keep[:, :64] = True
+    runs = []
+    for impl in ("ulysses", "ring"):
+        for masked in (False, True):
+            mask = keep[:, None, None, :] if masked else None
+
+            def run(impl=impl, mask=mask):
+                qf, kf, vf = (t.clone().requires_grad_(True) for t in (q, k, v))
+                o = attention(qf, kf, vf, mask=mask, impl=impl)
+                o.backward(do)
+                return o.detach(), qf.grad, kf.grad, vf.grad
+
+            run()  # warm-up: allocations and first calls
+            torch.cuda.synchronize()
+            FA.reset_launches()
+            C.reset_transport()
+            t0 = time.perf_counter()
+            got = run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+            transport = C.transport_record()
+            want = run("flash")  # one rank, no sequence split: the comparison
+            checks = {}
+            for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+                ok, err, rel = close_bf16(a, b)
+                checks[name] = {"ok": ok, "max_abs_err": err, "rel_l2": rel}
+            bwd = FA.default_bwd(S, S)
+            expect = {n: 0 for n in launches}
+            if impl == "ulysses":  # one forward with lse and one backward per run
+                expect["flash_attn_fwd_lse"] = 1
+                for n in (("flash_attn_bwd_fused",) if bwd == "fused"
+                          else ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")):
+                    expect[n] = 1
+            runs.append({"impl": impl, "masked": masked, "ms_fwd_bwd": ms,
+                         "launches": launches, "expected_launches": expect,
+                         "transport": transport, "checks": checks,
+                         "local_shape": [B, H // world if impl == "ulysses" else H,
+                                         S if impl == "ulysses" else S // world, D]})
+    rec["runs"] = runs
+    # one collective at a time on a rank's (B, H, S/2, D) bf16 slice, 5 calls each
+    ql = q.chunk(world, dim=2)[rank].contiguous()
+    ops = {"all_to_all": lambda: C.all_to_all_along(ql, mesh, "sp", 1, 2),
+           "all_gather": lambda: C.gather_along(ql, mesh, "sp", 2),
+           "send_recv": lambda: C.shift_along(ql, mesh, "sp", 1)}
+    rec["collective_ms"] = {"bytes_per_rank": ql.numel() * ql.element_size()}
+    for name, fn in ops.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        rec["collective_ms"][name] = (time.perf_counter() - t0) * 1e3 / 5
+
+
+def _train_setup(torch, dev, d, mesh_cfg, accum, export):
+    """The parallel_train trainer: full FLUX.1-dev width, ``TRAIN_DEPTH``
+    blocks, the recipe's 720px, 25 steps and window, PAR_TRAIN_G generations
+    per prompt in chunks of 2, the random bf16 VAE and the brightness reward."""
+    import dataclasses
+
+    from mixgrpo_tpu_torch.config import RunConfig, TrainConfig
+    from mixgrpo_tpu_torch.models.flux import model as M
+    from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, init_vae_decoder
+    from mixgrpo_tpu_torch.train import GRPOTrainer
+
+    cfg = TrainConfig(run=RunConfig(output_dir=d, experiment_name="smoke_parallel",
+                                    export_safetensors=export))
+    cfg = dataclasses.replace(
+        cfg, mesh=mesh_cfg,
+        grpo=dataclasses.replace(cfg.grpo, num_generations=PAR_TRAIN_G, rollout_chunk=2),
+        optim=dataclasses.replace(cfg.optim, gradient_accumulation_steps=accum))
+    flux_cfg = M.FluxConfig(depth_double=TRAIN_DEPTH[0], depth_single=TRAIN_DEPTH[1])
+    vcfg = VAEConfig.flux_dev()
+    vae = init_vae_decoder(vcfg, generator=torch.Generator(dev).manual_seed(2), device=dev,
+                           dtype=torch.bfloat16)
+    return cfg, flux_cfg, vcfg, vae, GRPOTrainer
+
+
+def sampled_leaves(leaves, n=65536):
+    """Every ``len // n``-th entry of each (whole) leaf, concatenated, as
+    float32 numpy."""
+    import numpy as np
+
+    out = []
+    for t in leaves:
+        flat = t.detach().reshape(-1)
+        out.append(flat[::max(1, flat.numel() // n)].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
+    """``train_ref``: one iteration on one rank over both prompts
+    (accumulation 2 x PAR_TRAIN_G: one update group); ``train``: one
+    iteration of the same global batch on mesh (dp 1, fsdp 2), one prompt per
+    rank (accumulation PAR_TRAIN_G), then a sharded checkpoint with the
+    export and a resume into a new trainer.  Both take the same injected
+    noise: the one-rank run's chunk j is rank j's rows."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.models.flux.model import param_leaves
+    from mixgrpo_tpu_torch.parallel.mesh import MeshConfig
+    from mixgrpo_tpu_torch.parallel.sharding import flatten_specs, gather_leaf
+
+    two = rec["case"] == "train"
+    n_p = int(extra[0])  # prompts: one per rank of the multi-rank run
+    mesh_cfg = MeshConfig(dp=1, fsdp=world) if two else MeshConfig(1, 1, 1, 1)
+    accum = PAR_TRAIN_G if two else PAR_TRAIN_G * n_p
+    cfg, flux_cfg, vcfg, vae, GRPOTrainer = _train_setup(
+        torch, dev, os.path.join(d, f"run_{rec['case']}"), mesh_cfg, accum,
+        "required" if two else "off")
+    t0 = time.perf_counter()
+    trainer = GRPOTrainer(cfg, flux_cfg=flux_cfg, vae_cfg=vcfg, vae_params=vae,
+                          reward_fn=brightness_reward, device=dev)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((n_p, 512, flux_cfg.context_dim), np.float32)
+    pooled = rng.standard_normal((n_p, flux_cfg.pooled_dim), np.float32)
+    rows = slice(rank, rank + 1) if two else slice(0, n_p)
+    batch = {"prompt_embed": emb[rows], "pooled": pooled[rows],
+             "captions": [f"prompt {i}" for i in range(n_p)][rows]}
+    L = trainer.sampler.num_image_tokens
+    g = torch.Generator(dev).manual_seed(41)
+    z0 = torch.randn((n_p * PAR_TRAIN_G, L, flux_cfg.in_channels), generator=g, device=dev)
+    z0 = z0[rank * PAR_TRAIN_G:(rank + 1) * PAR_TRAIN_G] if two else z0
+
+    def noise_fn(j, i, shape):
+        chunk = rank if j is None else j  # the one-rank run's chunk of these rows
+        gen = torch.Generator(dev).manual_seed(1000 * (chunk + 1) + i)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if not two:
+        np.save(os.path.join(d, "before.npy"), sampled_leaves(param_leaves(trainer.params)))
+    timesteps = [int(t) for t in trainer.window.get_current_timesteps()]
+    FA.reset_launches()
+    C.reset_transport()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.train_one_step(batch, timesteps, z0=z0, noise_fn=noise_fn)
+    torch.cuda.synchronize()
+    rec["iteration_s"] = time.perf_counter() - t0
+    rec["iteration_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["launches"] = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+    rec["transport"] = C.transport_record()
+    rec["window"] = timesteps
+    rec["metrics"] = {k: float(v) for k, v in m.items() if np.isscalar(v)}
+    leaves = param_leaves(trainer.params)
+    if two:
+        specs = flatten_specs(trainer.param_specs)
+        # one leaf gathered at a time
+        after = sampled_leaves(gather_leaf(t.detach(), trainer.mesh, s)
+                               for t, s in zip(leaves, specs))
+        rec["shard_numel"] = sum(t.numel() for t in leaves)
+    else:
+        after = sampled_leaves(leaves)
+    if rank == 0:
+        np.save(os.path.join(d, f"after_{rec['case']}.npy"), after)
+    if not two:
+        trainer.close()
+        return
+    # -- sharded checkpoint and export, then a resume on the same mesh -----------
+    trainer.global_step = 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint()
+    rec["checkpoint_s"] = time.perf_counter() - t0
+    trainer.close()
+    own = [t.detach().cpu() for t in leaves]
+    moments = [float(s["exp_avg"].double().sum()) for s in trainer.opt_state.state.values()]
+    del trainer, leaves
+    torch.cuda.empty_cache()
+    cfg.run.resume_from_checkpoint = True
+    t0 = time.perf_counter()
+    tr2 = GRPOTrainer(cfg, flux_cfg=flux_cfg, vae_cfg=vcfg, vae_params=vae,
+                      reward_fn=brightness_reward, device=dev)
+    rec["resume_s"] = time.perf_counter() - t0
+    rec["resumed_step"] = tr2.global_step
+    rec["resumed_params_equal"] = all(torch.equal(a, b.detach().cpu())
+                                      for a, b in zip(own, param_leaves(tr2.params)))
+    rec["resumed_moments_equal"] = moments == [
+        float(s["exp_avg"].double().sum()) for s in tr2.opt_state.state.values()]
+    run_dir = tr2.run_dir
+    tr2.close()
+    ck = os.path.join(run_dir, "checkpoints", "1")
+    rec["checkpoint_files"] = sorted(os.listdir(ck))
+    rec["checkpoint_gb"] = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck)) / 1e9
+    exp = os.path.join(run_dir, "export_1", "diffusion_pytorch_model.safetensors")
+    rec["export_gb"] = os.path.getsize(exp) / 1e9 if os.path.exists(exp) else None
+
+
+def rank_sample(torch, FA, C, dev, rank, world, d, rec, extra):
+    """``sample.main`` under torchrun's environment on the checkpoints
+    phase's directory (``extra``: the model dir, tuned export, prompts,
+    output)."""
+    from mixgrpo_tpu_torch import sample as Sa
+    from mixgrpo_tpu_torch.models.flux import model as M
+
+    model, tuned, prompts, out = extra
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    Sa.main(["--model_path", model, "--new_model_ckpt", tuned, "--prompt_path", prompts,
+             "--output_dir", out, "--h", "1024", "--w", "1024", "--sampling_steps",
+             str(SERVE_STEPS), "--mix_sampling_steps", str(SERVE_MIX), "--batch_size", "2",
+             "--seed", "5", "--device", "cuda"],
+            family=smoke_family(M))
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+
+
+def rank_eval(torch, FA, C, dev, rank, world, d, rec, extra):
+    """``eval_rewards.main`` (HPSv2.1 at its published geometry) over the
+    multi-rank samples."""
+    samples, out, hps, merges = extra
+    from mixgrpo_tpu_torch import eval_rewards as ER
+
+    t0 = time.perf_counter()
+    rec["summary"] = ER.main(["--metadata", samples, "--image_dir", samples, "--output_dir",
+                              out, "--reward_model", "hpsv2", "--hps_path", hps,
+                              "--clip_bpe_path", merges, "--batch_size", "2", "--device",
+                              "cuda"])
+    rec["seconds"] = time.perf_counter() - t0
+
+
+def parallel_attention_phase(torch, FA, dev, card, root):
+    """Ulysses and ring attention over the ranks of ``parallel_layout`` (record
+    ``parallel_attention``): each rank's runs, launches and transport."""
+    import shutil
+    import tempfile
+
+    from mixgrpo_tpu_torch.parallel.mesh import backend_for
+
+    world = parallel_layout(torch)
+    backend = backend_for(dev, world)
+    d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("attention", d, timeout=300, world=world)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ok = True
+    for r in ranks:
+        for run in r["runs"]:
+            ok &= all(c["ok"] for c in run["checks"].values())
+            ok &= run["launches"] == run["expected_launches"]
+            ok &= not run["transport"]["staged"].get("all_to_all", 0)
+        ok &= r["backend"] == backend
+    emit({"phase": "parallel_attention", "ranks": ranks, "shape": PAR_ATTN, "sp": world,
+          "collective_ms_per_rank": [r["collective_ms"] for r in ranks],
+          "backend": backend, "seconds": wall, "note": layout_note(world, backend),
+          "peak_gb_per_rank": [r["max_memory_allocated_gb"] for r in ranks], "device": card})
+    if not ok:
+        raise AssertionError("parallel_attention: a run disagreed with one-rank flash, "
+                             "launched other kernels than predicted, or staged an all-to-all")
+    return ranks
+
+
+def parallel_train_phase(torch, FA, dev, card, root):
+    """One recipe iteration on mesh (dp 1, fsdp = ranks of ``parallel_layout``),
+    one prompt per rank, against one rank on the same global batch and noise;
+    then the sharded checkpoint, the export and a resume (record
+    ``parallel_train``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mixgrpo_tpu_torch.parallel.mesh import backend_for
+
+    world = parallel_layout(torch)
+    backend = backend_for(dev, world)
+    d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ref = spawn_ranks("train_ref", d, timeout=400, world=1, extra=(str(world),))[0]
+        ref_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("train", d, timeout=600, world=world, extra=(str(world),))
+        wall = time.perf_counter() - t0
+        before = np.load(os.path.join(d, "before.npy"))
+        d1 = np.load(os.path.join(d, "after_train_ref.npy")) - before
+        d2 = np.load(os.path.join(d, "after_train.npy")) - before
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gn1, gn2 = ref["metrics"]["grad_norm"], ranks[0]["metrics"]["grad_norm"]
+    peaks = [r["max_memory_allocated_gb"] for r in ranks]
+    m1, m2 = ref["metrics"], ranks[0]["metrics"]
+    rec = {"phase": "parallel_train", "mesh": {"dp": 1, "fsdp": world}, "backend": backend,
+           "depth": TRAIN_DEPTH, "num_generations": PAR_TRAIN_G, "prompts": world,
+           "window": ref["window"],
+           "update_max_abs_diff": float(np.abs(d2 - d1).max()),
+           "update_rel_l2": float(np.linalg.norm(d2 - d1) / np.linalg.norm(d1)),
+           "update_max_abs": float(np.abs(d1).max()), "sampled_entries": int(d1.size),
+           "grad_norm": [gn1, gn2], "grad_norm_rel": abs(gn2 - gn1) / gn1,
+           "loss": [m1["loss"], m2["loss"]], "reward": [m1["reward"], m2["reward"]],
+           "iteration_s_one_rank": ref["iteration_s"],
+           "iteration_s_per_rank": [r["iteration_s"] for r in ranks],
+           "peak_gb_one_rank": ref["max_memory_allocated_gb"],
+           "peak_gb_per_rank": peaks, "peak_gb_sum": sum(peaks),
+           "launches_one_rank": ref["launches"], "launches_per_rank": [r["launches"] for r in ranks],
+           "transport_per_rank": [r["transport"] for r in ranks],
+           "checkpoint_s": [r["checkpoint_s"] for r in ranks],
+           "resume_s": [r["resume_s"] for r in ranks],
+           "checkpoint_files": ranks[0]["checkpoint_files"],
+           "checkpoint_gb": ranks[0]["checkpoint_gb"], "export_gb": ranks[0]["export_gb"],
+           "resumed": [(r["resumed_step"], r["resumed_params_equal"], r["resumed_moments_equal"])
+                       for r in ranks],
+           "wall_s": {"one_rank": ref_wall, "ranks": wall},
+           "note": layout_note(world, backend), "device": card}
+    emit(rec)
+    blocks = sum(TRAIN_DEPTH)
+    steps = 25
+    # per rank: its rows' rollout chunks, and one update group's forward (lse)
+    # and recompute (lse) and backward per block
+    bwd = FA.default_bwd(2560, 2560)
+    want = {"flash_attn_fwd": steps * blocks, "flash_attn_fwd_lse": 2 * blocks,
+            "flash_attn_bwd_fused": blocks if bwd == "fused" else 0,
+            "flash_attn_bwd_dkv": blocks if bwd == "split" else 0,
+            "flash_attn_bwd_dq": blocks if bwd == "split" else 0}
+    ok = (all(r["launches"] == want for r in ranks)
+          and all(r["backend"] == backend for r in ranks)
+          and rec["update_rel_l2"] < PAR_UPDATE_REL_L2
+          and rec["grad_norm_rel"] < PAR_GRAD_NORM_REL
+          and abs(m2["reward"] - m1["reward"]) < 1e-6
+          and (sum(peaks) if backend == "gloo" else max(peaks)) < 80  # per card
+          and all(r["resumed_step"] == 1 and r["resumed_params_equal"]
+                  and r["resumed_moments_equal"] for r in ranks)
+          and rec["checkpoint_files"] == ["manifest.json"] + [f"shard{i}of{world}.pt"
+                                                              for i in range(world)]
+          and rec["export_gb"] and np.isfinite([gn1, gn2, m2["loss"]]).all())
+    if not ok:
+        raise AssertionError(f"parallel_train failed its checks (want launches {want}): {rec}")
+    return rec
+
+
+def parallel_cli_phase(torch, FA, dev, card, root, ckpt, paths):
+    """``sample.main`` over the ranks of ``parallel_layout`` on the checkpoints
+    phase's directory, then ``eval_rewards.main`` (HPSv2.1) over them on
+    those images (record ``parallel_cli``)."""
+    import shutil
+    import tempfile
+
+    from mixgrpo_tpu_torch.parallel.mesh import backend_for
+
+    world = parallel_layout(torch)
+    backend = backend_for(dev, world)
+    mine = [list(CKPT_PROMPTS[r::world]) for r in range(world)]
+    d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
+    try:
+        samples, ev = os.path.join(d, "samples"), os.path.join(d, "eval")
+        t0 = time.perf_counter()
+        srec = spawn_ranks("sample", d, timeout=400, world=world,
+                           extra=(ckpt["dir"], ckpt["tuned"], ckpt["prompts"], samples))
+        sample_wall = time.perf_counter() - t0
+        files = sorted(os.listdir(samples))
+        metas = {}
+        for r in range(world):
+            if mine[r]:  # a rank with no prompt writes no metadata
+                with open(os.path.join(samples, f"metadata_{r}.json")) as f:
+                    metas[r] = json.load(f)
+        t0 = time.perf_counter()
+        erec = spawn_ranks("eval", d, timeout=400, world=world,
+                           extra=(samples, ev, paths["hps"], paths["merges"]))
+        eval_wall = time.perf_counter() - t0
+        eval_files = sorted(os.listdir(ev))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    want_files = sorted([f"img_p{r}_{i:05d}.png" for r in range(world)
+                         for i in range(len(mine[r]))]
+                        + [f"metadata_{r}.json" for r in range(world) if mine[r]])
+    per_call = sum(TRAIN_DEPTH)
+    want_launches = [-(-len(m) // 2) * SERVE_STEPS * per_call for m in mine]
+    summary = erec[0]["summary"]
+    rec = {"phase": "parallel_cli", "ranks": world, "backend": backend, "files": files,
+           "eval_files": eval_files, "prompts_per_rank": [len(m) for m in mine],
+           "sample_launches_per_rank": [r["launches"] for r in srec],
+           "sample_s_per_rank": [r["seconds"] for r in srec],
+           "eval_s_per_rank": [r["seconds"] for r in erec],
+           "summary": summary, "wall_s": {"sample": sample_wall, "eval": eval_wall},
+           "peak_gb_per_rank": {"sample": [r["max_memory_allocated_gb"] for r in srec],
+                                "eval": [r["max_memory_allocated_gb"] for r in erec]},
+           "note": layout_note(world, backend), "device": card}
+    emit(rec)
+    ok = (files == want_files
+          and all([m["prompt"] for m in metas[r]] == mine[r]
+                  and [m["seed"] for m in metas[r]] == [5 + r * 100000 + j
+                                                        for j in range(len(mine[r]))]
+                  for r in metas)
+          and all(s["launches"]["flash_attn_fwd"] == w and
+                  not any(v for k, v in s["launches"].items() if k != "flash_attn_fwd")
+                  for s, w in zip(srec, want_launches))
+          and eval_files == ["reward_means.txt"] + [f"rewards_{r}.json" for r in range(world)]
+          and summary is not None and summary.get("hpsv2_count") == len(CKPT_PROMPTS)
+          and all(r["summary"] is None for r in erec[1:]))
+    if not ok:
+        raise AssertionError(f"parallel_cli failed its checks: {rec}")
+    return rec
+
 PHASES = ("build", "kernels", "serve", "checkpoints", "rewards", "train_main", "train",
-          "update_full_depth", "train_flash_lora")
+          "update_full_depth", "train_flash_lora", "parallel_attention", "parallel_train",
+          "parallel_cli")
 TRAIN_DEPTH = (2, 4)
 FULL_DEPTH = (19, 38)
 
 
 def main() -> int:
     import argparse
+
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2:])
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -2907,6 +3483,8 @@ def main() -> int:
         ap.error(f"unknown phase in {sorted(only)}")
     if "train_main" in only and "rewards" not in only:
         ap.error("train_main runs on the rewards phase's files: add rewards to --only")
+    if "parallel_cli" in only and not {"checkpoints", "rewards"} <= only:
+        ap.error("parallel_cli runs on the checkpoints and rewards phases' files: add them")
     t_start = time.perf_counter()
     import torch
 
@@ -2963,19 +3541,38 @@ def main() -> int:
         kernel_phase(torch, FA, F, dev, card, rows)
     if "serve" in only:
         serve_phase(torch, FA, F, M, dev, card, rows)
-    if "checkpoints" in only:
-        checkpoints_phase(torch, FA, M, dev, card, root)
-    if "rewards" in only:
-        import shutil
+    import shutil
 
-        try:
-            paths = rewards_phase(torch, FA, dev, card, root)
-            if "train_main" in only:
-                train_main_phase(torch, FA, M, dev, card, root, paths)
-        finally:  # cleanup only; failures propagate
-            for d in (".smoke_rewards", ".smoke_train_main"):
-                shutil.rmtree(os.path.join(root, d), ignore_errors=True)
-        torch.cuda.empty_cache()
+    kept = []  # the directories parallel_cli reads, removed at the end
+    try:
+        ckpt = paths = None
+        if "checkpoints" in only:
+            ckpt = checkpoints_phase(torch, FA, M, dev, card, root,
+                                     keep="parallel_cli" in only)
+            kept.append(ckpt["root"])
+        if "rewards" in only:
+            try:
+                paths = rewards_phase(torch, FA, dev, card, root)
+                if "train_main" in only:
+                    train_main_phase(torch, FA, M, dev, card, root, paths)
+            finally:  # cleanup only; failures propagate
+                shutil.rmtree(os.path.join(root, ".smoke_train_main"), ignore_errors=True)
+                kept.append(os.path.join(root, ".smoke_rewards"))
+            torch.cuda.empty_cache()
+        run_later_phases(torch, FA, M, dev, card, root, only, rows, ckpt, paths)
+    finally:  # cleanup only; failures propagate
+        for d in kept:
+            shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if only != set(PHASES):
+        print(f"chip_smoke: ran only {sorted(only)}; no result", file=sys.stderr)
+        return 4
+    return final_lines(torch, FA, rows, card, kind)
+
+
+def run_later_phases(torch, FA, M, dev, card, root, only, rows, ckpt, paths):
+    """The phases after the reward zoo, in order; the multi-rank phases last."""
     if "train" in only:
         launches = train_phase(torch, FA, M, dev, card, root)
         for n in ("flash_attn_fwd_lse", "flash_attn_bwd_fused"):
@@ -2988,11 +3585,17 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "train_flash_lora" in only:
         train_flash_lora_phase(torch, FA, M, dev, card, root)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if only != set(PHASES):
-        print(f"chip_smoke: ran only {sorted(only)}; no result", file=sys.stderr)
-        return 4
+        torch.cuda.empty_cache()
+    if "parallel_attention" in only:
+        parallel_attention_phase(torch, FA, dev, card, root)
+    if "parallel_train" in only:
+        parallel_train_phase(torch, FA, dev, card, root)
+    if "parallel_cli" in only:
+        parallel_cli_phase(torch, FA, dev, card, root, ckpt, paths)
+
+
+def final_lines(torch, FA, rows, card, kind):
+    """The kernels line, the ``nvidia-smi`` line and the status line."""
     sources = {FA.KERNEL: "mixgrpo_tpu_torch/csrc/flash_attn_fwd.cu",
                FA.BWD_KERNEL: "mixgrpo_tpu_torch/csrc/flash_attn_bwd.cu"}
     replaces = {"flash_attn_fwd": "mixgrpo_tpu/ops/flash_attention.py:61",

@@ -3,10 +3,10 @@
 Port of mixgrpo_tpu/config.py: the same dataclasses, defaults (the MixGRPO
 recipe: 720px, 25 steps, eta 0.7, 12 generations, a 4-step window,
 accumulation 3, gradient checkpointing, bf16 compute over fp32 master
-weights) and CLI flag names, so launch scripts carry over.  ``MeshConfig`` is
-a local copy (JAX imports it from ``parallel/``, which is not ported); the
-port's trainer takes one device only.  ``RuntimeConfig.attn_impl`` takes the
-port's backends (``auto``, ``flash``, ``eager``).
+weights) and CLI flag names, so launch scripts carry over.  ``MeshConfig``
+comes from ``parallel/``, as in JAX.  ``RuntimeConfig.attn_impl`` takes the
+port's backends (``auto``, ``flash``, ``eager``) and the sequence-parallel
+ones (``ulysses``, ``ring``).
 """
 
 from __future__ import annotations
@@ -16,39 +16,9 @@ import dataclasses
 import json
 from typing import Dict, List, Optional
 
+from mixgrpo_tpu_torch.parallel.mesh import MeshConfig
 from mixgrpo_tpu_torch.rl.ppo import PPOConfig
 from mixgrpo_tpu_torch.solvers.rollout import SamplerConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """Device mesh sizes, kept from mixgrpo_tpu/parallel/mesh.py so that the
-    flags and the saved config match; the port's trainer runs on one device
-    and refuses any other mesh until ``parallel/`` is ported."""
-
-    dp: int = -1  # -1: use all remaining devices
-    fsdp: int = 1
-    sp: int = 1
-    tp: int = 1
-
-    def resolved(self, n_devices: int) -> "MeshConfig":
-        """Resolve one ``-1`` axis to "all remaining devices"."""
-        sizes = {"dp": self.dp, "fsdp": self.fsdp, "sp": self.sp, "tp": self.tp}
-        free = [k for k, v in sizes.items() if v == -1]
-        if len(free) > 1:
-            raise ValueError(f"at most one -1 mesh axis, got {free}")
-        if free:
-            known = 1
-            for k, v in sizes.items():
-                if k != free[0]:
-                    known *= v
-            if n_devices % known:
-                raise ValueError(f"{n_devices} devices do not divide by {known}")
-            sizes[free[0]] = n_devices // known
-        total = sizes["dp"] * sizes["fsdp"] * sizes["sp"] * sizes["tp"]
-        if total != n_devices:
-            raise ValueError(f"mesh {sizes} needs {total} devices, not {n_devices}")
-        return MeshConfig(**sizes)
 
 
 @dataclasses.dataclass
@@ -195,7 +165,7 @@ class RuntimeConfig:
     reads the LoRA fields where its ``use_lora``, ``lora_rank`` and
     ``lora_alpha`` keywords are not given."""
 
-    attn_impl: str = "auto"  # auto|flash|eager
+    attn_impl: str = "auto"  # auto|flash|eager|ulysses|ring
     use_lora: bool = False
     lora_rank: int = 16
     lora_alpha: float = 16.0

@@ -173,7 +173,13 @@ class PromptLoader:
     epoch is drawn from (seed, epoch), as in JAX, padded with its own head so
     that its length is a multiple of ``process_count``, and process
     ``process_index`` takes every ``process_count``-th sample from its
-    ``process_index``-th on."""
+    ``process_index``-th on.
+
+    The padding repeats the permutation's head once at most, so with fewer
+    samples than half the processes some processes get fewer batches than
+    others, and the first collective of a step that one of them skips would
+    hang.  JAX yields them all the same; the port raises ``ValueError`` at
+    construction instead."""
 
     def __init__(self, dataset: LatentDataset, batch_size: int, *, shuffle: bool = True,
                  seed: int = 0, process_index: int = 0, process_count: int = 1,
@@ -185,6 +191,20 @@ class PromptLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.drop_last = drop_last
+        counts = {self._batches(c) for c in self._samples_per_process(len(dataset))}
+        if len(counts) > 1:
+            raise ValueError(f"{len(dataset)} samples over {process_count} processes give "
+                             f"them {sorted(counts)} batches of {batch_size}: unequal batch "
+                             "counts would hang the first collective a process skips")
+
+    def _samples_per_process(self, n):
+        per = -(-n // self.process_count)
+        padded = n + min(per * self.process_count - n, n)  # the head pads once at most
+        return [len(range(r, padded, self.process_count)) for r in range(self.process_count)]
+
+    def _batches(self, n_mine: int) -> int:
+        bs = self.batch_size
+        return n_mine // bs if self.drop_last else -(-n_mine // bs)
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, object]]:
         n = len(self.ds)
@@ -195,8 +215,7 @@ class PromptLoader:
         padded = np.concatenate([order, order[: per * self.process_count - n]])
         mine = padded[self.process_index :: self.process_count]
         bs = self.batch_size
-        nb = len(mine) // bs if self.drop_last else -(-len(mine) // bs)
-        for b in range(nb):
+        for b in range(self._batches(len(mine))):
             items = [self.ds.get(int(i), epoch) for i in mine[b * bs : (b + 1) * bs]]
             yield {
                 "prompt_embed": np.stack([it["prompt_embed"] for it in items]),

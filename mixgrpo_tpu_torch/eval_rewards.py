@@ -8,9 +8,11 @@ reported denormalized as ``(r * 8 + 18) / 100``; per-sample success flags
 propagate into the means (failed scores are left out).  Single-image mode:
 ``--image`` + ``--prompt``.
 
-One process scores every image (``process_index = 0``, ``count = 1``; JAX
-shards the list across hosts, which waits for ROADMAP Queue 1 item 8).  The
-models run on ``--device`` (``cuda`` by default, bf16; f32 on the CPU).  As
+Under torchrun each rank scores every ``count``-th entry from its own
+(``entries[pi::pc]``) into ``rewards_<pi>.json``, and rank 0 writes the
+summary over every shard after a barrier, as JAX does across hosts.  The
+models run on ``--device`` (``cuda`` by default, each rank on
+``cuda:<LOCAL_RANK mod cards>``, bf16; f32 on the CPU).  As
 in ``train.build_reward_models``, every tokenizer is found when the models
 are built, ImageReward's too, and a missing one raises there.
 
@@ -181,6 +183,12 @@ def main(argv=None):
     if not single and not (args.metadata and args.image_dir and args.output_dir):
         p.error("batch mode requires --metadata, --image_dir and --output_dir")
 
+    from mixgrpo_tpu_torch.parallel.mesh import default_device, init_distributed
+    from mixgrpo_tpu_torch.utils.logging import process_count, process_index
+
+    if args.device == "cuda":
+        args.device = default_device()
+    init_distributed(device=args.device)  # no-op for one
     models = build_models(args)
     if single:
         scores = score_single_image(args.image, args.prompt, models)
@@ -192,10 +200,17 @@ def main(argv=None):
         return scores
 
     entries = load_metadata(args.metadata)
-    results = evaluate(entries, args.image_dir, models, args.batch_size)
+    pi, pc = process_index(), process_count()
+    results = evaluate(entries, args.image_dir, models, args.batch_size, pi, pc)
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "rewards_0.json"), "w") as f:
+    with open(os.path.join(args.output_dir, f"rewards_{pi}.json"), "w") as f:
         json.dump(results, f, indent=2)
+    if pc > 1:
+        import torch.distributed as dist
+
+        dist.barrier()  # every shard is on disk before rank 0 summarises
+        if pi != 0:
+            return None
     summary = summarize(gather_result_shards(args.output_dir))
     with open(os.path.join(args.output_dir, "reward_means.txt"), "w") as f:
         for k, v in summary.items():

@@ -7,9 +7,13 @@ Port of mixgrpo_tpu/ops/attention.py.  Backends:
     CUDA tensors, their plain versions on CPU tensors; under autograd the
     forward with logsumexp and the backward kernels);
   - ``"auto"``: flash for CUDA tensors, eager for CPU tensors.
-Gradients flow through both ``"eager"`` (autograd of the torch ops) and
-``"flash"``.  The sequence-parallel impls (``"ulysses"``, ``"ring"``) wait for
-the port of ``parallel/``.
+  - ``"ulysses"``, ``"ring"``: sequence parallelism over the mesh axis that
+    ``parallel.ulysses.set_sp_context`` installed (``parallel/``): q, k and v
+    arrive whole on every rank of the axis, each rank attends for its slice
+    of the sequence, and the slices are gathered back.  A ``kv_valid`` prefix
+    becomes the equivalent key mask, and bshd goes through a transpose, as
+    in JAX.
+Gradients flow through every backend.
 """
 
 from __future__ import annotations
@@ -53,7 +57,18 @@ def attention(q, k, v, mask=None, impl: str = "auto", layout: str = "bhsd",
     if impl == "auto":
         impl = "flash" if q.device.type == "cuda" else "eager"
     if impl in ("ulysses", "ring"):
-        raise NotImplementedError(f"attention(impl={impl!r}) waits for the port of parallel/")
+        if kv_valid is not None:  # the keys are sharded: an explicit mask instead
+            mask = (torch.arange(Sk, device=q.device) < int(kv_valid))[None, None, None, :]
+        if layout == "bshd":
+            out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            mask=mask, impl=impl)
+            return out.transpose(1, 2)
+        from mixgrpo_tpu_torch.parallel.ulysses import get_sp_context, sequence_parallel
+
+        ctx = get_sp_context()
+        if ctx is None:
+            raise ValueError(f"attention(impl={impl!r}) needs parallel.set_sp_context")
+        return sequence_parallel(q, k, v, ctx[0], ctx[1], impl, mask=mask)
     if impl == "flash":
         return flash_attention(q, k, v, mask=mask, layout=layout, kv_valid=kv_valid)
     if impl != "eager":

@@ -205,8 +205,9 @@ def main(argv=None, family=None):
     from mixgrpo_tpu_torch.preprocess import (
         build_prompt_encoder_from_dir, compute_dtype, read_prompts,
     )
+    from mixgrpo_tpu_torch.parallel.mesh import default_device, init_distributed
     from mixgrpo_tpu_torch.presets import flux_family
-    from mixgrpo_tpu_torch.utils.logging import main_print
+    from mixgrpo_tpu_torch.utils.logging import main_print, process_count, process_index
 
     p = argparse.ArgumentParser(description="Mixed-model FLUX sampling (tuned + base)")
     p.add_argument("--model_path", type=str, required=True)
@@ -225,11 +226,14 @@ def main(argv=None, family=None):
     p.add_argument("--vae_tiling", type=str, default="auto", choices=["auto", "on", "off"],
                    help="tiled VAE decode (auto: on above 768px)")
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8"])
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (each rank takes cuda:<LOCAL_RANK mod cards>) or cpu")
     args = p.parse_args(argv)
 
     fam = family or flux_family()
-    dev, dtype = torch.device(args.device), compute_dtype(args.device)
+    dev = default_device() if args.device == "cuda" else torch.device(args.device)
+    init_distributed(device=dev)  # torchrun; no-op for one
+    dtype = compute_dtype(args.device)
     flux_cfg, vae_cfg = fam["flux"], fam["vae"]
     kw = dict(dtype=dtype, device=dev)
     vae = load_vae_decoder_params(os.path.join(args.model_path, "vae"), vae_cfg, **kw)
@@ -246,15 +250,17 @@ def main(argv=None, family=None):
         vae_tiling=args.vae_tiling, device=dev)
 
     prompts = read_prompts(args.prompt_path)
-    for i in range(0, len(prompts), args.batch_size):
-        chunk = prompts[i:i + args.batch_size]
+    pi, pc = process_index(), process_count()
+    mine = prompts[pi::pc]  # each rank every pc-th prompt from its pi-th, as JAX
+    for i in range(0, len(mine), args.batch_size):
+        chunk = mine[i:i + args.batch_size]
         emb, pooled = enc(chunk)
-        seed = args.seed + i
+        seed = args.seed + pi * 100000 + i
         imgs = pipe(torch.from_numpy(emb).to(dev, dtype), torch.from_numpy(pooled).to(dev, dtype),
                     torch.Generator(dev).manual_seed(seed))
         save_outputs(imgs, chunk, args.output_dir, [seed + j for j in range(len(chunk))],
-                     start=i)
-        main_print(f"sampled {i + len(chunk)}/{len(prompts)}")
+                     pi, start=i)
+        main_print(f"sampled {i + len(chunk)}/{len(mine)}")
 
 
 if __name__ == "__main__":

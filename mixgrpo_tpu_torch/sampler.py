@@ -4,9 +4,11 @@ Port of mixgrpo_tpu/sampler.py.  The whole generation group is batched into
 one rollout; the sigma schedule, the ODE/SDE mask and the step count are
 arguments.  Timestep quantization is kept: the DiT is fed
 ``int(sigma*1000)/1000``, sigma floored to 1e-3.  ``chunked_rollout`` runs
-the training group as several rollouts of ``chunk`` rows, on one device, in
-row order; each chunk draws its SDE noise from its own generator (JAX folds
-the chunk index into its key).
+the training group as several rollouts of ``chunk`` rows, in row order;
+each chunk draws its SDE noise from its own generator (JAX folds the chunk
+index into its key).  On a mesh the tensors are each rank's own rows, so
+``chunk`` counts images per batch shard, as JAX's ``chunk`` does, and each
+rank's generators are its own (``train.GRPOTrainer._generator``).
 """
 
 from __future__ import annotations

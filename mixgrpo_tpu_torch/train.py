@@ -1,7 +1,7 @@
 """MixGRPO training: rollout -> rewards -> advantages -> PPO updates.
 
-Port of mixgrpo_tpu/train.py's ``GRPOTrainer`` on one device.  One
-iteration (``train_one_step``):
+Port of mixgrpo_tpu/train.py's ``GRPOTrainer``.  One iteration
+(``train_one_step``):
 
   1. take a prompt batch from the embedding cache and repeat each prompt
      ``num_generations`` times (a group);
@@ -51,7 +51,18 @@ matmuls (``ops/quant.py``), quantised each iteration after the LoRA merge;
 the quantised network is the behaviour policy whose log-probs the PPO ratio
 divides by, and the update stays bf16 over the fp32 masters.
 
-Waiting for a later slice, and refused here: meshes of more than one device.
+On a mesh (``cfg.mesh``, one process per device, ``parallel/``) each rank
+rolls out, decodes and scores its own prompt shard (each batch rank's noise
+comes from generators that also take its batch rank, as JAX folds in the
+process index), the FSDP update averages the gradients over the batch ranks,
+and the reward means, ``global_advantages``' statistics and the metrics are
+taken over every batch rank.  The parameters, the optimizer state and the
+EMA parameters are each rank's fsdp shards (``parallel/sharding.py``); the
+rollout gathers the whole tree once per iteration in the compute dtype.
+Only rank 0 logs, writes ``args.json`` and ``rewards.txt`` and exports;
+every rank writes its own ``rewards_samples_rank{r}.jsonl`` and checkpoint
+shard.  Under LoRA the base and the adapter stay whole on every rank.
+Refused: tensor parallelism (``tp > 1``, ROADMAP item 8b).
 """
 
 from __future__ import annotations
@@ -68,13 +79,19 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from mixgrpo_tpu_torch.config import MeshConfig, TrainConfig, window_state_from_config
+from mixgrpo_tpu_torch.config import TrainConfig, window_state_from_config
 from mixgrpo_tpu_torch.data.dataset import PromptLoader
 from mixgrpo_tpu_torch.lora import apply_lora, init_lora
 from mixgrpo_tpu_torch.models.flux.latents import denormalize_latents, unpack_latents
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, init_flux, param_leaves
 from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, postprocess_images, vae_decode
 from mixgrpo_tpu_torch.ops.quant import quantize_flux_params
+from mixgrpo_tpu_torch.parallel.collectives import gather_objects
+from mixgrpo_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
+from mixgrpo_tpu_torch.parallel.sharding import (
+    flux_param_specs, gather_params, set_activation_mesh, shard_params,
+)
+from mixgrpo_tpu_torch.parallel.ulysses import set_sp_context
 from mixgrpo_tpu_torch.rl.advantage import (
     global_advantages, group_advantages, masked_mix_advantages, masked_mix_rewards,
 )
@@ -99,8 +116,13 @@ def _refuse_unported(cfg: TrainConfig, reward_fn, reward_models):
                          "reward_fn")
     if cfg.grpo.rollout_quant not in ("none", "int8"):
         raise ValueError(f"unknown rollout_quant {cfg.grpo.rollout_quant!r}")
-    if cfg.mesh.resolved(1) != MeshConfig(1, 1, 1, 1):
-        raise ValueError(f"the port's trainer runs on one device, not mesh {cfg.mesh}")
+    _refuse_tp(cfg.mesh)
+
+
+def _refuse_tp(mesh_cfg):
+    if mesh_cfg.tp > 1:
+        raise ValueError(f"mesh {mesh_cfg}: tensor parallelism (tp > 1) waits for ROADMAP "
+                         "item 8b (the Megatron split of the FLUX blocks)")
 
 
 class GRPOTrainer:
@@ -141,9 +163,18 @@ class GRPOTrainer:
         self.flux_cfg = flux_cfg or FluxConfig.flux_dev()
         self.device = torch.device(device)
         self.dtype = dtype
+        self.mesh: Mesh = make_mesh(cfg.mesh, device=self.device)
+        _refuse_tp(self.mesh.cfg)
+        set_activation_mesh(self.mesh)
+        set_sp_context(self.mesh, "sp")
         if params is None:
             params = init_flux(self.flux_cfg, device=self.device,
                                generator=torch.Generator(self.device).manual_seed(cfg.grpo.seed))
+        # fsdp shards of the trained tree (the LoRA base stays whole)
+        self.sharded = self.mesh.world > 1 and not use_lora
+        self.param_specs = flux_param_specs(params, self.mesh) if self.sharded else None
+        if self.sharded:
+            params = shard_params(params, self.mesh, self.param_specs)
         if not use_lora:
             for t in param_leaves(params):
                 t.requires_grad_(True)
@@ -178,12 +209,13 @@ class GRPOTrainer:
             self.opt_state = self.optimizer.init(self.lora_factors)
             self.lora_update = make_lora_update_fns(
                 self.flux_cfg, self.sampler_cfg, cfg.ppo_config(), self.optimizer,
-                self.sampler.rope_cos, self.sampler.rope_sin, **kw)
+                self.sampler.rope_cos, self.sampler.rope_sin, mesh=self.mesh, **kw)
         else:
             self.opt_state = self.optimizer.init(self.params)
             self.update_step, self.accum_step, self.apply_step = make_update_fns(
                 self.flux_cfg, self.sampler_cfg, cfg.ppo_config(), self.optimizer,
-                self.sampler.rope_cos, self.sampler.rope_sin, **kw)
+                self.sampler.rope_cos, self.sampler.rope_sin, mesh=self.mesh,
+                param_specs=self.param_specs, **kw)
         self.ema_params = ema_init(self.params) if o.ema_decay > 0 and not use_lora else None
         self.profile_trace: Optional[profiling.Trace] = None  # the last trace written
         self._export_warned = False
@@ -193,15 +225,17 @@ class GRPOTrainer:
 
         self.run_dir = os.path.join(cfg.run.output_dir,
                                     f"{cfg.grpo.training_strategy}_{cfg.run.experiment_name}")
-        self.ckpt = CheckpointManager(os.path.join(self.run_dir, "checkpoints"))
+        self.ckpt = CheckpointManager(os.path.join(self.run_dir, "checkpoints"),
+                                      mesh=self.mesh if self.mesh.world > 1 else None)
         # wandb run id: made once, kept in args.json, reused on resume
         self.wandb_run_id = self._load_or_create_run_id()
         self.metrics = MetricLogger(self.run_dir, run_name=cfg.run.experiment_name,
                                     wandb_key=cfg.run.wandb_key, resume_id=self.wandb_run_id)
-        blob = json.loads(cfg.to_json())
-        blob["wandb_run_id"] = self.wandb_run_id
-        with open(os.path.join(self.run_dir, "args.json"), "w") as f:
-            json.dump(blob, f, indent=2)
+        if self.mesh.rank == 0:
+            blob = json.loads(cfg.to_json())
+            blob["wandb_run_id"] = self.wandb_run_id
+            with open(os.path.join(self.run_dir, "args.json"), "w") as f:
+                json.dump(blob, f, indent=2)
         if cfg.run.resume_from_checkpoint:
             self._resume()
 
@@ -236,8 +270,12 @@ class GRPOTrainer:
         main_print(f"resumed from step {step}")
 
     def _generator(self, *stream) -> torch.Generator:
-        """A generator seeded from (sampler_seed, global_step, *stream)."""
-        ss = np.random.SeedSequence([self.cfg.grpo.sampler_seed, self.global_step, *stream])
+        """A generator seeded from (sampler_seed, global_step, *stream), and
+        the batch rank when there is more than one, so that each prompt shard
+        draws its own noise (the ranks of one ``sp`` group draw alike)."""
+        rank = (self.mesh.batch_index,) if self.mesh.batch_size > 1 else ()
+        ss = np.random.SeedSequence([self.cfg.grpo.sampler_seed, self.global_step, *stream,
+                                     *rank])
         seed = int(ss.generate_state(1, np.uint64)[0])
         return torch.Generator(self.device).manual_seed(seed)
 
@@ -277,7 +315,8 @@ class GRPOTrainer:
                 {k: np.asarray(v) for k, v in sd.items()})
 
     def _save_first_image(self, images01):
-        """The first decoded image of each step, ``images/flux_<step>_0.png``;
+        """The first decoded image of each step and rank,
+        ``images/flux_<step>_<rank>.png``;
         best effort: a failure is printed and skipped."""
         try:
             from PIL import Image
@@ -286,7 +325,7 @@ class GRPOTrainer:
             os.makedirs(img_dir, exist_ok=True)
             arr = images01[0].float().cpu().numpy()
             Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8)).save(
-                os.path.join(img_dir, f"flux_{self.global_step}_0.png"))
+                os.path.join(img_dir, f"flux_{self.global_step}_{self.mesh.rank}.png"))
         except Exception as e:  # image dumps are observability, not training
             main_print(f"image save skipped: {e}")
 
@@ -327,6 +366,9 @@ class GRPOTrainer:
         with profiling.annotate("rollout"):
             # the LoRA policy: merged once, freed before the decode and update
             rollout_params = self.params
+            if self.sharded:
+                rollout_params = gather_params(self.params, self.mesh, self.param_specs,
+                                               self.dtype)
             if self.use_lora:
                 with torch.no_grad():
                     rollout_params = apply_lora(self.params, {**self.lora_meta,
@@ -369,7 +411,8 @@ class GRPOTrainer:
             if cfg.reward.multi_reward_mix != "reward_aggr":
                 raise ValueError("advantage_aggr requires use_group")
             rewards = masked_mix_rewards(rd, sd, self.reward_weights)
-            adv = global_advantages(rewards, rewards.reshape(-1))
+            every = np.concatenate(gather_objects(rewards.numpy().reshape(-1), self.mesh))
+            adv = global_advantages(rewards, torch.as_tensor(every))
 
         # training timesteps; ignore_last drops the final MDP step's pair
         if cfg.grpo.training_strategy == "part":
@@ -423,11 +466,16 @@ class GRPOTrainer:
         t3 = time.perf_counter()
 
         metrics = {k: v / max(n_updates, 1) for k, v in agg.items()}
-        metrics["reward"] = float(rewards.mean())
-        for name, vals in rewards_dict.items():
+        # the reward means are over every batch rank's rows
+        gathered = gather_objects(
+            (rewards.numpy().reshape(-1),
+             {k: (np.asarray(v, np.float64).reshape(-1), sd[k].numpy().reshape(-1))
+              for k, v in rewards_dict.items()}), self.mesh)
+        metrics["reward"] = float(np.concatenate([g[0] for g in gathered]).mean())
+        for name in rewards_dict:
             # success-masked per-model mean
-            v = np.asarray(vals, np.float64).reshape(-1)
-            s = np.asarray(sd[name], np.float64).reshape(-1)
+            v = np.concatenate([g[1][name][0] for g in gathered]).astype(np.float64)
+            s = np.concatenate([g[1][name][1] for g in gathered]).astype(np.float64)
             metrics[f"reward/{name}"] = float((v * s).sum() / s.sum()) if s.sum() > 0 else 0.0
         metrics["cur_timestep"] = self.window.cur_timestep
         metrics["cur_iter_in_group"] = self.window.cur_iter_in_group
@@ -443,17 +491,20 @@ class GRPOTrainer:
     # ------------------------------------------------------------------
 
     def _dump_reward_stream(self, captions, rewards_dict, sd, rewards, metrics):
-        """Append-only reward text streams: ``rewards.txt`` (per-model means
-        per step) and ``rewards_samples_rank0.jsonl`` (every sample's caption
-        and scores)."""
+        """Append-only reward text streams: ``rewards.txt`` (rank 0: the
+        per-model means over every rank per step) and
+        ``rewards_samples_rank{r}.jsonl`` (every rank: each of its samples'
+        caption and scores)."""
         try:
-            with open(os.path.join(self.run_dir, "rewards.txt"), "a") as f:
-                f.write(f"step {self.global_step}\n")
-                for name in rewards_dict:
-                    f.write(f"{name}: {metrics[f'reward/{name}']}\n")
-                f.write(f"reward: {metrics['reward']}\n")
+            if self.mesh.rank == 0:
+                with open(os.path.join(self.run_dir, "rewards.txt"), "a") as f:
+                    f.write(f"step {self.global_step}\n")
+                    for name in rewards_dict:
+                        f.write(f"{name}: {metrics[f'reward/{name}']}\n")
+                    f.write(f"reward: {metrics['reward']}\n")
             mixed = np.asarray(rewards).reshape(-1)
-            with open(os.path.join(self.run_dir, "rewards_samples_rank0.jsonl"), "a") as f:
+            path = os.path.join(self.run_dir, f"rewards_samples_rank{self.mesh.rank}.jsonl")
+            with open(path, "a") as f:
                 for i, cap in enumerate(captions):
                     row = {"step": self.global_step, "caption": cap,
                            "reward": float(mixed[i]) if i < len(mixed) else None}
@@ -535,7 +586,8 @@ class GRPOTrainer:
             path = os.path.join(self.run_dir, f"export_{self.global_step}",
                                 "diffusion_pytorch_model.safetensors")
             try:
-                export_flux_safetensors(self.params, self.flux_cfg, path)
+                export_flux_safetensors(self.params, self.flux_cfg, path, mesh=self.mesh,
+                                        specs=self.param_specs)
             except Exception as e:
                 if mode == "required":
                     raise RuntimeError(f"safetensors export failed at step {self.global_step} "
@@ -634,16 +686,21 @@ def main(argv=None, family=None):
     from mixgrpo_tpu_torch.config import build_arg_parser, config_from_args
     from mixgrpo_tpu_torch.data.dataset import LatentDataset
     from mixgrpo_tpu_torch.models.flux.load import load_flux_params, load_vae_decoder_params
+    from mixgrpo_tpu_torch.parallel.mesh import default_device
     from mixgrpo_tpu_torch.preprocess import compute_dtype
     from mixgrpo_tpu_torch.presets import flux_family
 
     p = build_arg_parser()
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (each rank takes cuda:<LOCAL_RANK mod cards>) or cpu")
     args = p.parse_args(argv)
     cfg = config_from_args(args)
 
     fam = family or flux_family()
-    dev, dtype = torch.device(args.device), compute_dtype(args.device)
+    dev = default_device() if args.device == "cuda" else torch.device(args.device)
+    # rendezvous from torchrun's environment; a no-op for one process
+    init_distributed(device=dev)
+    dtype = compute_dtype(args.device)
     root = cfg.paths.pretrained_model_name_or_path
     flux_cfg, vae_cfg = fam["flux"], fam["vae"]
     reward_models = build_reward_models(cfg, device=dev)
@@ -658,10 +715,12 @@ def main(argv=None, family=None):
                           vae_params=vae_params, reward_models=reward_models,
                           attn_impl=cfg.runtime.attn_impl, dtype=dtype, device=dev)
     ds = LatentDataset(cfg.data.data_json_path, cfg_rate=cfg.data.cfg_rate, seed=cfg.grpo.seed)
-    # one process: JAX passes jax.process_index() and jax.process_count() here,
-    # which wait for the port of parallel/ (ROADMAP Queue 1 item 8)
+    # each batch rank (dp x fsdp) its own prompt shard; the ranks of one sp
+    # group share theirs
+    mesh = trainer.mesh
     trainer.train(PromptLoader(ds, cfg.data.train_batch_size, seed=cfg.grpo.seed,
-                               process_index=0, process_count=1))
+                               process_index=mesh.batch_index,
+                               process_count=mesh.batch_size))
     return trainer
 
 

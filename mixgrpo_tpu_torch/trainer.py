@@ -23,18 +23,30 @@ eps outside the square root, bias correction from step 1):
 through the same loss: the base stays frozen (no grad is kept for it) and
 each factor merges into its weight inside the block that uses it
 (``lora.lora_blocks``).
+
+On a mesh (``mesh=``, ``parallel/``) each rank computes the loss of its own
+rows, and its parameters are its shards of the tree
+(``parallel.sharding``): the forward gathers them where they are used, the
+gradients are averaged over the batch ranks (dp x fsdp) so that the loss is
+the mean over the update group's global rows, as in JAX, the global norm
+sums the shards' squares over ``fsdp`` (so every rank takes the same clip
+decision), AdamW steps each rank's shards, and the metrics are the batch
+ranks' mean.  The LoRA update keeps its base and factors whole on every rank
+and averages the factors' gradients over the batch ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
 from mixgrpo_tpu_torch.lora import lora_blocks
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, flux_forward, param_leaves
+from mixgrpo_tpu_torch.parallel.collectives import all_reduce_
+from mixgrpo_tpu_torch.parallel.sharding import flatten_specs, fsdp_view, reduce_grads
 from mixgrpo_tpu_torch.rl.ppo import PPOConfig, ppo_loss
 from mixgrpo_tpu_torch.sampler import quantized_timestep
 from mixgrpo_tpu_torch.solvers import dpm as dpm_mod
@@ -85,9 +97,19 @@ def recompute_log_prob(sampler_cfg: SamplerConfig, pred, latents, next_latents, 
 # ----------------------------------------------------------------------------
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, in f32 (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor], mesh=None,
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry, in f32 (optax.global_norm).
+    On a mesh, the tensors flagged in ``sharded`` are this rank's fsdp
+    shards: their squares are summed over the fsdp group, and the others
+    (whole on every rank) are counted once."""
+    if mesh is None or mesh.size("fsdp") == 1 or not any(sharded or ()):
+        return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    sq = [(t.float() ** 2).sum() for t in tensors]
+    zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    own = sum((q for q, s in zip(sq, sharded) if s), zero)
+    whole = sum((q for q, s in zip(sq, sharded) if not s), zero)
+    return torch.sqrt(all_reduce_(own, mesh, "fsdp") + whole)
 
 
 @dataclasses.dataclass
@@ -117,11 +139,13 @@ class Optimizer:
         return opt
 
     @torch.no_grad()
-    def apply(self, state: torch.optim.Optimizer, grads: Sequence[torch.Tensor]):
+    def apply(self, state: torch.optim.Optimizer, grads: Sequence[torch.Tensor], *,
+              mesh=None, sharded: Optional[Sequence[bool]] = None):
         """One update with ``grads`` (in the order of the state's params);
-        returns their global norm before clipping."""
+        returns their global norm before clipping (``global_norm``'s
+        ``mesh`` and ``sharded``)."""
         group = state.param_groups[0]
-        norm = global_norm(grads)
+        norm = global_norm(grads, mesh, sharded)
         if float(norm) >= self.max_grad_norm:  # optax: where(norm < max, g, g / norm * max)
             grads = [g / norm * self.max_grad_norm for g in grads]
         for p, g in zip(group["params"], grads):
@@ -249,11 +273,21 @@ def _make_grads_of(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: PP
     return grads_of
 
 
+def _batch_mean(metrics, mesh):
+    """The metrics' mean over the batch ranks (one all-reduce)."""
+    if mesh is None or mesh.batch_size == 1:
+        return metrics
+    keys = sorted(metrics)
+    flat = torch.stack([metrics[k].float() for k in keys])
+    all_reduce_(flat, mesh, "batch")
+    return dict(zip(keys, (flat / mesh.batch_size).unbind(0)))
+
+
 def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: PPOConfig,
                     optimizer: Optimizer, rope_cos, rope_sin, *,
                     guidance_scale: float = 3.5, dtype=torch.bfloat16,
                     attn_impl: str = "auto", remat="dots", loss_scale: float = 1.0,
-                    virtual_depth=None):
+                    virtual_depth=None, mesh=None, param_specs=None):
     """``(update_step, accum_step, apply_step)``:
 
     ``update_step(params, opt_state, batch, sigmas) -> (params, opt_state,
@@ -261,18 +295,35 @@ def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: P
     (grad_acc, metrics)`` adds ``weight``-scaled grads without applying;
     ``apply_step(params, opt_state, grad_acc) -> (params, opt_state,
     zeroed grad_acc, its global norm)``.  ``virtual_depth`` is the benchmark
-    aid of ``flux_forward``.  Metrics are 0-dim tensors."""
+    aid of ``flux_forward``.  Metrics are 0-dim tensors.  On a ``mesh``,
+    ``params`` are this rank's shards and ``param_specs`` is
+    ``parallel.sharding.flux_param_specs`` of the whole tree."""
     grads_of = _make_grads_of(flux_cfg, sampler_cfg, ppo_cfg, rope_cos, rope_sin,
                               guidance_scale, dtype, attn_impl, remat, loss_scale,
                               virtual_depth)
+    on_mesh = mesh is not None and mesh.world > 1
+    flat_specs = sharded = None
 
     def all_grads(params, batch, sigmas):
+        nonlocal flat_specs, sharded
         leaves = [t.requires_grad_(True) for t in param_leaves(params)]
-        return grads_of(params, leaves, batch, sigmas)
+        if not on_mesh:
+            return grads_of(params, leaves, batch, sigmas)
+        if flat_specs is None:
+            flat_specs = flatten_specs(param_specs)
+            sharded = ["fsdp" in s for s in flat_specs]
+        with torch.enable_grad():  # the gathers outside the blocks are on the graph
+            fwd, hook = fsdp_view(params, mesh, param_specs)
+        grads, metrics = grads_of(fwd, leaves, batch, sigmas, block_params=hook)
+        return reduce_grads(grads, flat_specs, mesh), _batch_mean(metrics, mesh)
+
+    def apply(opt_state, grads):
+        return optimizer.apply(opt_state, grads, mesh=mesh if on_mesh else None,
+                               sharded=sharded)
 
     def update_step(params, opt_state, batch: UpdateBatch, sigmas):
         grads, metrics = all_grads(params, batch, sigmas)
-        metrics["grad_norm"] = optimizer.apply(opt_state, grads)
+        metrics["grad_norm"] = apply(opt_state, grads)
         return params, opt_state, metrics
 
     @torch.no_grad()
@@ -285,7 +336,7 @@ def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: P
     @torch.no_grad()
     def apply_step(params, opt_state, grad_acc):
         acc = param_leaves(grad_acc)
-        norm = optimizer.apply(opt_state, acc)  # done with the grads once it returns
+        norm = apply(opt_state, acc)  # done with the grads once it returns
         for a in acc:
             a.zero_()
         return params, opt_state, grad_acc, norm
@@ -297,13 +348,14 @@ def make_lora_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig,
                          ppo_cfg: PPOConfig, optimizer: Optimizer, rope_cos, rope_sin, *,
                          guidance_scale: float = 3.5, dtype=torch.bfloat16,
                          attn_impl: str = "auto", remat="dots", loss_scale: float = 1.0,
-                         virtual_depth=None):
+                         virtual_depth=None, mesh=None):
     """LoRA variant of ``make_update_fns``: ``update_step(factors, opt_state,
     lora_meta, base_params, batch, sigmas) -> (factors, opt_state, metrics)``.
     Gradients flow into the factors only (``opt_state`` is ``optimizer.init``
     of the factor tree) and ``grad_norm`` is their global norm before
     clipping.  The base tree is read, never written, and needs no
-    ``requires_grad``."""
+    ``requires_grad``.  On a ``mesh`` the factors' gradients are averaged
+    over the batch ranks."""
     grads_of = _make_grads_of(flux_cfg, sampler_cfg, ppo_cfg, rope_cos, rope_sin,
                               guidance_scale, dtype, attn_impl, remat, loss_scale,
                               virtual_depth)
@@ -313,6 +365,9 @@ def make_lora_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig,
         with torch.enable_grad():  # merges outside the blocks are on the graph too
             params, merge_block = lora_blocks(base_params, {**lora_meta, "factors": factors})
         grads, metrics = grads_of(params, leaves, batch, sigmas, block_params=merge_block)
+        if mesh is not None and mesh.world > 1:
+            grads = reduce_grads(grads, [()] * len(grads), mesh)
+            metrics = _batch_mean(metrics, mesh)
         metrics["grad_norm"] = optimizer.apply(opt_state, grads)
         return factors, opt_state, metrics
 

@@ -1,14 +1,22 @@
-"""Training checkpoints on ``torch.save``.
+"""Training checkpoints on ``torch.save``, one file per fsdp shard.
 
-Port of mixgrpo_tpu/utils/checkpoint.py's ``CheckpointManager`` (JAX writes
-sharded Orbax checkpoints; the port runs on one device and writes one file
-per step): ``<directory>/<step>/state.pt`` holds the parameters, the
-optimizer state, the EMA parameters, the sliding-window state, extra
-metadata and the step, so a resumed run continues the window walk.  Tensors
-are copied to the host before the write; ``blocking=False`` lets the disk
-write run in a background thread (joined by the next save, ``wait`` or
-``close``).  A step appears only once its file is complete (written under a
-temporary name, then renamed).
+Port of mixgrpo_tpu/utils/checkpoint.py's ``CheckpointManager``.  JAX writes
+sharded Orbax checkpoints in which every host writes its own shards; here
+each fsdp shard of the parameters, the optimizer state and the EMA
+parameters is written by the rank that holds it, with no gather of the whole
+state to one rank: ``<directory>/<step>/shard<f>of<F>.pt`` (one rank per
+fsdp index writes: the one at dp, sp and tp index 0; the others hold the
+same values).  The file also holds the sliding-window state, extra metadata
+and the step, so a resumed run continues the window walk.  Rank 0 writes
+``<step>/manifest.json`` (the mesh and the file names) once every shard is on
+disk, and a step exists only once its manifest does.  ``restore`` reads this
+rank's shard and raises when the checkpoint's mesh is not the current one.
+
+Tensors are copied to the host before the write.  ``blocking=False`` lets the
+disk write run in a background thread (joined by the next save, ``wait`` or
+``close``) on one process; across ranks the save blocks, since the manifest
+waits for every rank's file.  Each file is written under a temporary name,
+then renamed.
 
 ``export_flux_safetensors`` writes FLUX parameters under diffusers
 ``FluxTransformer2DModel`` names in F32, as JAX's does, so trained weights
@@ -16,11 +24,13 @@ load into diffusers and into ``models/flux/load.py::load_flux_params`` (it
 is that loader's inverse).  It is two halves: ``diffusers_state`` (names ->
 views of the parameters, transposed and split, on their device and in their
 dtype) and ``utils.safetensors_io.save_file`` (which casts and copies one
-tensor at a time to the host).
+tensor at a time to the host).  On a mesh, the leaves are gathered one at a
+time to rank 0's host, and rank 0 alone writes.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -29,7 +39,8 @@ import torch
 
 from mixgrpo_tpu_torch.utils.safetensors_io import save_file
 
-_FILE = "state.pt"
+_MANIFEST = "manifest.json"
+_ONE = {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
 
 
 def _to_host(tree):
@@ -43,26 +54,58 @@ def _to_host(tree):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
+        """``mesh``: the ``parallel.mesh.Mesh`` the state is sharded on (None:
+        one process)."""
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self._last_ema = None
 
+    # -- layout ------------------------------------------------------------
+
+    def _mesh_dict(self) -> Dict[str, int]:
+        return self.mesh.to_dict() if self.mesh is not None else dict(_ONE)
+
+    def _shard(self) -> Tuple[int, int]:
+        if self.mesh is None:
+            return 0, 1
+        return self.mesh.coords["fsdp"], self.mesh.cfg.fsdp
+
+    def _writes(self) -> bool:
+        c = self.mesh.coords if self.mesh is not None else None
+        return c is None or c["dp"] == c["sp"] == c["tp"] == 0
+
+    @staticmethod
+    def _file(f: int, n: int) -> str:
+        return f"shard{f}of{n}.pt"
+
+    def _barrier(self):
+        if self.mesh is not None and self.mesh.world > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
+
+    # -- save --------------------------------------------------------------
+
     def save(self, step: int, params: Any, opt_state: Any = None,
              window_state: Optional[dict] = None, extra: Optional[dict] = None,
              ema_params: Any = None, blocking: bool = True) -> None:
-        """Save one step.  ``opt_state`` is a ``torch.optim`` optimizer or its
-        ``state_dict``."""
+        """Save one step (this rank's shard).  ``opt_state`` is a
+        ``torch.optim`` optimizer or its ``state_dict``."""
         self.wait()
-        if opt_state is not None and hasattr(opt_state, "state_dict"):
-            opt_state = opt_state.state_dict()
-        state = _to_host({
-            "params": params, "opt_state": opt_state, "ema_params": ema_params,
-            "meta": {"window_state": window_state, "extra": extra or {}, "step": step},
-        })
-        if blocking:
+        multi = self.mesh is not None and self.mesh.world > 1
+        state = None
+        if self._writes():
+            if opt_state is not None and hasattr(opt_state, "state_dict"):
+                opt_state = opt_state.state_dict()
+            state = _to_host({
+                "params": params, "opt_state": opt_state, "ema_params": ema_params,
+                "meta": {"window_state": window_state, "extra": extra or {}, "step": step},
+            })
+        if blocking or multi:
             self._write(step, state)
         else:
             self._thread = threading.Thread(target=self._write_logged, args=(step, state),
@@ -78,9 +121,20 @@ class CheckpointManager:
     def _write(self, step, state):
         d = os.path.join(self.directory, str(step))
         os.makedirs(d, exist_ok=True)
-        tmp = os.path.join(d, _FILE + ".tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, os.path.join(d, _FILE))
+        f, n = self._shard()
+        if state is not None:
+            tmp = os.path.join(d, self._file(f, n) + ".tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, os.path.join(d, self._file(f, n)))
+        self._barrier()  # every shard is on disk before the manifest
+        if self.mesh is None or self.mesh.rank == 0:
+            manifest = {"step": step, "mesh": self._mesh_dict(),
+                        "files": [self._file(i, n) for i in range(n)]}
+            tmp = os.path.join(d, _MANIFEST + ".tmp")
+            with open(tmp, "w") as fh:
+                json.dump(manifest, fh)
+            os.replace(tmp, os.path.join(d, _MANIFEST))
+        self._barrier()
 
     def wait(self) -> None:
         """Join an in-flight background save; raise what it raised."""
@@ -91,10 +145,12 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise RuntimeError("background checkpoint save failed") from err
 
+    # -- restore -----------------------------------------------------------
+
     def all_steps(self):
         steps = []
         for name in os.listdir(self.directory):
-            if name.isdigit() and os.path.exists(os.path.join(self.directory, name, _FILE)):
+            if name.isdigit() and os.path.exists(os.path.join(self.directory, name, _MANIFEST)):
                 steps.append(int(name))
         return sorted(steps)
 
@@ -104,14 +160,21 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None) -> Tuple[Any, Any, Optional[dict], int]:
         """(params, optimizer state_dict, window_state, step) of ``step`` (the
-        latest by default), tensors on the host; the EMA parameters, if
-        saved, through ``last_ema``."""
+        latest by default): this rank's shard, tensors on the host; the EMA
+        parameters, if saved, through ``last_ema``.  Raises ``ValueError``
+        when the checkpoint was written on another mesh."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        state = torch.load(os.path.join(self.directory, str(step), _FILE),
-                           map_location="cpu", weights_only=True)
+        d = os.path.join(self.directory, str(step))
+        with open(os.path.join(d, _MANIFEST)) as fh:
+            manifest = json.load(fh)
+        if manifest["mesh"] != self._mesh_dict():
+            raise ValueError(f"checkpoint {d} was written on mesh {manifest['mesh']}; this "
+                             f"run's mesh is {self._mesh_dict()}: resume on the same mesh")
+        state = torch.load(os.path.join(d, self._file(*self._shard())), map_location="cpu",
+                           weights_only=True)
         self._last_ema = state.get("ema_params")
         meta = state["meta"]
         return state["params"], state.get("opt_state"), meta.get("window_state"), meta["step"]
@@ -199,6 +262,25 @@ def diffusers_state(params: Any, cfg) -> Dict[str, torch.Tensor]:
     return st
 
 
-def export_flux_safetensors(params: Any, cfg, path: str) -> None:
-    """Write FLUX params as diffusers ``FluxTransformer2DModel`` names, F32."""
+def export_flux_safetensors(params: Any, cfg, path: str, mesh=None, specs=None) -> None:
+    """Write FLUX params as diffusers ``FluxTransformer2DModel`` names, F32.
+    On a ``mesh`` of more than one rank, rank 0 alone writes.  Where
+    ``specs`` (the tree of ``parallel.sharding.flux_param_specs``) is given,
+    ``params`` are this rank's shards: every rank takes part in gathering
+    each leaf in turn, and rank 0 keeps it on the host; without ``specs`` the
+    tree is whole on every rank (the LoRA base)."""
+    if mesh is not None and mesh.world > 1:
+        if specs is not None:
+            from mixgrpo_tpu_torch.parallel.sharding import gather_leaf
+
+            def full(tree, spec):
+                if isinstance(tree, dict):
+                    return {k: full(v, spec[k]) for k, v in tree.items()}
+                t = gather_leaf(tree.detach(), mesh, spec)
+                return t.cpu() if mesh.rank == 0 else None
+
+            with torch.no_grad():
+                params = full(params, specs)
+        if mesh.rank != 0:
+            return
     save_file(diffusers_state(params, cfg), path, dtype=torch.float32)

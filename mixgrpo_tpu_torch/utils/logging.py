@@ -2,8 +2,9 @@
 
 Port of mixgrpo_tpu/utils/logging.py: ``main_print`` and ``MetricLogger``
 (a JSONL file of metrics per step, a rolling step-time average over the last
-100 steps, and wandb when the package is present and a key is given).  The
-port runs one process, so the process-0 gates of JAX are always open.
+100 steps, and wandb when the package is present and a key is given).  As in
+JAX, only process 0 prints and logs (the rank of the default process group,
+0 without one).
 """
 
 from __future__ import annotations
@@ -15,8 +16,23 @@ import time
 from typing import Dict, Optional
 
 
+def process_index() -> int:
+    """This process's rank (0 when ``torch.distributed`` is not started)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes (1 when ``torch.distributed`` is not started)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def main_print(*args, **kwargs) -> None:
-    print(*args, **kwargs)
+    if process_index() == 0:
+        print(*args, **kwargs)
 
 
 class MetricLogger:
@@ -26,10 +42,11 @@ class MetricLogger:
         self._wandb = None
         self._step_times = collections.deque(maxlen=100)
         self._last_tick: Optional[float] = None
+        self.enabled = process_index() == 0
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, f"{run_name}_metrics.jsonl")
-        self._f = open(self.path, "a")
-        if wandb_key:
+        self._f = open(self.path, "a") if self.enabled else None
+        if wandb_key and self.enabled:
             try:
                 import wandb
             except ImportError:
@@ -54,12 +71,15 @@ class MetricLogger:
     def log(self, step: int, metrics: Dict) -> None:
         clean = {k: (float(v) if hasattr(v, "__float__") else v) for k, v in metrics.items()}
         clean["step"] = step
+        if self._f is None:
+            return
         self._f.write(json.dumps(clean) + "\n")
         self._f.flush()
         if self._wandb is not None:
             self._wandb.log(clean, step=step)
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._wandb is not None:
             self._wandb.finish()

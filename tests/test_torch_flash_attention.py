@@ -113,7 +113,7 @@ def test_dispatch_contract():
         FA.flash_attention(q, k, v, mask=m, kv_valid=4)
     with pytest.raises(ValueError, match="unknown attention impl"):
         attention(q, k, v, impl="xla")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="set_sp_context"):  # ring needs its mesh axis
         attention(q, k, v, impl="ring")
     with pytest.raises(ValueError, match="key-side"):
         FA.flash_attention(q, k, v, mask=torch.ones((1, 1, 8, 8), dtype=torch.bool))

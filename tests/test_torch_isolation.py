@@ -36,7 +36,9 @@ def test_port_package_is_present():
                    "rewards/unified_reward.py", "rewards/vqa.py", "rewards/__init__.py",
                    "models/text/blip.py", "eval_rewards.py", "verify_weights.py",
                    "tsne_probe.py", "data/sampler.py", "data/native_loader.py",
-                   "ops/quant.py"):
+                   "ops/quant.py", "parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/collectives.py", "parallel/ulysses.py", "parallel/ring.py",
+                   "parallel/sharding.py"):
         assert f"mixgrpo_tpu_torch/{module}" in files
 
 

@@ -447,7 +447,8 @@ def test_lora_flash_train_resume_and_profile(tmp_path, weights):
 @pytest.mark.parametrize("what", ["reward_zoo", "int8", "export_required", "mesh"])
 def test_trainer_refuses_what_is_not_ported(tmp_path, weights, what):
     """The trainer refuses to start with no reward (neither ``reward_models``
-    nor a ``reward_fn``: case "reward_zoo"), meshes, and an unknown
+    nor a ``reward_fn``: case "reward_zoo"), a mesh of more devices than
+    there are processes (case "mesh": fsdp=2 in one process), and an unknown
     ``rollout_quant``.  The diffusers export is ported: with
     ``export_safetensors="required"`` a checkpoint writes it, and it reads
     back to the parameters exactly.  So are int8 rollouts: one iteration
