@@ -94,6 +94,17 @@ a non-zero exit code.  Phases:
    ranks on the checkpoints phase's directory and ``eval_rewards.main``
    (HPSv2.1) over them on its images: JAX's file names and seeds, and rank
    0's summary over every image.
+14. parallel_tp: one recipe iteration (full width, 2 + 4 blocks, 2
+   generations per prompt, drawn biases) on mesh (dp 1, fsdp = ranks / 2,
+   tp 2: the Megatron split of the blocks, 12 of the 24 heads per rank), one
+   prompt per batch rank, against one rank (its own process, run first) on
+   every prompt with the same injected noise: the final latents, the
+   rewards, the update and the gradient norm within ``PAR_TP_*``, each
+   rank's launches and tp all-reduces (12 per DiT call) and their bytes, and
+   its peak; then the (fsdp, tp) checkpoint, its resume on the same mesh,
+   its restore on one rank (a third process: every leaf and AdamW moment,
+   cut back to each rank's slice, bit for bit against the ranks' own) and
+   the export against the restored tree, bit for bit.
 A rank that fails or outlives its phase's timeout fails the run (every rank
 is killed, each failed rank's log printed).  Times of ranks sharing one card
 say nothing of separate cards.
@@ -700,6 +711,14 @@ def kernel_phase(torch, FA, F, dev, card, rows):
                        ("flash_attn_bwd_dkv", t1024), ("flash_attn_bwd_dq", t1024)):
         rows[name] = dict(recs[name])
     del t720, t1024
+    # parallel_tp's shape: the 720px update's batch of one prompt on 12 of the
+    # 24 heads (tp = 2)
+    tp_shape = dict(kv_valid=2537, seed=7)
+    tp_recs = check_training_kernels(torch, FA, F, dev, 2, 12, 2560, 2560, 128, **tp_shape)
+    tp_recs["flash_attn_fwd"] = check_attention(torch, FA, F, dev, 2, 12, 2560, 2560, 128,
+                                                **tp_shape)
+    for name, rec in tp_recs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], rec["max_abs_err"])
     profile_split(torch, FA, dev, card)
     for bwd in ("fused", "split"):
         for layout in ("bhsd", "bshd"):
@@ -2930,6 +2949,21 @@ PAR_TRAIN_G = 2  # generations per prompt; one prompt per rank
 # all-reduced, so each rank steps them on half the batch)
 PAR_UPDATE_REL_L2 = 0.05
 PAR_GRAD_NORM_REL = 1e-3
+# parallel_tp: the seed of its weights, whose biases are drawn with this
+# standard deviation (``tp_params``), and its limits on the tp ranks against
+# one rank: the final latents' rel L2, each row's reward, the update's rel
+# L2 and the grad norm's rel difference.  On an H100 80GB HBM3 (700 W) a
+# sound run read 4.2e-4, 4.5e-6, 0.0106 and 2.0e-5; planted faults read
+# 4.2e-4, 4.5e-6, 0.128 and 5.9e-5 (tp_enter's backward skips its
+# all-reduce, so the replicated leaves also drift apart between the tp
+# ranks) and 3.3e-3, 4.4e-5, 0.078 and 1.8e-4 (the row-parallel bias added
+# on both ranks)
+PAR_TP_SEED = 13
+PAR_TP_BIAS_STD = 0.02
+PAR_TP_FINAL_REL_L2 = 1.5e-3
+PAR_TP_REWARD_ABS = 2e-5
+PAR_TP_UPDATE_REL_L2 = 0.04
+PAR_TP_GRAD_NORM_REL = 1e-4
 
 
 def parallel_layout(torch):
@@ -3024,11 +3058,11 @@ def rank_main(argv):
     from mixgrpo_tpu_torch.parallel import collectives as C
     from mixgrpo_tpu_torch.parallel.mesh import init_distributed
 
-    if case != "train_ref":  # the CLIs start torch.distributed themselves
-        if case in ("attention", "train"):
-            init_distributed(f"localhost:{port}", world, rank, device=dev)
+    if case in ("attention", "train", "tp"):  # the CLIs start torch.distributed themselves
+        init_distributed(f"localhost:{port}", world, rank, device=dev)
     rec = {"rank": rank, "case": case}
     fn = {"attention": rank_attention, "train": rank_train, "train_ref": rank_train,
+          "tp": rank_train, "tp_ref": rank_train, "tp_restore": rank_tp_restore,
           "sample": rank_sample, "eval": rank_eval}[case]
     fn(torch, FA, C, dev, rank, world, d, rec, argv[5:])
     rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -3151,49 +3185,114 @@ def sampled_leaves(leaves, n=65536):
     return np.concatenate(out)
 
 
+def tp_params(torch, flux_cfg, dev):
+    """``init_flux`` from parallel_tp's seed with every bias drawn (``init_flux``'s
+    are zero, which would hide a bias that the tp ranks add more than once)."""
+    from mixgrpo_tpu_torch.models.flux import model as M
+
+    g = torch.Generator(dev).manual_seed(PAR_TP_SEED)
+    params = M.init_flux(flux_cfg, generator=g, device=dev)
+
+    def draw(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                draw(v)
+            elif k == "b":
+                v.normal_(0.0, PAR_TP_BIAS_STD, generator=g)
+
+    draw(params)
+    return params
+
+
+def leaf_hash(torch, t, chunk=1 << 24):
+    """An exact, position-sensitive checksum of a tensor's bits: the sum of
+    each 32-bit word times (its index mod 65521) + 1, in int64 (wrapping)."""
+    words = t.detach().contiguous().view(torch.int32).reshape(-1)
+    total = 0
+    for off in range(0, words.numel(), chunk):
+        w = words[off:off + chunk].long()
+        i = torch.arange(off, off + w.numel(), device=w.device) % 65521 + 1
+        total += int((w * i).sum())
+    return total % (1 << 64)
+
+
+def state_hashes(torch, leaves, opt):
+    """``leaf_hash`` of each parameter leaf and of its AdamW moments."""
+    group = opt.param_groups[0]["params"]
+    return {"params": [leaf_hash(torch, t) for t in leaves],
+            "exp_avg": [leaf_hash(torch, opt.state[p]["exp_avg"]) for p in group],
+            "exp_avg_sq": [leaf_hash(torch, opt.state[p]["exp_avg_sq"]) for p in group]}
+
+
 def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
-    """``train_ref``: one iteration on one rank over both prompts
-    (accumulation 2 x PAR_TRAIN_G: one update group); ``train``: one
-    iteration of the same global batch on mesh (dp 1, fsdp 2), one prompt per
-    rank (accumulation PAR_TRAIN_G), then a sharded checkpoint with the
-    export and a resume into a new trainer.  Both take the same injected
-    noise: the one-rank run's chunk j is rank j's rows."""
+    """``train_ref``: one iteration on one rank over every prompt
+    (accumulation PAR_TRAIN_G per prompt: one update group); ``train``: one
+    iteration of the same global batch on mesh (dp 1, fsdp = ranks), one
+    prompt per rank (accumulation PAR_TRAIN_G), then a sharded checkpoint
+    with the export and a resume into a new trainer.  ``tp_ref`` and ``tp``
+    are the same on parallel_tp's mesh (dp 1, fsdp = ranks / 2, tp 2: one
+    prompt per batch rank) with drawn biases (``tp_params``); ``tp`` also
+    writes each rank's ``state_hashes`` for ``tp_restore``.  Every run takes
+    the same injected noise: the one-rank run's chunk j is batch rank j's
+    rows."""
     import numpy as np
 
     from mixgrpo_tpu_torch.models.flux.model import param_leaves
     from mixgrpo_tpu_torch.parallel.mesh import MeshConfig
     from mixgrpo_tpu_torch.parallel.sharding import flatten_specs, gather_leaf
 
-    two = rec["case"] == "train"
-    n_p = int(extra[0])  # prompts: one per rank of the multi-rank run
-    mesh_cfg = MeshConfig(dp=1, fsdp=world) if two else MeshConfig(1, 1, 1, 1)
-    accum = PAR_TRAIN_G if two else PAR_TRAIN_G * n_p
+    case = rec["case"]
+    multi, tp = case in ("train", "tp"), case in ("tp", "tp_ref")
+    n_p = int(extra[0])  # prompts: one per batch rank of the multi-rank run
+    mesh_cfg = (MeshConfig(dp=1, fsdp=world) if case == "train" else
+                MeshConfig(dp=1, fsdp=world // 2, tp=2) if case == "tp" else
+                MeshConfig(1, 1, 1, 1))
+    accum = PAR_TRAIN_G if multi else PAR_TRAIN_G * n_p
     cfg, flux_cfg, vcfg, vae, GRPOTrainer = _train_setup(
-        torch, dev, os.path.join(d, f"run_{rec['case']}"), mesh_cfg, accum,
-        "required" if two else "off")
+        torch, dev, os.path.join(d, f"run_{case}"), mesh_cfg, accum,
+        "required" if multi else "off")
+    scores = []
+
+    def reward_fn(images01, captions):
+        r = brightness_reward(images01, captions)
+        scores.append(r[0]["brightness"])
+        return r
+
     t0 = time.perf_counter()
     trainer = GRPOTrainer(cfg, flux_cfg=flux_cfg, vae_cfg=vcfg, vae_params=vae,
-                          reward_fn=brightness_reward, device=dev)
+                          params=tp_params(torch, flux_cfg, dev) if tp else None,
+                          reward_fn=reward_fn, device=dev)
     torch.cuda.synchronize()
     rec["setup_s"] = time.perf_counter() - t0
+    finals = []
+    rollout = trainer.sampler.chunked_rollout
+
+    def kept_rollout(*a, **k):
+        out = rollout(*a, **k)
+        finals.append(out.final_latents.float().cpu().numpy())
+        return out
+
+    trainer.sampler.chunked_rollout = kept_rollout
     rng = np.random.default_rng(0)
     emb = rng.standard_normal((n_p, 512, flux_cfg.context_dim), np.float32)
     pooled = rng.standard_normal((n_p, flux_cfg.pooled_dim), np.float32)
-    rows = slice(rank, rank + 1) if two else slice(0, n_p)
+    b = trainer.mesh.batch_index
+    rows = slice(b, b + 1) if multi else slice(0, n_p)
     batch = {"prompt_embed": emb[rows], "pooled": pooled[rows],
              "captions": [f"prompt {i}" for i in range(n_p)][rows]}
     L = trainer.sampler.num_image_tokens
     g = torch.Generator(dev).manual_seed(41)
     z0 = torch.randn((n_p * PAR_TRAIN_G, L, flux_cfg.in_channels), generator=g, device=dev)
-    z0 = z0[rank * PAR_TRAIN_G:(rank + 1) * PAR_TRAIN_G] if two else z0
+    z0 = z0[b * PAR_TRAIN_G:(b + 1) * PAR_TRAIN_G] if multi else z0
 
     def noise_fn(j, i, shape):
-        chunk = rank if j is None else j  # the one-rank run's chunk of these rows
+        chunk = b if j is None else j  # the one-rank run's chunk of these rows
         gen = torch.Generator(dev).manual_seed(1000 * (chunk + 1) + i)
         return torch.randn(shape, generator=gen, device=dev)
 
-    if not two:
-        np.save(os.path.join(d, "before.npy"), sampled_leaves(param_leaves(trainer.params)))
+    if not multi:
+        np.save(os.path.join(d, f"before_{case}.npy"),
+                sampled_leaves(param_leaves(trainer.params)))
     timesteps = [int(t) for t in trainer.window.get_current_timesteps()]
     FA.reset_launches()
     C.reset_transport()
@@ -3208,8 +3307,12 @@ def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
     rec["transport"] = C.transport_record()
     rec["window"] = timesteps
     rec["metrics"] = {k: float(v) for k, v in m.items() if np.isscalar(v)}
+    rec["rewards"] = [float(v) for v in np.concatenate(scores)]
+    rec["num_steps"] = int(m["num_steps"])
+    if tp and trainer.mesh.coords["tp"] == 0:  # this batch rank's rows
+        np.save(os.path.join(d, f"final_{case}_{b}.npy"), np.concatenate(finals))
     leaves = param_leaves(trainer.params)
-    if two:
+    if multi:
         specs = flatten_specs(trainer.param_specs)
         # one leaf gathered at a time
         after = sampled_leaves(gather_leaf(t.detach(), trainer.mesh, s)
@@ -3218,8 +3321,8 @@ def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
     else:
         after = sampled_leaves(leaves)
     if rank == 0:
-        np.save(os.path.join(d, f"after_{rec['case']}.npy"), after)
-    if not two:
+        np.save(os.path.join(d, f"after_{case}.npy"), after)
+    if not multi:
         trainer.close()
         return
     # -- sharded checkpoint and export, then a resume on the same mesh -----------
@@ -3229,6 +3332,9 @@ def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
     trainer.save_checkpoint()
     rec["checkpoint_s"] = time.perf_counter() - t0
     trainer.close()
+    if tp:
+        with open(os.path.join(d, f"hashes_{rank}.json"), "w") as f:
+            json.dump(state_hashes(torch, leaves, trainer.opt_state), f)
     own = [t.detach().cpu() for t in leaves]
     moments = [float(s["exp_avg"].double().sum()) for s in trainer.opt_state.state.values()]
     del trainer, leaves
@@ -3250,6 +3356,59 @@ def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
     rec["checkpoint_gb"] = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck)) / 1e9
     exp = os.path.join(run_dir, "export_1", "diffusion_pytorch_model.safetensors")
     rec["export_gb"] = os.path.getsize(exp) / 1e9 if os.path.exists(exp) else None
+
+
+def rank_tp_restore(torch, FA, C, dev, rank, world, d, rec, extra):
+    """parallel_tp's checkpoint restored on one rank (``GRPOTrainer``'s resume
+    on mesh 1 x 1 x 1 x 1): each leaf and AdamW moment, cut back to every tp
+    rank's slice, against that rank's ``state_hashes`` bit for bit, and the
+    export loaded back against the restored leaves, bit for bit.  Also
+    ``replicas_equal``: each leaf whole on every tp rank (no ``tp`` in its
+    spec) has the same bits on the tp ranks of one fsdp index."""
+    from mixgrpo_tpu_torch.models.flux.load import load_flux_params
+    from mixgrpo_tpu_torch.models.flux.model import param_leaves
+    from mixgrpo_tpu_torch.parallel.mesh import AXES, MeshConfig, _coords_of
+    from mixgrpo_tpu_torch.parallel.sharding import cut_leaf, flatten_specs, flux_param_specs
+
+    n_ranks = int(extra[0])
+    saved = MeshConfig(dp=1, fsdp=n_ranks // 2, tp=2)
+    cfg, flux_cfg, vcfg, vae, GRPOTrainer = _train_setup(
+        torch, dev, os.path.join(d, "run_tp"), MeshConfig(1, 1, 1, 1), PAR_TRAIN_G, "off")
+    cfg.run.resume_from_checkpoint = True
+    t0 = time.perf_counter()
+    trainer = GRPOTrainer(cfg, flux_cfg=flux_cfg, vae_cfg=vcfg, vae_params=vae,
+                          reward_fn=brightness_reward, device=dev)
+    torch.cuda.synchronize()
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["restored_step"] = trainer.global_step
+    leaves = param_leaves(trainer.params)
+    opt = trainer.opt_state
+    group = opt.param_groups[0]["params"]
+    specs = flatten_specs(flux_param_specs(trainer.params, saved))
+    whole = {"params": leaves, "exp_avg": [opt.state[p]["exp_avg"] for p in group],
+             "exp_avg_sq": [opt.state[p]["exp_avg_sq"] for p in group]}
+    equal = {k: True for k in whole}
+    hashes = []
+    for r in range(n_ranks):
+        with open(os.path.join(d, f"hashes_{r}.json")) as f:
+            hashes.append(json.load(f))
+    rec["replicas_equal"] = all(
+        hashes[r]["params"][i] == hashes[r + 1]["params"][i]
+        for r in range(0, n_ranks, 2) for i, s in enumerate(specs) if "tp" not in s)
+    for r, want in enumerate(hashes):
+        c = _coords_of(saved, r)
+        index = {a: (c[a], getattr(saved, a)) for a in AXES}
+        for k, ts in whole.items():
+            got = [leaf_hash(torch, cut_leaf(t, s, index)) for t, s in zip(ts, specs)]
+            equal[k] &= got == want[k]
+    rec["restored_equal"] = equal
+    t0 = time.perf_counter()
+    exp = load_flux_params(os.path.join(trainer.run_dir, "export_1"), flux_cfg,
+                           dtype=torch.float32, device=dev)
+    rec["export_load_s"] = time.perf_counter() - t0
+    rec["export_equal"] = all(torch.equal(a, b.detach())
+                              for a, b in zip(param_leaves(exp), leaves))
+    trainer.close()
 
 
 def rank_sample(torch, FA, C, dev, rank, world, d, rec, extra):
@@ -3342,7 +3501,7 @@ def parallel_train_phase(torch, FA, dev, card, root):
         t0 = time.perf_counter()
         ranks = spawn_ranks("train", d, timeout=600, world=world, extra=(str(world),))
         wall = time.perf_counter() - t0
-        before = np.load(os.path.join(d, "before.npy"))
+        before = np.load(os.path.join(d, "before_train_ref.npy"))
         d1 = np.load(os.path.join(d, "after_train_ref.npy")) - before
         d2 = np.load(os.path.join(d, "after_train.npy")) - before
     finally:
@@ -3395,6 +3554,119 @@ def parallel_train_phase(torch, FA, dev, card, root):
           and rec["export_gb"] and np.isfinite([gn1, gn2, m2["loss"]]).all())
     if not ok:
         raise AssertionError(f"parallel_train failed its checks (want launches {want}): {rec}")
+    return rec
+
+
+def parallel_tp_phase(torch, FA, dev, card, root):
+    """One recipe iteration on mesh (dp 1, fsdp = ranks of ``parallel_layout``
+    / 2, tp 2), one prompt per batch rank, against one rank on the same
+    prompts and noise; then the (fsdp, tp) checkpoint, its resume on the same
+    mesh, its restore on one rank and the export (record ``parallel_tp``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mixgrpo_tpu_torch.parallel.mesh import backend_for
+
+    world = parallel_layout(torch)
+    backend = backend_for(dev, world)
+    n_p = world // 2  # batch ranks: one prompt each
+    d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ref = spawn_ranks("tp_ref", d, timeout=400, world=1, extra=(str(n_p),))[0]
+        ref_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("tp", d, timeout=900, world=world, extra=(str(n_p),))
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = spawn_ranks("tp_restore", d, timeout=400, world=1, extra=(str(world),))[0]
+        restore_wall = time.perf_counter() - t0
+        before = np.load(os.path.join(d, "before_tp_ref.npy"))
+        d1 = np.load(os.path.join(d, "after_tp_ref.npy")) - before
+        d2 = np.load(os.path.join(d, "after_tp.npy")) - before
+        f1 = np.load(os.path.join(d, "final_tp_ref_0.npy"))
+        f2 = np.concatenate([np.load(os.path.join(d, f"final_tp_{b}.npy"))
+                             for b in range(n_p)])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    m1, m2 = ref["metrics"], ranks[0]["metrics"]
+    gn1, gn2 = m1["grad_norm"], m2["grad_norm"]
+    # the tp ranks' rewards, batch rank by batch rank (tp index 0 of each)
+    rewards = [v for r in ranks[::2] for v in r["rewards"]]
+    peaks = [r["max_memory_allocated_gb"] for r in ranks]
+    tp = [r["transport"]["tp"] for r in ranks]
+    # DiT calls per rank: the rollout's steps (one chunk of PAR_TRAIN_G rows)
+    # and the update group's forward and its recompute (remat)
+    dit_calls = ref["num_steps"] + 2
+    blocks = TRAIN_DEPTH
+    rec = {"phase": "parallel_tp", "mesh": {"dp": 1, "fsdp": n_p, "tp": 2},
+           "backend": backend, "depth": blocks, "num_generations": PAR_TRAIN_G,
+           "prompts": n_p, "heads_per_rank": 24 // 2, "bias_std": PAR_TP_BIAS_STD,
+           "window": ref["window"],
+           "final_rel_l2": float(np.linalg.norm(f2 - f1) / np.linalg.norm(f1)),
+           "reward_max_abs_diff": float(np.abs(np.array(rewards) - ref["rewards"]).max()),
+           "update_max_abs_diff": float(np.abs(d2 - d1).max()),
+           "update_rel_l2": float(np.linalg.norm(d2 - d1) / np.linalg.norm(d1)),
+           "update_max_abs": float(np.abs(d1).max()), "sampled_entries": int(d1.size),
+           "grad_norm": [gn1, gn2], "grad_norm_rel": abs(gn2 - gn1) / gn1,
+           "loss": [m1["loss"], m2["loss"]], "reward": [m1["reward"], m2["reward"]],
+           "dit_calls_per_rank": dit_calls,
+           "tp_all_reduces_per_dit_call": [t.get("reduce", 0) / dit_calls for t in tp],
+           "tp_per_rank": tp,
+           "iteration_s_one_rank": ref["iteration_s"],
+           "iteration_s_per_rank": [r["iteration_s"] for r in ranks],
+           "peak_gb_one_rank": ref["max_memory_allocated_gb"],
+           "peak_gb_per_rank": peaks, "peak_gb_sum": sum(peaks),
+           "shard_numel_per_rank": [r["shard_numel"] for r in ranks],
+           "launches_one_rank": ref["launches"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "checkpoint_s": [r["checkpoint_s"] for r in ranks],
+           "resume_s": [r["resume_s"] for r in ranks],
+           "checkpoint_files": ranks[0]["checkpoint_files"],
+           "checkpoint_gb": ranks[0]["checkpoint_gb"], "export_gb": ranks[0]["export_gb"],
+           "resumed": [(r["resumed_step"], r["resumed_params_equal"], r["resumed_moments_equal"])
+                       for r in ranks],
+           "restore_one_rank": {k: restored[k] for k in (
+               "restored_step", "restored_equal", "replicas_equal", "export_equal", "restore_s",
+               "export_load_s", "max_memory_allocated_gb")},
+           "wall_s": {"one_rank": ref_wall, "ranks": wall, "restore": restore_wall},
+           "limits": {"final_rel_l2": PAR_TP_FINAL_REL_L2, "reward_abs": PAR_TP_REWARD_ABS,
+                      "update_rel_l2": PAR_TP_UPDATE_REL_L2,
+                      "grad_norm_rel": PAR_TP_GRAD_NORM_REL},
+           "note": layout_note(world, backend), "device": card}
+    emit(rec)
+    n_blocks = sum(blocks)
+    bwd = FA.default_bwd(2560, 2560)
+    want = {"flash_attn_fwd": ref["num_steps"] * n_blocks, "flash_attn_fwd_lse": 2 * n_blocks,
+            "flash_attn_bwd_fused": n_blocks if bwd == "fused" else 0,
+            "flash_attn_bwd_dkv": n_blocks if bwd == "split" else 0,
+            "flash_attn_bwd_dq": n_blocks if bwd == "split" else 0}
+    # one rank rolls out every batch rank's chunk
+    want_ref = dict(want, flash_attn_fwd=n_p * want["flash_attn_fwd"])
+    # 4 row-parallel all-reduces per double block and 1 per single block
+    per_call = 4 * blocks[0] + blocks[1]
+    files = sorted(["manifest.json"] + [f"shard{f}of{n_p}_tp{t}of2.pt" for f in range(n_p)
+                                        for t in range(2)])
+    ok = (all(r["launches"] == want for r in ranks) and ref["launches"] == want_ref
+          and all(r["backend"] == backend for r in ranks)
+          and all(t.get("reduce") == per_call * dit_calls for t in tp)
+          and rec["final_rel_l2"] < PAR_TP_FINAL_REL_L2
+          and rec["reward_max_abs_diff"] < PAR_TP_REWARD_ABS
+          and rec["update_rel_l2"] < PAR_TP_UPDATE_REL_L2
+          and rec["grad_norm_rel"] < PAR_TP_GRAD_NORM_REL
+          and (sum(peaks) if backend == "gloo" else max(peaks)) < 80  # per card
+          and all(r["resumed_step"] == 1 and r["resumed_params_equal"]
+                  and r["resumed_moments_equal"] for r in ranks)
+          and restored["restored_step"] == 1 and all(restored["restored_equal"].values())
+          and restored["replicas_equal"]
+          and restored["export_equal"] and rec["checkpoint_files"] == files
+          and rec["export_gb"] and np.isfinite([gn1, gn2, m2["loss"]]).all())
+    if not ok:
+        raise AssertionError(f"parallel_tp failed its checks (want launches {want} per "
+                             f"rank and {want_ref} for one rank, {per_call} tp all-reduces "
+                             f"per DiT call): {rec}")
     return rec
 
 
@@ -3463,7 +3735,7 @@ def parallel_cli_phase(torch, FA, dev, card, root, ckpt, paths):
 
 PHASES = ("build", "kernels", "serve", "checkpoints", "rewards", "train_main", "train",
           "update_full_depth", "train_flash_lora", "parallel_attention", "parallel_train",
-          "parallel_cli")
+          "parallel_cli", "parallel_tp")
 TRAIN_DEPTH = (2, 4)
 FULL_DEPTH = (19, 38)
 
@@ -3592,6 +3864,8 @@ def run_later_phases(torch, FA, M, dev, card, root, only, rows, ckpt, paths):
         parallel_train_phase(torch, FA, dev, card, root)
     if "parallel_cli" in only:
         parallel_cli_phase(torch, FA, dev, card, root, ckpt, paths)
+    if "parallel_tp" in only:
+        parallel_tp_phase(torch, FA, dev, card, root)
 
 
 def final_lines(torch, FA, rows, card, kind):

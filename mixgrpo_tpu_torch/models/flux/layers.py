@@ -7,6 +7,9 @@ converting weights is a tree map:
   - LayerNorms inside blocks have no affine (eps 1e-6); RMS QK-norm has a
     per-head-dim scale; statistics in fp32.
 ``linear`` dispatches on ``w_q`` to the int8 product of ``ops/quant.py``.
+``row_linear`` is the row-parallel product of a block split over ``tp``
+(``parallel/sharding.py``): this rank's partial product, summed over ``tp``,
+then the bias, once.
 """
 
 from __future__ import annotations
@@ -40,6 +43,24 @@ def linear(p, x, dtype=None):
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
+
+
+def row_linear(p, x, dtype=None, tp=None):
+    """``linear`` where ``x``'s last axis and the weight's input rows are this
+    rank's share over the ``tp`` axis of the mesh ``tp`` (None, or a mesh of
+    one ``tp`` rank: ``linear``): the partial products are summed over
+    ``tp`` (Megatron's ``g``), and the bias is added after the sum."""
+    from mixgrpo_tpu_torch.parallel.collectives import tp_reduce, tp_split
+
+    if not tp_split(tp):
+        return linear(p, x, dtype)
+    dtype = dtype or x.dtype
+    if "w_q" in p:
+        from mixgrpo_tpu_torch.ops.quant import qlinear
+
+        return qlinear(p, x, dtype, tp=tp)
+    y = tp_reduce(x.to(dtype) @ p["w"].to(dtype), tp)
+    return y + p["b"].to(dtype) if "b" in p else y
 
 
 def layer_norm(x, eps: float = 1e-6):

@@ -20,6 +20,18 @@ and backward's compute on a stack cut to fit one card.  JAX's
 ``utils/cycle_scan.py`` exists only for JAX's autodiff of that scan and has
 no counterpart here: autograd accumulates the reused blocks' gradients.
 
+Tensor parallelism (``tp=`` a mesh whose ``tp`` axis has more than one
+rank): the blocks' leaves are this rank's Megatron slices
+(``parallel/sharding.py``), and each block reads its head count and split
+points from them, not from ``cfg``.  The residual stream, the modulation and
+the norms stay whole on every ``tp`` rank; each whole value that enters a
+column-parallel product or scales this rank's heads goes through
+``collectives.tp_enter`` (whose backward sums the ranks' gradients), and
+each row-parallel product (``*_attn_out``, ``*_mlp_out``, ``linear2``) is
+summed over ``tp`` before its bias is added (``layers.row_linear``): four
+all-reduces per double block and one per single block.  Attention runs on
+the rank's heads, so Ulysses (``sp``) splits those again.
+
 ``MIXGRPO_ATTN_LAYOUT=bshd`` keeps q/k/v as (B, S, H, D) (the head split is a
 free reshape and the attention kernel reads per-head strides); the default
 is bhsd, as in JAX.
@@ -38,6 +50,7 @@ import torch.utils.checkpoint
 from mixgrpo_tpu_torch.models.flux import layers as L
 from mixgrpo_tpu_torch.models.flux.rope import apply_rope
 from mixgrpo_tpu_torch.ops.attention import attention
+from mixgrpo_tpu_torch.parallel.collectives import tp_enter, tp_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,10 +204,28 @@ def _qk_norm(q, k, qscale, kscale, eps):
     return L.rms_norm(q, qscale, eps), L.rms_norm(k, kscale, eps)
 
 
+def _out_width(p) -> int:
+    """A linear leaf's output width (float or int8 weights)."""
+    return (p["w"] if "w" in p else p["w_q"]).shape[-1]
+
+
+def _local_heads(cfg: FluxConfig, width: int, tp) -> int:
+    """The heads of ``width`` attention channels, checked against ``cfg``
+    split over ``tp`` (the leaves must be the ones ``tp`` says)."""
+    H = width // cfg.head_dim
+    n = tp.size("tp") if tp_split(tp) else 1
+    if H * n != cfg.num_heads:
+        raise ValueError(f"a block with {H} heads on {n} tp ranks: the model has "
+                         f"{cfg.num_heads} (whole leaves run with tp=None)")
+    return H
+
+
 def _double_block(p, cfg: FluxConfig, img, txt, vec, rope_cos, rope_sin,
-                  attn_impl, dtype, layout, attn_valid=None, attn_mask=None):
-    """Double-stream MMDiT block."""
-    H, eps = cfg.num_heads, cfg.eps
+                  attn_impl, dtype, layout, attn_valid=None, attn_mask=None, tp=None):
+    """Double-stream MMDiT block (on this rank's heads and MLP units when
+    ``tp`` splits it)."""
+    H, eps = _local_heads(cfg, _out_width(p["img_qkv"]) // 3, tp), cfg.eps
+    enter = lambda x: tp_enter(x, tp)
     i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = L.modulation(
         p["img_mod"], vec, 6, dtype
     )
@@ -205,12 +236,12 @@ def _double_block(p, cfg: FluxConfig, img, txt, vec, rope_cos, rope_sin,
     img_mod = L.modulate(L.layer_norm(img, eps), i_shift1, i_scale1)
     txt_mod = L.modulate(L.layer_norm(txt, eps), t_shift1, t_scale1)
 
-    iq, ik, iv = L.linear(p["img_qkv"], img_mod, dtype).chunk(3, dim=-1)
-    tq, tk, tv = L.linear(p["txt_qkv"], txt_mod, dtype).chunk(3, dim=-1)
+    iq, ik, iv = L.linear(p["img_qkv"], enter(img_mod), dtype).chunk(3, dim=-1)
+    tq, tk, tv = L.linear(p["txt_qkv"], enter(txt_mod), dtype).chunk(3, dim=-1)
     iq, ik, iv = (_split_heads(x, H, layout) for x in (iq, ik, iv))
     tq, tk, tv = (_split_heads(x, H, layout) for x in (tq, tk, tv))
-    iq, ik = _qk_norm(iq, ik, p["img_qnorm"], p["img_knorm"], eps)
-    tq, tk = _qk_norm(tq, tk, p["txt_qnorm"], p["txt_knorm"], eps)
+    iq, ik = _qk_norm(iq, ik, enter(p["img_qnorm"]), enter(p["img_knorm"]), eps)
+    tq, tk = _qk_norm(tq, tk, enter(p["txt_qnorm"]), enter(p["txt_knorm"]), eps)
 
     # joint sequence: [text | image] (diffusers FLUX ordering)
     seq = 1 if layout == "bshd" else 2
@@ -224,39 +255,44 @@ def _double_block(p, cfg: FluxConfig, img, txt, vec, rope_cos, rope_sin,
     Lt = txt.shape[1]
     txt_attn, img_attn = out[:, :Lt], out[:, Lt:]
 
-    img = img + i_gate1[:, None, :] * L.linear(p["img_attn_out"], img_attn, dtype)
-    txt = txt + t_gate1[:, None, :] * L.linear(p["txt_attn_out"], txt_attn, dtype)
+    img = img + i_gate1[:, None, :] * L.row_linear(p["img_attn_out"], img_attn, dtype, tp)
+    txt = txt + t_gate1[:, None, :] * L.row_linear(p["txt_attn_out"], txt_attn, dtype, tp)
 
     img_mlp = L.modulate(L.layer_norm(img, eps), i_shift2, i_scale2)
-    img = img + i_gate2[:, None, :] * L.linear(
-        p["img_mlp_out"], L.gelu_tanh(L.linear(p["img_mlp_in"], img_mlp, dtype)), dtype
-    )
+    img = img + i_gate2[:, None, :] * L.row_linear(
+        p["img_mlp_out"], L.gelu_tanh(L.linear(p["img_mlp_in"], enter(img_mlp), dtype)),
+        dtype, tp)
     txt_mlp = L.modulate(L.layer_norm(txt, eps), t_shift2, t_scale2)
-    txt = txt + t_gate2[:, None, :] * L.linear(
-        p["txt_mlp_out"], L.gelu_tanh(L.linear(p["txt_mlp_in"], txt_mlp, dtype)), dtype
-    )
+    txt = txt + t_gate2[:, None, :] * L.row_linear(
+        p["txt_mlp_out"], L.gelu_tanh(L.linear(p["txt_mlp_in"], enter(txt_mlp), dtype)),
+        dtype, tp)
     return img, txt
 
 
 def _single_block(p, cfg: FluxConfig, x, vec, rope_cos, rope_sin, attn_impl,
-                  dtype, layout, attn_valid=None, attn_mask=None):
-    """Single-stream block with fused projections."""
-    H, h, eps = cfg.num_heads, cfg.hidden_size, cfg.eps
+                  dtype, layout, attn_valid=None, attn_mask=None, tp=None):
+    """Single-stream block with fused projections (on this rank's heads and
+    MLP units when ``tp`` splits it: ``linear1``'s outputs are [q|k|v|mlp]
+    and ``linear2``'s inputs [attn|mlp], each part this rank's share)."""
+    eps = cfg.eps
+    l2_in = (p["linear2"]["w"] if "w" in p["linear2"] else p["linear2"]["w_q"]).shape[-2]
+    h = (_out_width(p["linear1"]) - l2_in) // 2  # this rank's attention channels
+    H = _local_heads(cfg, h, tp)
     shift, scale, gate = L.modulation(p["mod"], vec, 3, dtype)
     x_mod = L.modulate(L.layer_norm(x, eps), shift, scale)
 
-    proj = L.linear(p["linear1"], x_mod, dtype)
+    proj = L.linear(p["linear1"], tp_enter(x_mod, tp), dtype)
     qkv, mlp = proj[..., : 3 * h], proj[..., 3 * h :]
     q, k, v = (_split_heads(t, H, layout) for t in qkv.chunk(3, dim=-1))
-    q, k = _qk_norm(q, k, p["qnorm"], p["knorm"], eps)
+    q, k = _qk_norm(q, k, tp_enter(p["qnorm"], tp), tp_enter(p["knorm"], tp), eps)
     q = apply_rope(q, rope_cos, rope_sin)
     k = apply_rope(k, rope_cos, rope_sin)
 
     attn_out = attention(q, k, v, mask=attn_mask, kv_valid=attn_valid,
                          impl=attn_impl, layout=layout)
     attn_out = _merge_heads(attn_out, layout)
-    out = L.linear(
-        p["linear2"], torch.cat([attn_out, L.gelu_tanh(mlp)], dim=-1), dtype
+    out = L.row_linear(
+        p["linear2"], torch.cat([attn_out, L.gelu_tanh(mlp)], dim=-1), dtype, tp
     )
     return x + gate[:, None, :] * out
 
@@ -283,6 +319,7 @@ def flux_forward(
     virtual_depth: Optional[tuple] = None,
     pad_seq_multiple: int = 128,
     block_params: Optional[Callable] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Predict rectified-flow velocity for packed image tokens (f32).
 
@@ -297,6 +334,10 @@ def flux_forward(
     ``stack`` (``"double"`` or ``"single"``), whose own are ``p``, runs with;
     called inside the block's (recomputed) body, so ``lora.lora_blocks``
     merges an adapter there one block at a time.
+
+    ``tp``: the mesh whose ``tp`` axis splits the blocks' leaves (this
+    rank's Megatron slices, ``parallel/sharding.py``); None runs whole
+    leaves, as a LoRA base on any mesh is.
 
     ``pad_seq_multiple``: pad the image-token tail so the joint sequence is a
     multiple (identity-RoPE pad positions, key-masked in attention through
@@ -345,11 +386,11 @@ def flux_forward(
 
     def double(x, c, i):
         return _double_block(block("double", i, doubles[i]), cfg, x, c, vec, rope_cos,
-                             rope_sin, attn_impl, dtype, layout, attn_valid=attn_valid)
+                             rope_sin, attn_impl, dtype, layout, attn_valid=attn_valid, tp=tp)
 
     def single(joint, i):
         return _single_block(block("single", i, singles[i]), cfg, joint, vec, rope_cos,
-                             rope_sin, attn_impl, dtype, layout, attn_valid=attn_valid)
+                             rope_sin, attn_impl, dtype, layout, attn_valid=attn_valid, tp=tp)
 
     def run(body, *args):
         if remat and torch.is_grad_enabled():

@@ -26,6 +26,14 @@ waits for a measurement (ROADMAP Queue 2).  ``_int_mm``'s constraints on the
 card (more than 16 rows, K and N multiples of 8) are met by FLUX's block
 matmuls; a shape it refuses raises, and no float product takes its place.
 
+On a block split over ``tp`` (``parallel/sharding.py``) the scales stay
+JAX's global ones: a row-parallel weight's rows are split over ``tp``, so its
+max|w| is the max over ``tp`` of each rank's (``quantize_flux_params(...,
+tp=mesh)``), and so is the per-token max|x| of a row-parallel product's
+input (``qlinear(..., tp=mesh)``); the ranks' int32 products are summed over
+``tp`` as integers before the dequantisation, so each rank's output equals
+one rank's.
+
 The quantised network is the behaviour policy of an int8 rollout: its
 log-probs are the PPO "old" log-probs, so the importance ratio stays a
 correct off-policy correction; watch ``clip_frac`` (JAX's docstring).
@@ -53,58 +61,78 @@ def _scale(amax: torch.Tensor) -> torch.Tensor:
     return torch.where(amax > 0, amax, torch.ones_like(amax)) / amax.new_full((), 127.0)
 
 
-def _quantize_slice(w: torch.Tensor):
-    wf = w.float()
-    scale = _scale(wf.abs().amax(dim=-2, keepdim=True))
-    return torch.round(wf / scale).to(torch.int8), scale
+def _tp_max_(amax: torch.Tensor, tp) -> torch.Tensor:
+    """``amax`` in place as its max over ``tp``'s ranks (a rows-split
+    operand), or as it is."""
+    from mixgrpo_tpu_torch.parallel.collectives import all_reduce_, tp_split
+
+    return all_reduce_(amax, tp, "tp", op="max") if tp_split(tp) else amax
 
 
 @torch.no_grad()
-def quantize_weight(w: torch.Tensor):
+def quantize_weight(w: torch.Tensor, tp=None):
     """(..., in, out) weights -> (int8 weights (..., in, out), column-major;
-    f32 scales (..., 1, out)), one (in, out) slice at a time."""
+    f32 scales (..., 1, out)), one (in, out) slice at a time.  ``tp``: the
+    input rows are this rank's share over the mesh's ``tp`` axis, and the
+    scales are taken over every rank's rows."""
     *lead, k, n = w.shape
     w_q = torch.empty((*lead, n, k), dtype=torch.int8, device=w.device).transpose(-1, -2)
-    scale = torch.empty((*lead, 1, n), dtype=torch.float32, device=w.device)
-    flat_w, flat_q, flat_s = w.reshape(-1, k, n), w_q.view(-1, k, n), scale.view(-1, 1, n)
+    amax = torch.empty((*lead, 1, n), dtype=torch.float32, device=w.device)
+    flat_w, flat_q, flat_a = w.reshape(-1, k, n), w_q.view(-1, k, n), amax.view(-1, 1, n)
     for i in range(flat_w.shape[0]):
-        flat_q[i], flat_s[i] = _quantize_slice(flat_w[i])
+        flat_a[i] = flat_w[i].float().abs().amax(dim=-2, keepdim=True)
+    scale = _scale(_tp_max_(amax, tp))
+    flat_s = scale.view(-1, 1, n)
+    for i in range(flat_w.shape[0]):
+        flat_q[i] = torch.round(flat_w[i].float() / flat_s[i]).to(torch.int8)
     return w_q, scale
 
 
-def quantize_linear_params(p: Dict[str, Any]) -> Dict[str, Any]:
+def quantize_linear_params(p: Dict[str, Any], tp=None) -> Dict[str, Any]:
     """{"w", "b"?} -> {"w_q", "w_s", "b"?} (``layers.linear`` dispatches on
-    ``w_q``); the bias is the input's tensor."""
-    w_q, w_s = quantize_weight(p["w"])
+    ``w_q``); the bias is the input's tensor.  ``tp``: as
+    ``quantize_weight``'s (a row-parallel weight)."""
+    w_q, w_s = quantize_weight(p["w"], tp)
     out = {"w_q": w_q, "w_s": w_s}
     if "b" in p:
         out["b"] = p["b"]
     return out
 
 
-def qlinear(p: Dict[str, Any], x: torch.Tensor, dtype=None) -> torch.Tensor:
-    """Int8 matmul with dynamic per-token activation quantisation."""
+def qlinear(p: Dict[str, Any], x: torch.Tensor, dtype=None, tp=None) -> torch.Tensor:
+    """Int8 matmul with dynamic per-token activation quantisation.  ``tp``: a
+    row-parallel product (``x``'s last axis and the weight's rows are this
+    rank's share over the mesh's ``tp`` axis): the per-token scale is the
+    max over ``tp``, and the int32 products are summed over ``tp``."""
+    from mixgrpo_tpu_torch.parallel.collectives import tp_reduce
+
     dtype = dtype or x.dtype
     xf = x.float()
-    xs = _scale(xf.abs().amax(dim=-1, keepdim=True))
+    xs = _scale(_tp_max_(xf.abs().amax(dim=-1, keepdim=True), tp))
     xq = torch.round(xf / xs).to(torch.int8)
-    y = torch._int_mm(xq.reshape(-1, xq.shape[-1]), p["w_q"])
+    y = tp_reduce(torch._int_mm(xq.reshape(-1, xq.shape[-1]), p["w_q"]), tp)
     y = y.reshape(*x.shape[:-1], y.shape[-1]).float() * xs * p["w_s"]
     if "b" in p:
         y = y + p["b"].float()
     return y.to(dtype)
 
 
-def quantize_flux_params(params: Dict[str, Any]) -> Dict[str, Any]:
+ROW_PARALLEL_KEYS = ("img_attn_out", "txt_attn_out", "img_mlp_out", "txt_mlp_out", "linear2")
+
+
+def quantize_flux_params(params: Dict[str, Any], tp=None) -> Dict[str, Any]:
     """Quantise the stacked double/single block matmuls of a FLUX parameter
     tree; embedders, modulation heads and norms (few per-token FLOPs) stay
-    the input's tensors.  The result drops into ``flux_forward`` unchanged."""
+    the input's tensors.  The result drops into ``flux_forward`` unchanged.
+    ``tp``: the blocks are this rank's slices over the mesh's ``tp`` axis
+    (the row-parallel weights' scales are then taken over ``tp``)."""
+    row = lambda k: tp if k in ROW_PARALLEL_KEYS else None
     out = dict(params)
     d = dict(params["double"])
     for k in DOUBLE_QUANT_KEYS:
-        d[k] = quantize_linear_params(d[k])
+        d[k] = quantize_linear_params(d[k], row(k))
     s = dict(params["single"])
     for k in SINGLE_QUANT_KEYS:
-        s[k] = quantize_linear_params(s[k])
+        s[k] = quantize_linear_params(s[k], row(k))
     out["double"], out["single"] = d, s
     return out

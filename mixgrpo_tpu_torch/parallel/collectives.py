@@ -17,6 +17,11 @@ Hence:
   - ``split_seq`` (replicated in, sharded out; JAX's ``shard_map`` in_specs
     slicing): the backward all-gathers the slices' gradients;
   - ``psum``: the identity; ``pmean``: the gradient over ``size``;
+  - ``tp_enter`` (Megatron's ``f``, where a value whole on every ``tp`` rank
+    enters that rank's share of the heads or MLP units): the identity
+    forward, and an all-reduce backward, since each rank's share gives only
+    its own part of the gradient; ``tp_reduce`` (Megatron's ``g``, after a
+    row-parallel product) is ``psum`` over ``tp``: the identity backward;
   - ``broadcast_from``: the gradient goes to rank ``src`` alone;
   - ``ppermute`` (``ring.py``'s rotation): the backward is the reverse
     rotation.
@@ -27,7 +32,8 @@ goes directly where gloo has a CUDA form of the operation
 found on an H100: every collective here but send/recv) and is staged
 through a host copy otherwise.  The choice is this fixed table, keyed on the
 backend and the tensor's device; ``TRANSPORT`` counts each operation's
-direct and staged calls.
+direct and staged calls; ``TP`` counts the calls and bytes of
+``tp_reduce`` and of ``tp_enter``'s backward.
 """
 
 from __future__ import annotations
@@ -41,15 +47,17 @@ import torch.distributed as dist
 GLOO_CUDA_DIRECT = frozenset({"all_reduce", "broadcast", "all_gather", "reduce_scatter",
                               "all_to_all"})
 TRANSPORT = {"direct": collections.Counter(), "staged": collections.Counter()}
+TP = collections.Counter()
 
 
 def reset_transport() -> None:
     for c in TRANSPORT.values():
         c.clear()
+    TP.clear()
 
 
 def transport_record() -> dict:
-    return {k: dict(v) for k, v in TRANSPORT.items()}
+    return {**{k: dict(v) for k, v in TRANSPORT.items()}, "tp": dict(TP)}
 
 
 def _staged(op: str, mesh, t: torch.Tensor) -> bool:
@@ -69,12 +77,23 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 
-def all_reduce_(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """In-place sum over ``axis``'s group."""
+def all_reduce_(t: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tensor:
+    """In-place sum (``op="max"``: maximum) over ``axis``'s group."""
     if mesh.size(axis) > 1:
         _staged("all_reduce", mesh, t)
-        dist.all_reduce(t, group=mesh.groups[axis])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=mesh.groups[axis])
     return t
+
+
+def tp_split(mesh) -> bool:
+    """Whether ``mesh`` (a ``Mesh`` or None) splits the blocks over ``tp``."""
+    return mesh is not None and mesh.size("tp") > 1
+
+
+def _count_tp(kind: str, t: torch.Tensor) -> None:
+    TP[kind] += 1
+    TP[f"{kind}_bytes"] += t.numel() * t.element_size()
 
 
 def broadcast_(t: torch.Tensor, mesh, axis: str, src: int = 0) -> torch.Tensor:
@@ -206,6 +225,29 @@ class _PSum(torch.autograd.Function):
         return g * ctx.scale, None, None, None
 
 
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        _count_tp("reduce", x)
+        return all_reduce_(x.contiguous().clone(), mesh, "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count_tp("enter_grad", g)
+        return all_reduce_(g.contiguous().clone(), ctx.mesh, "tp"), None
+
+
 class _Broadcast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, src):
@@ -257,6 +299,19 @@ def psum(x, mesh, axis: str):
 
 def pmean(x, mesh, axis: str):
     return _PSum.apply(x, mesh, axis, True)
+
+
+def tp_reduce(x, mesh):
+    """Megatron's ``g``: the sum over ``tp`` of each rank's partial product
+    (a row-parallel product's output); the backward is the identity."""
+    return _TPReduce.apply(x, mesh) if tp_split(mesh) else x
+
+
+def tp_enter(x, mesh):
+    """Megatron's ``f``: ``x``, whole on every ``tp`` rank, as it enters this
+    rank's share of the heads or MLP units (a column-parallel product, or a
+    per-head scale); the backward sums the ranks' gradients over ``tp``."""
+    return _TPEnter.apply(x, mesh) if tp_split(mesh) else x
 
 
 def broadcast_from(x, mesh, axis: str, src: int = 0):

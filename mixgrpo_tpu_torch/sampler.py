@@ -8,7 +8,9 @@ the training group as several rollouts of ``chunk`` rows, in row order;
 each chunk draws its SDE noise from its own generator (JAX folds the chunk
 index into its key).  On a mesh the tensors are each rank's own rows, so
 ``chunk`` counts images per batch shard, as JAX's ``chunk`` does, and each
-rank's generators are its own (``train.GRPOTrainer._generator``).
+rank's generators are its own (``train.GRPOTrainer._generator``); ``tp``
+(a mesh) runs the blocks on this rank's tensor-parallel slices
+(``flux_forward``'s ``tp``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ def make_model_fn(
     dtype=torch.bfloat16,
     attn_impl: str = "auto",
     virtual_depth=None,
+    tp=None,
 ):
     """Close FLUX over conditioning -> ``(z, sigma) -> velocity``."""
 
@@ -51,7 +54,7 @@ def make_model_fn(
         return flux_forward(
             params, flux_cfg, z.to(dtype), txt, pooled, t, g,
             rope_cos, rope_sin, dtype=dtype, attn_impl=attn_impl,
-            virtual_depth=virtual_depth,
+            virtual_depth=virtual_depth, tp=tp,
         )
 
     return model_fn
@@ -110,13 +113,13 @@ class FluxSampler:
     def rollout(
         self, params, z0, txt, pooled, sigmas, deterministic, num_steps,
         generator: Optional[torch.Generator] = None,
-        noise_fn: Optional[Callable] = None,
+        noise_fn: Optional[Callable] = None, tp=None,
     ) -> RolloutOutput:
         """Run the group rollout (no grad)."""
         model_fn = make_model_fn(
             params, self.flux_cfg, txt, pooled, self.guidance_scale,
             self.rope_cos, self.rope_sin, dtype=self.dtype,
-            attn_impl=self.attn_impl, virtual_depth=self.virtual_depth,
+            attn_impl=self.attn_impl, virtual_depth=self.virtual_depth, tp=tp,
         )
         return run_rollout(
             self.sampler_cfg, model_fn, z0,
@@ -127,7 +130,7 @@ class FluxSampler:
     def chunked_rollout(
         self, params, z0, txt, pooled, sigmas, deterministic, num_steps,
         generators: Optional[Sequence[torch.Generator]] = None,
-        *, chunk: Optional[int] = None, noise_fn: Optional[Callable] = None,
+        *, chunk: Optional[int] = None, noise_fn: Optional[Callable] = None, tp=None,
     ) -> RolloutOutput:
         """Group rollout in chunks of ``chunk`` images, rows [j*chunk,
         (j+1)*chunk) in call j; the merged output keeps the input's row
@@ -143,7 +146,7 @@ class FluxSampler:
             fn = None if noise_fn is None else (lambda i, shape: noise_fn(None, i, shape))
             gen = generators[0] if generators else None
             return self.rollout(params, z0, txt, pooled, sigmas, deterministic, num_steps,
-                                generator=gen, noise_fn=fn)
+                                generator=gen, noise_fn=fn, tp=tp)
         nc = B // chunk
         if generators is not None and len(generators) != nc:
             raise ValueError(f"{len(generators)} generators for {nc} chunks")
@@ -153,7 +156,8 @@ class FluxSampler:
             fn = None if noise_fn is None else (lambda i, shape, j=j: noise_fn(j, i, shape))
             outs.append(self.rollout(
                 params, z0[rows], txt[rows], pooled[rows], sigmas, deterministic, num_steps,
-                generator=None if generators is None else generators[j], noise_fn=fn))
+                generator=None if generators is None else generators[j], noise_fn=fn,
+                tp=tp))
         return RolloutOutput(
             final_latents=torch.cat([o.final_latents for o in outs]),
             all_latents=torch.cat([o.all_latents for o in outs]),

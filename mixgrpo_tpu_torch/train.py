@@ -57,12 +57,20 @@ comes from generators that also take its batch rank, as JAX folds in the
 process index), the FSDP update averages the gradients over the batch ranks,
 and the reward means, ``global_advantages``' statistics and the metrics are
 taken over every batch rank.  The parameters, the optimizer state and the
-EMA parameters are each rank's fsdp shards (``parallel/sharding.py``); the
-rollout gathers the whole tree once per iteration in the compute dtype.
-Only rank 0 logs, writes ``args.json`` and ``rewards.txt`` and exports;
-every rank writes its own ``rewards_samples_rank{r}.jsonl`` and checkpoint
-shard.  Under LoRA the base and the adapter stay whole on every rank.
-Refused: tensor parallelism (``tp > 1``, ROADMAP item 8b).
+EMA parameters are each rank's (fsdp, tp) shards (``parallel/sharding.py``);
+the rollout gathers them over ``fsdp`` only, once per iteration in the
+compute dtype, and runs the blocks on the rank's ``tp`` slices (Megatron's
+split of the heads and MLP units, ``models/flux/model.py``), so a rank's
+rollout copy holds 1/tp of the split block leaves.  The ranks of one ``tp``
+(and ``sp``) group share their batch rank's prompts and generators, so they
+draw the same noise and roll out, decode and score the same rows.  Only
+rank 0 logs, writes ``args.json`` and ``rewards.txt`` and exports; the rank
+at ``sp`` and ``tp`` index 0 of each batch rank writes its
+``rewards_samples_rank{r}.jsonl`` and images; the checkpoint holds one file
+per (fsdp, tp) shard (``utils/checkpoint.py``).  Under LoRA the base and the
+adapter stay whole on every rank and the blocks run unsplit, so the ``tp``
+ranks compute alike (splitting the base over ``tp`` is a gap, ROADMAP).
+``tp > 1`` needs the heads and the MLP width to divide by ``tp``.
 """
 
 from __future__ import annotations
@@ -116,13 +124,12 @@ def _refuse_unported(cfg: TrainConfig, reward_fn, reward_models):
                          "reward_fn")
     if cfg.grpo.rollout_quant not in ("none", "int8"):
         raise ValueError(f"unknown rollout_quant {cfg.grpo.rollout_quant!r}")
-    _refuse_tp(cfg.mesh)
 
 
-def _refuse_tp(mesh_cfg):
-    if mesh_cfg.tp > 1:
-        raise ValueError(f"mesh {mesh_cfg}: tensor parallelism (tp > 1) waits for ROADMAP "
-                         "item 8b (the Megatron split of the FLUX blocks)")
+def _check_tp(flux_cfg: FluxConfig, tp: int):
+    if flux_cfg.num_heads % tp or flux_cfg.mlp_hidden % tp:
+        raise ValueError(f"tp={tp} must divide the heads ({flux_cfg.num_heads}) and the MLP "
+                         f"width ({flux_cfg.mlp_hidden})")
 
 
 class GRPOTrainer:
@@ -164,14 +171,19 @@ class GRPOTrainer:
         self.device = torch.device(device)
         self.dtype = dtype
         self.mesh: Mesh = make_mesh(cfg.mesh, device=self.device)
-        _refuse_tp(self.mesh.cfg)
         set_activation_mesh(self.mesh)
         set_sp_context(self.mesh, "sp")
         if params is None:
             params = init_flux(self.flux_cfg, device=self.device,
                                generator=torch.Generator(self.device).manual_seed(cfg.grpo.seed))
-        # fsdp shards of the trained tree (the LoRA base stays whole)
+        # (fsdp, tp) shards of the trained tree (the LoRA base stays whole)
         self.sharded = self.mesh.world > 1 and not use_lora
+        if self.sharded:
+            _check_tp(self.flux_cfg, self.mesh.size("tp"))
+        # the blocks run on tp slices (None: whole leaves)
+        self.tp = self.mesh if self.sharded else None
+        # writes per-sample files for its batch rank
+        self.writer = self.mesh.coords["sp"] == self.mesh.coords["tp"] == 0
         self.param_specs = flux_param_specs(params, self.mesh) if self.sharded else None
         if self.sharded:
             params = shard_params(params, self.mesh, self.param_specs)
@@ -226,7 +238,8 @@ class GRPOTrainer:
         self.run_dir = os.path.join(cfg.run.output_dir,
                                     f"{cfg.grpo.training_strategy}_{cfg.run.experiment_name}")
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "checkpoints"),
-                                      mesh=self.mesh if self.mesh.world > 1 else None)
+                                      mesh=self.mesh if self.mesh.world > 1 else None,
+                                      specs=self.param_specs)
         # wandb run id: made once, kept in args.json, reused on resume
         self.wandb_run_id = self._load_or_create_run_id()
         self.metrics = MetricLogger(self.run_dir, run_name=cfg.run.experiment_name,
@@ -366,17 +379,18 @@ class GRPOTrainer:
         with profiling.annotate("rollout"):
             # the LoRA policy: merged once, freed before the decode and update
             rollout_params = self.params
-            if self.sharded:
+            if self.sharded:  # gathered over fsdp; the blocks stay tp slices
                 rollout_params = gather_params(self.params, self.mesh, self.param_specs,
-                                               self.dtype)
+                                               self.dtype, axes=("fsdp",))
             if self.use_lora:
                 with torch.no_grad():
                     rollout_params = apply_lora(self.params, {**self.lora_meta,
                                                               "factors": self.lora_factors})
             if cfg.grpo.rollout_quant == "int8":
-                rollout_params = quantize_flux_params(rollout_params)
+                rollout_params = quantize_flux_params(rollout_params, tp=self.tp)
             out = self.sampler.chunked_rollout(rollout_params, z0, txt, pooled, sigmas, det,
-                                               num_steps, gens, chunk=chunk, noise_fn=noise_fn)
+                                               num_steps, gens, chunk=chunk, noise_fn=noise_fn,
+                                               tp=self.tp)
             del rollout_params
             self._sync()
         t1 = time.perf_counter()
@@ -386,7 +400,7 @@ class GRPOTrainer:
             self._sync()
         t2 = time.perf_counter()
         main_print(f"##### Sampling time per iteration: {t2 - t0:.2f} s")
-        if self.vae_params is not None and self.save_images:
+        if self.vae_params is not None and self.save_images and self.writer:
             self._save_first_image(images01)
 
         with profiling.annotate("reward"):
@@ -493,8 +507,8 @@ class GRPOTrainer:
     def _dump_reward_stream(self, captions, rewards_dict, sd, rewards, metrics):
         """Append-only reward text streams: ``rewards.txt`` (rank 0: the
         per-model means over every rank per step) and
-        ``rewards_samples_rank{r}.jsonl`` (every rank: each of its samples'
-        caption and scores)."""
+        ``rewards_samples_rank{r}.jsonl`` (one rank per batch rank: each of
+        its samples' caption and scores)."""
         try:
             if self.mesh.rank == 0:
                 with open(os.path.join(self.run_dir, "rewards.txt"), "a") as f:
@@ -502,6 +516,8 @@ class GRPOTrainer:
                     for name in rewards_dict:
                         f.write(f"{name}: {metrics[f'reward/{name}']}\n")
                     f.write(f"reward: {metrics['reward']}\n")
+            if not self.writer:
+                return
             mixed = np.asarray(rewards).reshape(-1)
             path = os.path.join(self.run_dir, f"rewards_samples_rank{self.mesh.rank}.jsonl")
             with open(path, "a") as f:

@@ -26,13 +26,16 @@ each factor merges into its weight inside the block that uses it
 
 On a mesh (``mesh=``, ``parallel/``) each rank computes the loss of its own
 rows, and its parameters are its shards of the tree
-(``parallel.sharding``): the forward gathers them where they are used, the
+(``parallel.sharding``): the forward gathers them over ``fsdp`` where they
+are used and runs the blocks on its ``tp`` slices (the Megatron split), the
 gradients are averaged over the batch ranks (dp x fsdp) so that the loss is
 the mean over the update group's global rows, as in JAX, the global norm
-sums the shards' squares over ``fsdp`` (so every rank takes the same clip
-decision), AdamW steps each rank's shards, and the metrics are the batch
-ranks' mean.  The LoRA update keeps its base and factors whole on every rank
-and averages the factors' gradients over the batch ranks.
+sums each leaf's squares over the axes that shard it (so every rank takes
+the same clip decision), AdamW steps each rank's shards, and the metrics are
+the batch ranks' mean.  The ranks of one ``tp`` group take the same rows.
+The LoRA update keeps its base and factors whole on every rank (the blocks
+run unsplit, and the ``tp`` ranks compute alike) and averages the factors'
+gradients over the batch ranks.
 """
 
 from __future__ import annotations
@@ -98,18 +101,25 @@ def recompute_log_prob(sampler_cfg: SamplerConfig, pred, latents, next_latents, 
 
 
 def global_norm(tensors: Sequence[torch.Tensor], mesh=None,
-                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                sharded: Optional[Sequence[tuple]] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every entry, in f32 (optax.global_norm).
-    On a mesh, the tensors flagged in ``sharded`` are this rank's fsdp
-    shards: their squares are summed over the fsdp group, and the others
-    (whole on every rank) are counted once."""
-    if mesh is None or mesh.size("fsdp") == 1 or not any(sharded or ()):
+    On a mesh, ``sharded[i]`` names the mesh axes (of ``fsdp`` and ``tp``)
+    over which tensor i is this rank's shard: its squares are summed over
+    exactly those axes, and a tensor whole on every rank is counted once."""
+    axes_of = [tuple(a for a in (s or ()) if mesh.size(a) > 1) for s in sharded or ()] \
+        if mesh is not None else []
+    if not any(axes_of):
         return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
-    sq = [(t.float() ** 2).sum() for t in tensors]
-    zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-    own = sum((q for q, s in zip(sq, sharded) if s), zero)
-    whole = sum((q for q, s in zip(sq, sharded) if not s), zero)
-    return torch.sqrt(all_reduce_(own, mesh, "fsdp") + whole)
+    groups = {}
+    for t, axes in zip(tensors, axes_of):
+        groups.setdefault(axes, []).append((t.float() ** 2).sum())
+    total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    for axes in sorted(groups):  # the same collectives, in the same order, on every rank
+        part = torch.stack(groups[axes]).sum()
+        for a in axes:
+            all_reduce_(part, mesh, a)
+        total = total + part
+    return torch.sqrt(total)
 
 
 @dataclasses.dataclass
@@ -140,7 +150,7 @@ class Optimizer:
 
     @torch.no_grad()
     def apply(self, state: torch.optim.Optimizer, grads: Sequence[torch.Tensor], *,
-              mesh=None, sharded: Optional[Sequence[bool]] = None):
+              mesh=None, sharded: Optional[Sequence[tuple]] = None):
         """One update with ``grads`` (in the order of the state's params);
         returns their global norm before clipping (``global_norm``'s
         ``mesh`` and ``sharded``)."""
@@ -245,28 +255,28 @@ def get_optimizer(name: str = "adamw", learning_rate: float = 1e-5,
 def _make_grads_of(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: PPOConfig,
                    rope_cos, rope_sin, guidance_scale, dtype, attn_impl, remat, loss_scale,
                    virtual_depth):
-    """``grads_of(params, leaves, batch, sigmas, block_params=None) ->
-    (grads, metrics)``: the PPO loss of the forward on ``params`` (with
-    ``flux_forward``'s ``block_params``), differentiated with respect to
+    """``grads_of(params, leaves, batch, sigmas, block_params=None, tp=None)
+    -> (grads, metrics)``: the PPO loss of the forward on ``params`` (with
+    ``flux_forward``'s ``block_params`` and ``tp``), differentiated with respect to
     ``leaves``, tensors with ``requires_grad`` that ``params`` is built
     from."""
 
-    def loss_fn(params, batch: UpdateBatch, sigmas, block_params):
+    def loss_fn(params, batch: UpdateBatch, sigmas, block_params, tp):
         N = batch.latents.shape[0]
         t = quantized_timestep(sigmas[batch.t_index])
         g = torch.full((N,), guidance_scale, dtype=torch.float32, device=t.device)
         pred = flux_forward(params, flux_cfg, batch.latents.to(dtype), batch.txt,
                             batch.pooled, t, g, rope_cos, rope_sin, dtype=dtype,
                             attn_impl=attn_impl, remat=remat, virtual_depth=virtual_depth,
-                            block_params=block_params)
+                            block_params=block_params, tp=tp)
         new_lp = recompute_log_prob(sampler_cfg, pred, batch.latents.float(),
                                     batch.next_latents.float(), sigmas, batch.t_index)
         return ppo_loss(new_lp, batch.old_log_probs, batch.advantages, ppo_cfg,
                         loss_scale=loss_scale)
 
-    def grads_of(params, leaves, batch, sigmas, block_params=None):
+    def grads_of(params, leaves, batch, sigmas, block_params=None, tp=None):
         with torch.enable_grad():
-            loss, metrics = loss_fn(params, batch, sigmas, block_params)
+            loss, metrics = loss_fn(params, batch, sigmas, block_params, tp)
             grads = torch.autograd.grad(loss, leaves)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -297,7 +307,9 @@ def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: P
     zeroed grad_acc, its global norm)``.  ``virtual_depth`` is the benchmark
     aid of ``flux_forward``.  Metrics are 0-dim tensors.  On a ``mesh``,
     ``params`` are this rank's shards and ``param_specs`` is
-    ``parallel.sharding.flux_param_specs`` of the whole tree."""
+    ``parallel.sharding.flux_param_specs`` of the whole tree: the leaves
+    are gathered over ``fsdp`` where they are used, and the blocks run on
+    their ``tp`` slices."""
     grads_of = _make_grads_of(flux_cfg, sampler_cfg, ppo_cfg, rope_cos, rope_sin,
                               guidance_scale, dtype, attn_impl, remat, loss_scale,
                               virtual_depth)
@@ -311,10 +323,10 @@ def make_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: P
             return grads_of(params, leaves, batch, sigmas)
         if flat_specs is None:
             flat_specs = flatten_specs(param_specs)
-            sharded = ["fsdp" in s for s in flat_specs]
+            sharded = [tuple(a for a in s if a is not None) for s in flat_specs]
         with torch.enable_grad():  # the gathers outside the blocks are on the graph
             fwd, hook = fsdp_view(params, mesh, param_specs)
-        grads, metrics = grads_of(fwd, leaves, batch, sigmas, block_params=hook)
+        grads, metrics = grads_of(fwd, leaves, batch, sigmas, block_params=hook, tp=mesh)
         return reduce_grads(grads, flat_specs, mesh), _batch_mean(metrics, mesh)
 
     def apply(opt_state, grads):

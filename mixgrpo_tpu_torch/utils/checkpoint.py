@@ -1,16 +1,26 @@
-"""Training checkpoints on ``torch.save``, one file per fsdp shard.
+"""Training checkpoints on ``torch.save``, one file per (fsdp, tp) shard.
 
 Port of mixgrpo_tpu/utils/checkpoint.py's ``CheckpointManager``.  JAX writes
 sharded Orbax checkpoints in which every host writes its own shards; here
-each fsdp shard of the parameters, the optimizer state and the EMA
+each (fsdp, tp) shard of the parameters, the optimizer state and the EMA
 parameters is written by the rank that holds it, with no gather of the whole
-state to one rank: ``<directory>/<step>/shard<f>of<F>.pt`` (one rank per
-fsdp index writes: the one at dp, sp and tp index 0; the others hold the
+state to one rank: ``<directory>/<step>/shard<f>of<F>.pt``, or
+``shard<f>of<F>_tp<t>of<T>.pt`` when ``tp`` splits the tree (one rank per
+(fsdp, tp) pair writes: the one at dp and sp index 0; the others hold the
 same values).  The file also holds the sliding-window state, extra metadata
 and the step, so a resumed run continues the window walk.  Rank 0 writes
-``<step>/manifest.json`` (the mesh and the file names) once every shard is on
-disk, and a step exists only once its manifest does.  ``restore`` reads this
-rank's shard and raises when the checkpoint's mesh is not the current one.
+``<step>/manifest.json`` (the mesh, the file names and each parameter's
+spec, ``parallel.sharding.Spec``) once every shard is on disk, and a step
+exists only once its manifest does.
+
+``restore`` on a mesh with the same fsdp and tp sizes reads this rank's file.
+On any other mesh (one process included) it assembles each leaf of the
+parameters, the EMA parameters and the AdamW moments from every file
+through the saved specs (``sharding.join_slices``, the inverse of the cut)
+and keeps this rank's slice of it under the current specs
+(``sharding.cut_leaf``), one leaf at a time from memory-mapped files, so no
+rank holds the whole state; the leaves are JAX's layout bit for bit, as
+JAX's Orbax restore onto another mesh gives them.
 
 Tensors are copied to the host before the write.  ``blocking=False`` lets the
 disk write run in a background thread (joined by the next save, ``wait`` or
@@ -54,12 +64,14 @@ def _to_host(tree):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, mesh=None):
+    def __init__(self, directory: str, mesh=None, specs=None):
         """``mesh``: the ``parallel.mesh.Mesh`` the state is sharded on (None:
-        one process)."""
+        one process).  ``specs``: the tree of ``sharding.flux_param_specs``
+        the parameters are cut by on ``mesh`` (None: whole on every rank)."""
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.mesh = mesh
+        self.specs = specs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self._last_ema = None
@@ -69,18 +81,36 @@ class CheckpointManager:
     def _mesh_dict(self) -> Dict[str, int]:
         return self.mesh.to_dict() if self.mesh is not None else dict(_ONE)
 
-    def _shard(self) -> Tuple[int, int]:
+    def _shard(self) -> Tuple[int, int, int, int]:
+        """(fsdp index, fsdp size, tp index, tp size) of this rank."""
         if self.mesh is None:
-            return 0, 1
-        return self.mesh.coords["fsdp"], self.mesh.cfg.fsdp
+            return 0, 1, 0, 1
+        c, m = self.mesh.coords, self.mesh.cfg
+        return c["fsdp"], m.fsdp, c["tp"], m.tp
 
     def _writes(self) -> bool:
         c = self.mesh.coords if self.mesh is not None else None
-        return c is None or c["dp"] == c["sp"] == c["tp"] == 0
+        return c is None or c["dp"] == c["sp"] == 0
 
     @staticmethod
-    def _file(f: int, n: int) -> str:
-        return f"shard{f}of{n}.pt"
+    def _file(f: int, n: int, t: int = 0, nt: int = 1) -> str:
+        return f"shard{f}of{n}.pt" if nt == 1 else f"shard{f}of{n}_tp{t}of{nt}.pt"
+
+    def _spec_blob(self):
+        """Each parameter's spec by path (None: whole on every rank)."""
+        if self.specs is None:
+            return None
+        out = {}
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    walk(v, f"{path}{k}/")
+            else:
+                out[path[:-1]] = tree.to_json()
+
+        walk(self.specs, "")
+        return out
 
     def _barrier(self):
         if self.mesh is not None and self.mesh.world > 1:
@@ -121,15 +151,17 @@ class CheckpointManager:
     def _write(self, step, state):
         d = os.path.join(self.directory, str(step))
         os.makedirs(d, exist_ok=True)
-        f, n = self._shard()
+        f, n, t, nt = self._shard()
         if state is not None:
-            tmp = os.path.join(d, self._file(f, n) + ".tmp")
+            tmp = os.path.join(d, self._file(f, n, t, nt) + ".tmp")
             torch.save(state, tmp)
-            os.replace(tmp, os.path.join(d, self._file(f, n)))
+            os.replace(tmp, os.path.join(d, self._file(f, n, t, nt)))
         self._barrier()  # every shard is on disk before the manifest
         if self.mesh is None or self.mesh.rank == 0:
             manifest = {"step": step, "mesh": self._mesh_dict(),
-                        "files": [self._file(i, n) for i in range(n)]}
+                        "files": [self._file(i, n, j, nt) for i in range(n)
+                                  for j in range(nt)],
+                        "specs": self._spec_blob()}
             tmp = os.path.join(d, _MANIFEST + ".tmp")
             with open(tmp, "w") as fh:
                 json.dump(manifest, fh)
@@ -160,9 +192,9 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None) -> Tuple[Any, Any, Optional[dict], int]:
         """(params, optimizer state_dict, window_state, step) of ``step`` (the
-        latest by default): this rank's shard, tensors on the host; the EMA
-        parameters, if saved, through ``last_ema``.  Raises ``ValueError``
-        when the checkpoint was written on another mesh."""
+        latest by default): this rank's shard on the current mesh, whatever
+        mesh wrote it, tensors on the host; the EMA parameters, if saved,
+        through ``last_ema``."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -170,14 +202,73 @@ class CheckpointManager:
         d = os.path.join(self.directory, str(step))
         with open(os.path.join(d, _MANIFEST)) as fh:
             manifest = json.load(fh)
-        if manifest["mesh"] != self._mesh_dict():
-            raise ValueError(f"checkpoint {d} was written on mesh {manifest['mesh']}; this "
-                             f"run's mesh is {self._mesh_dict()}: resume on the same mesh")
-        state = torch.load(os.path.join(d, self._file(*self._shard())), map_location="cpu",
-                           weights_only=True)
+        saved = manifest["mesh"]
+        f, n, t, nt = self._shard()
+        if (saved["fsdp"], saved["tp"]) == (n, nt):
+            state = torch.load(os.path.join(d, self._file(f, n, t, nt)), map_location="cpu",
+                               weights_only=True)
+        elif "specs" not in manifest:  # written before manifests named the specs
+            raise ValueError(f"checkpoint {d} was written on mesh {saved} without its specs: "
+                             f"resume it on a mesh of fsdp {saved['fsdp']} and tp {saved['tp']}")
+        else:
+            state = self._restore_resharded(d, manifest)
         self._last_ema = state.get("ema_params")
         meta = state["meta"]
         return state["params"], state.get("opt_state"), meta.get("window_state"), meta["step"]
+
+    def _restore_resharded(self, d: str, manifest: dict) -> dict:
+        """This rank's state assembled from a checkpoint of another mesh, one
+        leaf at a time (module docstring)."""
+        from mixgrpo_tpu_torch.parallel.mesh import AXES
+        from mixgrpo_tpu_torch.parallel.sharding import (
+            Spec, cut_leaf, join_slices, leaf_paths,
+        )
+
+        n_f, n_t = manifest["mesh"]["fsdp"], manifest["mesh"]["tp"]
+        files = {(i, j): torch.load(os.path.join(d, self._file(i, n_f, j, n_t)),
+                                    map_location="cpu", weights_only=True, mmap=True)
+                 for i in range(n_f) for j in range(n_t)}
+        first = files[(0, 0)]
+        saved = {p: Spec.from_json(b) for p, b in (manifest.get("specs") or {}).items()}
+        paths = leaf_paths(first["params"])
+        mine = {p: _lookup(self.specs, p) for p in paths} if self.specs is not None else {}
+        index = {ax: (self.mesh.index(ax), self.mesh.size(ax)) if self.mesh is not None
+                 else (0, 1) for ax in AXES}
+
+        def assemble(path, piece):
+            spec = saved.get(path, Spec())
+            rows = []
+            for i in range(n_f if "fsdp" in spec else 1):
+                cols = [piece(files[(i, j)]) for j in range(n_t if "tp" in spec else 1)]
+                rows.append(join_slices(cols, spec, "tp", spec.index("tp"))
+                            if len(cols) > 1 else cols[0])
+            full = torch.cat(rows, spec.index("fsdp")) if len(rows) > 1 else rows[0]
+            return cut_leaf(full, mine.get(path, Spec()), index).clone()
+
+        def tree(key):
+            if first.get(key) is None:
+                return None
+            out = {}
+            for p in paths:
+                node = out
+                *head, last = p.split("/")
+                for k in head:
+                    node = node.setdefault(k, {})
+                node[last] = assemble(p, lambda st, p=p: _lookup(st[key], p))
+            return out
+
+        state = {"params": tree("params"), "ema_params": tree("ema_params"),
+                 "meta": first["meta"], "opt_state": None}
+        opt = first.get("opt_state")
+        if opt is not None:
+            moments = {}
+            for i, st in opt["state"].items():
+                moments[i] = {k: (assemble(paths[i], lambda s, i=i, k=k:
+                                           s["opt_state"]["state"][i][k])
+                                  if k.startswith("exp_avg") else v.clone())
+                              for k, v in st.items()}
+            state["opt_state"] = {"state": moments, "param_groups": opt["param_groups"]}
+        return state
 
     def last_ema(self) -> Any:
         """EMA parameters from the most recent ``restore``, if saved."""
@@ -185,6 +276,12 @@ class CheckpointManager:
 
     def close(self):
         self.wait()
+
+
+def _lookup(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
 
 
 # ---------------------------------------------------------------------------

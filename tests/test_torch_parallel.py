@@ -19,6 +19,14 @@ side on the virtual CPU devices of ``tests/conftest.py``.
   without a key mask: outputs and q/k/v gradients in f32 within 1e-5 abs.
 - ``attention(impl="ulysses"|"ring", kv_valid=...)`` on whole tensors, both
   layouts, against JAX's ``attention(impl="xla")`` (1e-5 abs).
+- The tensor-parallel cut: at tp = 2 and 4 (with fsdp = 2) every leaf of
+  the tiny FLUX cut into its (fsdp, tp) slices joins back bit for bit, and
+  each tp slice of a fused leaf holds whole heads (``[q_t | k_t | v_t]``,
+  ``[q_t | k_t | v_t | mlp_t]``, ``[attn_t | mlp_t]``); on 4 spawned tp
+  ranks ``shard_params`` then ``gather_params`` is the identity.
+- Megatron's ``f`` (``tp_enter``) and ``g`` (``tp_reduce``) on 2 tp ranks:
+  values and gradients against JAX's ``shard_map`` (a replicated input's
+  gradient summed over the axis; ``psum``'s).
 """
 
 import dataclasses
@@ -277,3 +285,111 @@ def test_sp_attention_needs_a_context():
     q = torch.zeros(1, 2, 4, 8)
     with pytest.raises(ValueError, match="set_sp_context"):
         attention(q, q, q, impl="ulysses")
+
+
+# ----------------------------------------------------------------------------
+# tensor parallelism: the head-aware cut and Megatron's f and g
+# ----------------------------------------------------------------------------
+
+
+def _index(f=0, nf=1, t=0, nt=1):
+    return {"dp": (0, 1), "sp": (0, 1), "fsdp": (f, nf), "tp": (t, nt)}
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_cut_holds_whole_heads_and_round_trips(tp):
+    cfg = M.FluxConfig.tiny()
+    params = M.init_flux(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    specs = Sh.flux_param_specs(params, MeshConfig(dp=1, fsdp=2, tp=tp))
+    n_split = 0
+    for path in Sh.leaf_paths(params):
+        t, spec = Sh._lookup(params, path), Sh._lookup(specs, path)
+        rows = []
+        for f in range(2 if "fsdp" in spec else 1):
+            cols = [Sh.cut_leaf(t, spec, _index(f, 2, r, tp))
+                    for r in range(tp if "tp" in spec else 1)]
+            rows.append(Sh.join_slices(cols, spec, "tp", spec.index("tp"))
+                        if len(cols) > 1 else cols[0])
+        full = torch.cat(rows, spec.index("fsdp")) if len(rows) > 1 else rows[0]
+        assert torch.equal(full, t), path
+        n_split += "tp" in spec
+    assert n_split == 4 * 2 + 2 * 2 + 3  # double: 4 weights + 4 column biases; single
+    h, mh = cfg.hidden_size, cfg.mlp_hidden
+    a, m = h // tp, mh // tp  # a rank's attention channels and MLP units
+    d, sg = params["double"], params["single"]
+    for r in range(tp):
+        cut = lambda stack, k: Sh.cut_leaf(params[stack][k]["w"], specs[stack][k]["w"],
+                                           _index(t=r, nt=tp))
+        qkv = d["img_qkv"]["w"]
+        want = torch.cat([qkv[..., j * h + r * a:j * h + (r + 1) * a] for j in range(3)], -1)
+        assert torch.equal(cut("double", "img_qkv"), want)
+        l1 = sg["linear1"]["w"]
+        want = torch.cat([l1[..., j * h + r * a:j * h + (r + 1) * a] for j in range(3)]
+                         + [l1[..., 3 * h + r * m:3 * h + (r + 1) * m]], -1)
+        assert torch.equal(cut("single", "linear1"), want)
+        l2 = sg["linear2"]["w"]
+        want = torch.cat([l2[:, r * a:(r + 1) * a], l2[:, h + r * m:h + (r + 1) * m]], 1)
+        assert torch.equal(cut("single", "linear2"), want)
+
+
+@pytest.fixture(scope="module")
+def tiny_tree():
+    params = M.init_flux(M.FluxConfig.tiny(), generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    return params
+
+
+def test_tp_shard_and_gather_round_trip_on_four_ranks(tiny_tree, tmp_path):
+    from tests.torch_parallel_worker import load_tree, save_tree
+
+    z = {}
+    save_tree("p", tiny_tree, z)
+    np.savez(tmp_path / "in.npz", **z)
+    (tmp_path / "in.json").write_text('{"mesh": {"dp": 1, "tp": 4}}')
+    ranks = spawn_ranks("roundtrip", 4, str(tmp_path))
+    specs = Sh.flux_param_specs(tiny_tree, MeshConfig(dp=1, tp=4))
+    for r, (o, j) in enumerate(ranks):
+        assert j["linear1_parts"] == [128, 128, 128, 512]
+        full = load_tree("p", o)
+        for a, b in zip(M.param_leaves(full), M.param_leaves(tiny_tree)):
+            assert torch.equal(a, b)
+        slices = load_tree("s", o)  # this rank's fused leaves
+        for stack, k in (("double", "img_qkv"), ("single", "linear1"), ("single", "linear2")):
+            for leaf in ("w", "b"):
+                want = Sh.cut_leaf(tiny_tree[stack][k][leaf], specs[stack][k][leaf],
+                                   _index(t=r, nt=4))
+                assert torch.equal(slices[stack][k][leaf], want), (r, k, leaf)
+
+
+def test_tp_enter_and_reduce_match_jax_shard_map(tmp_path):
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    rng = np.random.default_rng(4)
+    z = dict(x=rng.standard_normal(4).astype(np.float32),
+             w=rng.standard_normal((2, 4)).astype(np.float32),
+             v=rng.standard_normal((2, 4)).astype(np.float32),
+             wv=rng.standard_normal(4).astype(np.float32))
+    np.savez(tmp_path / "in.npz", **z)
+    (tmp_path / "in.json").write_text('{"mesh": {"dp": 1, "tp": 2}}')
+    ranks = spawn_ranks("tp_ops", 2, str(tmp_path))
+    jm = _jmesh(tp=2)
+    # f: a replicated input to per-rank products; its gradient sums the ranks'
+    enter = shard_map(lambda x, w: x * w[0], mesh=jm, in_specs=(P(), P("tp")),
+                      out_specs=P("tp"))
+    j_enter_grad = jax.grad(lambda x: jnp.sum(enter(x, jnp.asarray(z["w"]))))(
+        jnp.asarray(z["x"]))
+    # g: the sum of the ranks' parts; each part's gradient is the cotangent
+    red = shard_map(lambda v: JC.psum(v[0], "tp"), mesh=jm, in_specs=P("tp"), out_specs=P(),
+                    check_vma=False)
+    vs = jnp.asarray(z["v"])
+    j_red = np.asarray(red(vs))
+    j_red_grad = np.asarray(jax.grad(lambda v: jnp.sum(red(v) * z["wv"]))(vs))
+    for i, (o, j) in enumerate(ranks):
+        np.testing.assert_array_equal(o["enter"], z["x"])
+        np.testing.assert_allclose(o["enter_grad"], np.asarray(j_enter_grad), rtol=1e-6)
+        np.testing.assert_allclose(o["reduce"], j_red, rtol=1e-6)
+        np.testing.assert_array_equal(o["reduce_grad"], j_red_grad[i])
+        # one all-reduce each way, the x gradient's and v's 4 floats
+        assert j["tp"] == {"enter_grad": 1, "enter_grad_bytes": 16, "reduce": 1,
+                           "reduce_bytes": 16}

@@ -2,27 +2,35 @@
 spawned on the CPU (``tests/torch_parallel_worker.py``), against JAX on the
 virtual CPU devices of ``tests/conftest.py`` or against one rank.
 
-- One ``update_step`` (tiny FLUX, f32) under fsdp=2, dp=2 and dp=2 x fsdp=2
-  (4 ranks) against
-  JAX's ``make_update_fns`` on the same mesh: the parameters after the
-  update within 1e-5 relative, elementwise, or ``ADAM_ATOL`` absolute, and
-  the same ``grad_norm`` and loss (1e-5 relative).
+- One ``update_step`` (tiny FLUX, f32) under fsdp=2, dp=2, dp=2 x fsdp=2
+  (4 ranks), tp=2, fsdp=2 x tp=2 and sp=2 x tp=2 (Ulysses on the tp-local
+  heads) against JAX's ``make_update_fns`` on the same mesh: the parameters
+  after the update within 1e-5 relative, elementwise, or ``ADAM_ATOL``
+  absolute, and the same ``grad_norm`` and loss (1e-5 relative).
+- ``flux_forward`` on tp=2 slices of a tree with drawn biases against JAX's
+  forward (f32), and its int8 forward against one rank's bit for bit.
 - ``train_one_step`` on 2 ranks (fsdp=2, one prompt each, accumulation 2)
   against 1 rank on the same 2 prompts (accumulation 4: each update group
   then holds the same global rows) with the same injected noise: rewards,
   loss, grad_norm and the parameters after it (1e-5).  The 2-rank run then
   writes a sharded checkpoint and the export: a resume on 2 ranks restores
-  the shards and the optimizer exactly, a resume on 1 rank raises, and the
-  export equals the gathered parameters.
-- The same under LoRA (base and factors whole on every rank): the factors
-  after the step on both ranks against 1 rank, and the export written by
-  rank 0 alone.
+  the shards and the optimizer exactly, a restore on 1 rank gives the whole
+  parameters and AdamW moments bit for bit, and the export equals the
+  gathered parameters.
+- The same on fsdp=2 x tp=2 (4 ranks): one file per (fsdp, tp) shard, the
+  resume on the same mesh, the restore on 1 rank and on fsdp=2 bit for bit
+  (JAX's ``tests/test_checkpoint.py::test_mesh_migration_restore``).
+- An int8 rollout on tp=2 equals one rank's bit for bit, and the iteration
+  on it one rank's.
+- The same under LoRA (base and factors whole on every rank), on fsdp=2 and
+  on tp=2: the factors after the step on both ranks against 1 rank, and the
+  export written by rank 0 alone.
 - ``sample.main`` and ``eval_rewards.main`` on 2 ranks: JAX's file names
   (``img_p<pi>_<i>.png``, ``metadata_<pi>.json``, ``rewards_<pi>.json``),
   seeds ``seed + pi * 100000 + i``, and rank 0's summary equal to JAX's
   ``summarize`` over every shard.
 - ``PromptLoader`` refuses process counts that leave unequal batch counts;
-  ``GRPOTrainer`` refuses ``tp > 1`` naming ROADMAP item 8b.
+  ``GRPOTrainer`` refuses a tp that does not divide the heads.
 """
 
 import dataclasses
@@ -70,6 +78,19 @@ def weights():
     return _numpy_tree(params)
 
 
+def _with_biases(tree, rng):
+    """``tree`` with every bias drawn: ``init_flux``'s are zero, and a bias
+    that the tp ranks add more than once shows only when it is not."""
+    return {k: (_with_biases(v, rng) if isinstance(v, dict) else
+                (rng.standard_normal(v.shape).astype(np.float32) * 0.02 if k == "b" else v))
+            for k, v in tree.items()}
+
+
+@pytest.fixture(scope="module")
+def biased_weights(weights):
+    return _with_biases(weights, np.random.default_rng(11))
+
+
 # ----------------------------------------------------------------------------
 # update_step under a mesh against JAX's
 # ----------------------------------------------------------------------------
@@ -106,7 +127,9 @@ def _update_inputs(jparams):
     return b, sig, sm.rope_cos.numpy(), sm.rope_sin.numpy(), scfg
 
 
-@pytest.mark.parametrize("mesh", [dict(dp=1, fsdp=2), dict(dp=2, fsdp=1), dict(dp=2, fsdp=2)])
+@pytest.mark.parametrize("mesh", [dict(dp=1, fsdp=2), dict(dp=2, fsdp=1), dict(dp=2, fsdp=2),
+                                  dict(dp=1, tp=2), dict(dp=1, fsdp=2, tp=2),
+                                  dict(dp=1, sp=2, tp=2)])
 def test_update_step_matches_jax_on_mesh(mesh, weights, tmp_path):
     jparams = weights
     b, sig, cos, sin, scfg = _update_inputs(jparams)
@@ -115,9 +138,11 @@ def test_update_step_matches_jax_on_mesh(mesh, weights, tmp_path):
              **{f"b_{k}": v for k, v in b.items()})
     save_tree("p", jparams, z)
     np.savez(tmp_path / "in.npz", **z)
+    # on an sp mesh the port's attention is Ulysses over the tp-local heads
     (tmp_path / "in.json").write_text(json.dumps(dict(
-        mesh=mesh, sampler=dataclasses.asdict(scfg), remat=True, **hp)))
-    n = mesh["dp"] * mesh["fsdp"]
+        mesh=mesh, sampler=dataclasses.asdict(scfg), remat=True,
+        attn="ulysses" if mesh.get("sp", 1) > 1 else "eager", **hp)))
+    n = int(np.prod([mesh.get(a, 1) for a in ("dp", "fsdp", "sp", "tp")]))
     ranks = spawn_ranks("update", n, str(tmp_path))
 
     jm = JMesh.make_mesh(JMesh.MeshConfig(**mesh), devices=jax.devices()[:n])
@@ -183,10 +208,7 @@ def test_train_step_two_ranks_matches_one_rank_and_resumes(weights, tmp_path):
     (d2 / "in.json").write_text(json.dumps(info))
     ranks = spawn_ranks("train", 2, str(d2))
 
-    z1, info1 = _train_inputs(weights, str(tmp_path / "one"), dict(dp=1), accum=4)
-    tr = _trainer(MeshConfig(1, 1, 1, 1), z1, info1, info1["out_dir"])
-    m1 = run_train_step(tr, tr.mesh, z1, info1)
-    tr.close()
+    tr, m1 = _one_rank(weights, tmp_path)
     for _, j in ranks:
         m2 = j["metrics"]
         for k in ("reward", "loss", "grad_norm", "reward/synthetic"):
@@ -202,34 +224,190 @@ def test_train_step_two_ranks_matches_one_rank_and_resumes(weights, tmp_path):
     assert sorted(os.listdir(ck)) == ["manifest.json", "shard0of2.pt", "shard1of2.pt"]
     assert json.load(open(ck / "manifest.json"))["mesh"] == {"dp": 1, "fsdp": 2, "sp": 1,
                                                              "tp": 1}
-    with pytest.raises(ValueError, match="mesh"):
-        _trainer(MeshConfig(1, 1, 1, 1), z, info, info["out_dir"], resume=True)
+    # the fsdp=2 checkpoint restores on one rank, the leaves whole, bit for bit
+    _check_restored(_restore_one_rank(z, info), got, ranks[0][0])
+    _check_export(d2, got)
 
+
+def _restore_one_rank(z, info):
+    """A one-rank trainer resumed from the checkpoint of ``info``'s run."""
+    one = dict(info, mesh=dict(dp=1))
+    tr = _trainer(MeshConfig(1, 1, 1, 1), z, one, info["out_dir"], resume=True)
+    tr.close()
+    assert tr.global_step == 1
+    opt = tr.opt_state
+    moments = {f"m.{k}.{i}": opt.state[p][k].numpy()
+               for i, p in enumerate(opt.param_groups[0]["params"])
+               for k in ("exp_avg", "exp_avg_sq")}
+    return tr.params, moments
+
+
+def _check_restored(restored, params, moments):
+    """Restored parameters and AdamW moments equal the saving run's whole
+    ones bit for bit."""
+    got_p, got_m = restored
+    for a, b in zip(M.param_leaves(got_p), M.param_leaves(params)):
+        assert torch.equal(a.detach(), b.detach())
+    want_m = {k: v for k, v in moments.items() if k.startswith("m.")}
+    assert len(want_m) == 2 * len(M.param_leaves(params))
+    for k, v in want_m.items():
+        np.testing.assert_array_equal(got_m[k], v, err_msg=k)
+
+
+def _check_export(d, params):
     from mixgrpo_tpu_torch.models.flux.load import load_flux_params
 
-    exp = load_flux_params(str(d2 / "run" / "part_test" / "export_1"), M.FluxConfig.tiny(),
+    exp = load_flux_params(str(d / "run" / "part_test" / "export_1"), M.FluxConfig.tiny(),
                            dtype=torch.float32, device="cpu")
-    for a, b in zip(M.param_leaves(exp), M.param_leaves(got)):
+    for a, b in zip(M.param_leaves(exp), M.param_leaves(params)):
         assert torch.equal(a, b)
 
 
-def test_lora_train_step_two_ranks_matches_one_rank(weights, tmp_path):
-    """LoRA on a mesh keeps the base and the factors whole on every rank: 2
-    ranks (one prompt each) against 1 rank on the same global batch and
-    noise, and the export written by rank 0 alone."""
+def _one_rank(weights, tmp_path, **flags):
+    """The one-rank run of ``_train_inputs`` (both prompts, accumulation 4),
+    on one thread, as each spawned rank runs: the f32 GEMMs then sum in the
+    ranks' order.  (The loss is a near-zero mean of advantage x (ratio - 1),
+    whose rounding moves with that order: with drawn biases or an int8
+    behaviour policy, one rank reads 1.2e-5 on eight threads and -8e-6 or
+    1.2e-6 on one.)"""
+    z1, info1 = _train_inputs(weights, str(tmp_path / "one"), dict(dp=1), accum=4)
+    info1.update(flags)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tr = _trainer(MeshConfig(1, 1, 1, 1), z1, info1, info1["out_dir"])
+        m1 = run_train_step(tr, tr.mesh, z1, info1)
+    finally:
+        torch.set_num_threads(threads)
+    tr.close()
+    return tr, m1
+
+
+def test_forward_tp_matches_jax_and_one_rank_with_biases(biased_weights, tmp_path):
+    """``flux_forward`` on the tp = 2 slices of a tree whose biases are drawn
+    (``init_flux``'s are zero, which would hide a bias added on every tp
+    rank) against JAX's forward on the whole tree (f32); its int8 forward
+    (scales over tp, int32 sums over tp) against one rank's, bit for bit."""
+    from mixgrpo_tpu_torch.ops.quant import quantize_flux_params
+
+    rng = np.random.default_rng(5)
+    cfg = M.FluxConfig.tiny()
+    sm = FluxSampler(cfg, SamplerConfig(num_steps_max=T_STEPS), height=RES, width=RES,
+                     text_len=TEXT_LEN, dtype=torch.float32, device="cpu")
+    N, L = 2, sm.num_image_tokens
+    x = dict(img=rng.standard_normal((N, L, cfg.in_channels)).astype(np.float32),
+             txt=rng.standard_normal((N, TEXT_LEN, cfg.context_dim)).astype(np.float32),
+             pooled=rng.standard_normal((N, cfg.pooled_dim)).astype(np.float32),
+             t=np.array([0.7, 0.2], np.float32), g=np.full(N, 3.5, np.float32),
+             rope_cos=sm.rope_cos.numpy(), rope_sin=sm.rope_sin.numpy())
+    z = dict(x)
+    save_tree("p", biased_weights, z)
+    np.savez(tmp_path / "in.npz", **z)
+    (tmp_path / "in.json").write_text(json.dumps(dict(mesh=dict(dp=1, tp=2))))
+    ranks = spawn_ranks("forward", 2, str(tmp_path))
+
+    want = np.asarray(JM.flux_forward(
+        jax.tree.map(jnp.asarray, biased_weights), JM.FluxConfig.tiny(),
+        *(jnp.asarray(x[k]) for k in ("img", "txt", "pooled", "t", "g", "rope_cos",
+                                      "rope_sin")), dtype=jnp.float32, attn_impl="xla"))
+    whole = load_tree("p", z)
+    args = [torch.as_tensor(x[k]) for k in ("img", "txt", "pooled", "t", "g", "rope_cos",
+                                            "rope_sin")]
+    one_int8 = M.flux_forward(quantize_flux_params(whole), cfg, *args, dtype=torch.float32,
+                              attn_impl="eager").numpy()
+    for got, _ in ranks:
+        np.testing.assert_allclose(got["out"], want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got["out_int8"], one_int8)
+
+
+def test_train_step_tp_matches_one_rank_and_restores_on_any_mesh(weights, tmp_path):
+    """fsdp 2 x tp 2 (4 ranks, one prompt per batch rank, the tp ranks of a
+    batch rank on the same rows) against one rank with the same noise; then
+    its checkpoint (one file per (fsdp, tp) shard) resumed on the same mesh,
+    restored bit for bit on one rank and on fsdp = 2, and the export (JAX's
+    ``tests/test_checkpoint.py::test_mesh_migration_restore``)."""
+    d4 = tmp_path / "four"
+    d4.mkdir()
+    z, info = _train_inputs(weights, str(d4 / "run"), dict(dp=1, fsdp=2, tp=2), accum=2)
+    np.savez(d4 / "in.npz", **z)
+    (d4 / "in.json").write_text(json.dumps(info))
+    ranks = spawn_ranks("train", 4, str(d4))
+
+    tr, m1 = _one_rank(weights, tmp_path)
+    for _, j in ranks:
+        for k in ("reward", "loss", "grad_norm", "reward/synthetic"):
+            assert j["metrics"][k] == pytest.approx(m1[k], rel=1e-5, abs=1e-7), k
+    got = load_tree("p", ranks[0][0])
+    for a, b in zip(M.param_leaves(got), M.param_leaves(tr.params)):
+        np.testing.assert_allclose(a.numpy(), b.detach().numpy(), rtol=1e-5, atol=ADAM_ATOL)
+
+    for _, j in ranks:  # each rank resumed its own shard on the same mesh
+        assert j["resumed"] == {"step": 1, "params_equal": True, "opt_equal": True,
+                                "shard_shape": [2, 128 // 2, 3 * 128 // 2]}
+    ck = d4 / "run" / "part_test" / "checkpoints" / "1"
+    files = [f"shard{f}of2_tp{t}of2.pt" for f in range(2) for t in range(2)]
+    assert sorted(os.listdir(ck)) == sorted(["manifest.json"] + files)
+    manifest = json.load(open(ck / "manifest.json"))
+    assert manifest["files"] == files
+    assert manifest["specs"]["single/linear1/w"] == [[None, "fsdp", "tp"],
+                                                     [128, 128, 128, 512]]
+    _check_restored(_restore_one_rank(z, info), got, ranks[0][0])
+
+    dr = tmp_path / "restore_fsdp2"
+    dr.mkdir()
+    np.savez(dr / "in.npz", **z)
+    (dr / "in.json").write_text(json.dumps(dict(info, mesh=dict(dp=1, fsdp=2))))
+    restored = spawn_ranks("restore", 2, str(dr))
+    assert [j["step"] for _, j in restored] == [1, 1]
+    assert restored[0][1]["shard_shape"] == [4, 128 // 2, 3 * 128 + 512]
+    _check_restored((load_tree("p", restored[0][0]), restored[0][0]), got, ranks[0][0])
+    _check_export(d4, got)
+
+
+def test_int8_rollout_tp_matches_one_rank(weights, tmp_path):
+    """An int8 rollout on tp = 2 (the row-parallel scales taken over tp, the
+    int32 products summed over tp) equals one rank's bit for bit; the
+    iteration on it gives one rank's rewards, grad norm and update.  (Its
+    loss is not compared: with int8 behaviour log-probs it is a near-zero
+    mean of advantage x log-prob differences that moves with the f32
+    GEMMs' summation order, on one rank too.)"""
+    from mixgrpo_tpu_torch.parallel.mesh import make_mesh
+    from tests.torch_parallel_worker import case_rollout_int8
+
     d2 = tmp_path / "two"
     d2.mkdir()
-    z, info = _train_inputs(weights, str(d2 / "run"), dict(dp=1, fsdp=2), accum=2)
+    z, info = _train_inputs(weights, str(d2 / "run"), dict(dp=1, tp=2), accum=4)
+    info["int8"] = True
+    np.savez(d2 / "in.npz", **z)
+    (d2 / "in.json").write_text(json.dumps(info))
+    rolled = spawn_ranks("rollout_int8", 2, str(d2))
+    one = {}
+    case_rollout_int8(make_mesh(MeshConfig(dp=1), device="cpu"), z,
+                      dict(info, mesh=dict(dp=1), out_dir=str(tmp_path / "one_roll")), one, {})
+    for got, _ in rolled:
+        for k in ("log_probs", "latents"):
+            np.testing.assert_array_equal(got[k], one[k], err_msg=k)
+
+    ranks = spawn_ranks("train", 2, str(d2))
+    tr, m1 = _one_rank(weights, tmp_path, int8=True)
+    for _, j in ranks:
+        assert j["metrics"]["reward"] == m1["reward"]
+        assert j["metrics"]["grad_norm"] == pytest.approx(m1["grad_norm"], rel=1e-5)
+    got = load_tree("p", ranks[0][0])
+    for a, b in zip(M.param_leaves(got), M.param_leaves(tr.params)):
+        np.testing.assert_allclose(a.numpy(), b.detach().numpy(), rtol=1e-5, atol=ADAM_ATOL)
+
+
+def _lora_matches_one_rank(weights, tmp_path, mesh):
+    d2 = tmp_path / "two"
+    d2.mkdir()
+    z, info = _train_inputs(weights, str(d2 / "run"), mesh, accum=4 // mesh.get("fsdp", 1))
     info["lora"] = True
     np.savez(d2 / "in.npz", **z)
     (d2 / "in.json").write_text(json.dumps(info))
     ranks = spawn_ranks("train_lora", 2, str(d2))
 
-    z1, info1 = _train_inputs(weights, str(tmp_path / "one"), dict(dp=1), accum=4)
-    info1["lora"] = True
-    tr = _trainer(MeshConfig(1, 1, 1, 1), z1, info1, info1["out_dir"])
-    m1 = run_train_step(tr, tr.mesh, z1, info1)
-    tr.close()
+    tr, m1 = _one_rank(weights, tmp_path, lora=True)
     want = [t.detach().numpy() for t in M.param_leaves(tr.lora_factors)]
     assert any(np.abs(w).max() > 0 for w in want)  # the step moved the factors
     for r, (got, j) in enumerate(ranks):
@@ -244,6 +422,19 @@ def test_lora_train_step_two_ranks_matches_one_rank(weights, tmp_path):
                            dtype=torch.float32, device="cpu")
     for a, b in zip(M.param_leaves(exp), M.param_leaves(load_tree("p", z))):
         assert torch.equal(a, b)  # the frozen base, whole
+
+
+def test_lora_train_step_two_ranks_matches_one_rank(weights, tmp_path):
+    """LoRA on a mesh keeps the base and the factors whole on every rank: 2
+    ranks (one prompt each) against 1 rank on the same global batch and
+    noise, and the export written by rank 0 alone."""
+    _lora_matches_one_rank(weights, tmp_path, dict(dp=1, fsdp=2))
+
+
+def test_lora_train_step_tp_matches_one_rank(weights, tmp_path):
+    """LoRA on tp = 2: the base and the factors whole on both ranks, the
+    blocks unsplit, both ranks on every row: each equals one rank."""
+    _lora_matches_one_rank(weights, tmp_path, dict(dp=1, tp=2))
 
 
 # ----------------------------------------------------------------------------
@@ -282,6 +473,37 @@ def test_sample_and_eval_rewards_main_on_two_ranks(tmp_path):
     assert summary["hpsv2_count"] == 4  # rank 0's summary covers every image
 
 
+def test_train_main_mesh_tp_on_two_ranks(tmp_path):
+    """``train.main --mesh_dp 1 --mesh_tp 2`` under torchrun's environment
+    on the rehearsal tree: both ranks step, one file per tp shard, and one
+    rank (tp index 0) writes the per-sample rewards."""
+    from mixgrpo_tpu_torch import preprocess as Pre
+    from mixgrpo_tpu_torch import presets as P
+    from tests.test_torch_load import write_rehearsal_tree
+
+    tree = write_rehearsal_tree(tmp_path / "ck")
+    (tmp_path / "ck" / "prompts.txt").write_text("a red cube\na blue sphere\n")
+    cache = str(tmp_path / "cache")
+    Pre.main(["--prompt_dir", str(tmp_path / "ck" / "prompts.txt"), "--output_dir", cache,
+              "--model_path", tree, "--device", "cpu"], family=P.flux_family("tiny"))
+    argv = ["--pretrained_model_name_or_path", tree, "--data_json_path", cache,
+            "--output_dir", str(tmp_path / "out"), "--h", "32", "--w", "32",
+            "--sampling_steps", "4", "--num_generations", "2", "--rollout_chunk", "2",
+            "--gradient_accumulation_steps", "2", "--reward_model", "hpsv2",
+            "--hps_path", str(tmp_path / "ck" / "HPS_v2.1_compressed.pt"), "--max_train_steps", "1",
+            "--checkpointing_steps", "100", "--export_safetensors", "off",
+            "--mesh_dp", "1", "--mesh_tp", "2", "--device", "cpu"]
+    np.savez(tmp_path / "in.npz")
+    (tmp_path / "in.json").write_text(json.dumps(dict(mesh={"dp": 1, "tp": 2}, argv=argv)))
+    ranks = spawn_ranks("train_main", 2, str(tmp_path))
+    for _, j in ranks:
+        assert j["step"] == 1 and j["mesh"] == {"dp": 1, "fsdp": 1, "sp": 1, "tp": 2}
+        assert j["files"] == ["manifest.json", "shard0of1_tp0of2.pt", "shard0of1_tp1of2.pt"]
+        assert j["qkv_shape"] == [2, 128, 3 * 128 // 2]
+    samples = [f for f in ranks[0][1]["run_files"] if f.startswith("rewards_samples")]
+    assert samples == ["rewards_samples_rank0.jsonl"]
+
+
 # ----------------------------------------------------------------------------
 # refusals
 # ----------------------------------------------------------------------------
@@ -315,7 +537,11 @@ def test_prompt_loader_refuses_unequal_batches(tmp_path, n, count, batch, refuse
         assert got == jcounts
 
 
-def test_trainer_refuses_tensor_parallelism(weights, tmp_path):
-    z, info = _train_inputs(weights, str(tmp_path), dict(dp=1, tp=2), accum=2)
-    with pytest.raises(ValueError, match="8b"):
-        _trainer(MeshConfig(1, 1, 1, 2), z, info, str(tmp_path))
+def test_trainer_refuses_tp_that_does_not_divide_the_heads(weights, tmp_path):
+    """tp = 3 splits neither the tiny model's 4 heads nor its 512 MLP units."""
+    from mixgrpo_tpu_torch.models.flux.model import FluxConfig
+    from mixgrpo_tpu_torch.train import _check_tp
+
+    _check_tp(FluxConfig.tiny(), 2)
+    with pytest.raises(ValueError, match="tp=3"):
+        _check_tp(FluxConfig.tiny(), 3)

@@ -183,6 +183,55 @@ def case_attention(mesh, z, cfg, out, info):
     info["transport"] = C.transport_record()
 
 
+def case_tp_ops(mesh, z, cfg, out, info):
+    """Megatron's ``f`` (``tp_enter``) and ``g`` (``tp_reduce``) over the tp
+    axis: values and gradients under this rank's cotangent."""
+    from mixgrpo_tpu_torch.parallel import collectives as C
+
+    i = mesh.index("tp")
+    x = torch.as_tensor(z["x"]).clone().requires_grad_(True)  # whole on every rank
+    y = C.tp_enter(x, mesh)
+    out["enter"] = y.detach().numpy()
+    out["enter_grad"] = torch.autograd.grad((y * torch.as_tensor(z["w"][i])).sum(), x)[0].numpy()
+    v = torch.as_tensor(z["v"][i]).clone().requires_grad_(True)  # this rank's part
+    s = C.tp_reduce(v, mesh)
+    out["reduce"] = s.detach().numpy()
+    out["reduce_grad"] = torch.autograd.grad((s * torch.as_tensor(z["wv"])).sum(), v)[0].numpy()
+    info["tp"] = C.transport_record()["tp"]
+
+
+def case_roundtrip(mesh, z, cfg, out, info):
+    """``shard_params`` then ``gather_params`` of the whole tree, and this
+    rank's slices of the fused leaves."""
+    from mixgrpo_tpu_torch.parallel.sharding import (
+        flux_param_specs, gather_params, shard_params,
+    )
+
+    params = load_tree("p", z)
+    specs = flux_param_specs(params, mesh)
+    shards = shard_params(params, mesh, specs)
+    info["linear1_parts"] = list(specs["single"]["linear1"]["w"].parts)
+    save_tree("s", {"double": {"img_qkv": shards["double"]["img_qkv"]},
+                    "single": {k: shards["single"][k] for k in ("linear1", "linear2")}}, out)
+    save_tree("p", gather_params(shards, mesh, specs), out)
+
+
+def case_forward(mesh, z, cfg, out, info):
+    """``flux_forward`` on this rank's tp slices of the tree, in f32 and in
+    int8 (quantised with the scales over tp)."""
+    from mixgrpo_tpu_torch.models.flux.model import FluxConfig, flux_forward
+    from mixgrpo_tpu_torch.ops.quant import quantize_flux_params
+    from mixgrpo_tpu_torch.parallel.sharding import flux_param_specs, shard_params
+
+    params = load_tree("p", z)
+    mine = shard_params(params, mesh, flux_param_specs(params, mesh))
+    args = [torch.as_tensor(z[k]) for k in ("img", "txt", "pooled", "t", "g", "rope_cos",
+                                            "rope_sin")]
+    for tag, p in (("out", mine), ("out_int8", quantize_flux_params(mine, tp=mesh))):
+        out[tag] = flux_forward(p, FluxConfig.tiny(), *args, dtype=torch.float32,
+                                attn_impl="eager", tp=mesh).numpy()
+
+
 def case_update(mesh, z, cfg, out, info):
     """One ``update_step`` on this rank's rows and shards; rank 0 writes the
     gathered parameters after it and the metrics."""
@@ -190,6 +239,7 @@ def case_update(mesh, z, cfg, out, info):
     from mixgrpo_tpu_torch.parallel.sharding import (
         flux_param_specs, gather_params, shard_params,
     )
+    from mixgrpo_tpu_torch.parallel.ulysses import set_sp_context
     from mixgrpo_tpu_torch.rl.ppo import PPOConfig
     from mixgrpo_tpu_torch.solvers.rollout import SamplerConfig
     from mixgrpo_tpu_torch.trainer import UpdateBatch, make_optimizer, make_update_fns
@@ -207,7 +257,8 @@ def case_update(mesh, z, cfg, out, info):
     update_step = make_update_fns(
         FluxConfig.tiny(), scfg, PPOConfig(clip_range=0.2), opt,
         torch.as_tensor(z["rope_cos"]), torch.as_tensor(z["rope_sin"]), dtype=torch.float32,
-        attn_impl="eager", remat=cfg["remat"], mesh=mesh, param_specs=specs)[0]
+        attn_impl=cfg.get("attn", "eager"), remat=cfg["remat"], mesh=mesh, param_specs=specs)[0]
+    set_sp_context(mesh, "sp")
     state = opt.init(params)
     params, state, m = update_step(params, state, ub, torch.as_tensor(z["sigmas"]))
     info["metrics"] = {k: float(v) for k, v in m.items()}
@@ -224,6 +275,7 @@ def _trainer(mesh, z, cfg, d, **over):
     from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, init_vae_decoder
     from mixgrpo_tpu_torch.train import GRPOTrainer
 
+    quant = {"rollout_quant": "int8"} if cfg.get("int8") else {}
     tc = TrainConfig(
         data=DataConfig(train_batch_size=1),
         optim=OptimConfig(gradient_accumulation_steps=cfg["accum"], learning_rate=1e-4,
@@ -231,7 +283,7 @@ def _trainer(mesh, z, cfg, d, **over):
         grpo=GRPOConfig(h=cfg["res"], w=cfg["res"], sampling_steps=cfg["steps"],
                         num_generations=cfg["G"], rollout_chunk=cfg["chunk"],
                         clip_range=0.2, advantage_rerange_strategy="null",
-                        timestep_fraction=0.5),
+                        timestep_fraction=0.5, **quant),
         window=WindowConfig(iters_per_group=2, group_size=2, prog_overlap=False),
         run=RunConfig(output_dir=d, checkpointing_steps=100,
                       export_safetensors=over.pop("export", "off"),
@@ -286,8 +338,10 @@ def case_train(mesh, z, cfg, out, info):
     m = run_train_step(tr, mesh, z, cfg)
     info["metrics"] = {k: float(v) for k, v in m.items() if np.isscalar(v)}
     full = gather_params(tr.params, mesh, tr.param_specs)
+    moments = _gathered_moments(tr, mesh)
     if mesh.rank == 0:
         save_tree("p", full, out)
+        out.update(moments)
     tr.global_step = 1
     tr.save_checkpoint()
     tr.close()
@@ -299,6 +353,59 @@ def case_train(mesh, z, cfg, out, info):
     info["resumed"] = {"step": tr2.global_step, "params_equal": same, "opt_equal": same_opt,
                        "shard_shape": list(tr.params["double"]["img_qkv"]["w"].shape)}
     tr2.close()
+
+
+def case_restore(mesh, z, cfg, out, info):
+    """A trainer resumed on this mesh from the checkpoint under
+    ``out_dir``; rank 0 writes the gathered parameters and AdamW moments."""
+    from mixgrpo_tpu_torch.parallel.sharding import gather_params
+
+    tr = _trainer(mesh, z, cfg, cfg["out_dir"], resume=True)
+    full = gather_params(tr.params, mesh, tr.param_specs)
+    moments = _gathered_moments(tr, mesh)
+    info["step"] = tr.global_step
+    info["shard_shape"] = list(tr.params["single"]["linear1"]["w"].shape)
+    if mesh.rank == 0:
+        save_tree("p", full, out)
+        out.update(moments)
+    tr.close()
+
+
+def _gathered_moments(tr, mesh) -> dict:
+    """The AdamW moments of every leaf, whole (``m.<moment>.<leaf index>``)."""
+    from mixgrpo_tpu_torch.parallel.sharding import flatten_specs, gather_leaf
+
+    specs = flatten_specs(tr.param_specs) if tr.param_specs is not None else None
+    out = {}
+    opt = tr.opt_state
+    for i, p in enumerate(opt.param_groups[0]["params"]):
+        st = opt.state[p]
+        for k in ("exp_avg", "exp_avg_sq"):
+            t = st[k] if specs is None else gather_leaf(st[k], mesh, specs[i])
+            out[f"m.{k}.{i}"] = t.numpy()
+    return out
+
+
+def case_rollout_int8(mesh, z, cfg, out, info):
+    """The trainer's int8 rollout of both prompts (every row on every rank)
+    with the test's noise: the rollout copy gathered over fsdp, quantised
+    with the scales over tp, run on the tp slices."""
+    from mixgrpo_tpu_torch.ops.quant import quantize_flux_params
+    from mixgrpo_tpu_torch.parallel.sharding import gather_params
+
+    tr = _trainer(mesh, z, cfg, cfg["out_dir"])
+    p = tr.params
+    if tr.sharded:
+        p = gather_params(p, mesh, tr.param_specs, tr.dtype, axes=("fsdp",))
+    q = quantize_flux_params(p, tp=tr.tp)
+    G = cfg["G"]
+    txt, pooled = (torch.as_tensor(np.repeat(z[k], G, 0)) for k in ("prompt_embed", "pooled"))
+    sig, det, n = tr._schedule_for_window(list(cfg["window"]))
+    o = tr.sampler.chunked_rollout(
+        q, torch.as_tensor(z["z0"]), txt, pooled, sig, det, n, None, chunk=cfg["chunk"],
+        noise_fn=lambda j, i, shape: torch.as_tensor(z["noise"][j, i]), tp=tr.tp)
+    out["log_probs"], out["latents"] = o.all_log_probs.numpy(), o.all_latents.numpy()
+    tr.close()
 
 
 def case_train_lora(mesh, z, cfg, out, info):
@@ -332,6 +439,18 @@ def _leaves(tree):
     return [t.detach() for t in param_leaves(tree)]
 
 
+def case_train_main(mesh, z, cfg, out, info):
+    """``train.main`` under torchrun's environment with ``cfg["argv"]``."""
+    from mixgrpo_tpu_torch import presets as P
+    from mixgrpo_tpu_torch import train as T
+
+    tr = T.main(cfg["argv"], family=P.flux_family("tiny"))
+    ck = os.path.join(tr.run_dir, "checkpoints", str(tr.global_step))
+    info.update(step=tr.global_step, mesh=tr.mesh.to_dict(), files=sorted(os.listdir(ck)),
+                qkv_shape=list(tr.params["double"]["img_qkv"]["w"].shape),
+                run_files=sorted(os.listdir(tr.run_dir)))
+
+
 def case_cli(mesh, z, cfg, out, info):
     """``sample.main`` then ``eval_rewards.main`` under torchrun's
     environment (each rank its own prompts and entries)."""
@@ -355,6 +474,9 @@ def case_cli(mesh, z, cfg, out, info):
 
 CASES = {"collectives": case_collectives, "attention": case_attention,
          "update": case_update, "train": case_train, "train_lora": case_train_lora,
+         "tp_ops": case_tp_ops, "roundtrip": case_roundtrip, "restore": case_restore,
+         "rollout_int8": case_rollout_int8, "forward": case_forward,
+         "train_main": case_train_main,
          "cli": case_cli}
 
 
