@@ -17,7 +17,8 @@ a non-zero exit code.  Phases:
    the forward and of the three backward kernels, and at the shapes of the
    main paths (the forward without lse at the serving shape, the forward
    with lse and the fused backward at the 720px update, dkv and dq at the
-   1024px update; at both updates the fused kernel and the split pair are
+   1024px update, the forward with HunyuanVideo's key mask at B = 1, H = 24,
+   S = 8,576; at both updates the fused kernel and the split pair are
    timed side by side), with its time, the plain version's time, the card's
    bound for the same work and one PyTorch library call's time as a
    yardstick (never used by the port), and the card's SM clock sampled right
@@ -74,7 +75,23 @@ a non-zero exit code.  Phases:
    ``tsne_probe.main``, then ``train.main --rollout_quant int8`` for one
    step with HPS (``train_main_phase``); both phases' files are removed
    afterwards.
-11. parallel_attention: several ranks, spawned as ``python3 chip_smoke.py
+11. hunyuan_video: HunyuanVideo text-to-video at full width and depth with
+   random bf16 weights (the DiT's 20 + 40 blocks, the llava-llama-3-8b text
+   tower, CLIP-L, the causal 3D VAE): ``HunyuanVideoSampler.predict`` at the
+   JAX sampler's 192x336, 129 frames, 4 steps (cut from 50), two prompts
+   and seeds (B = 1 per call), a synthetic Llama-3 byte-level BPE
+   ``tokenizer.json``, the tiled decode; its seconds per video split into
+   text encoding, denoising and decode, its peak and launches; one DiT
+   forward with the kernel against eager attention at that size (216 of
+   256 text tokens masked); two forwards at 544x960, 129 frames, the first
+   cold and the second timed warm; then
+   the released layouts written at full width (the transformer ``.pt`` cut
+   to 2 + 4 blocks, the Llama-3 tower to 4 of 32 layers, the whole VAE,
+   CLIP-L, the tokenizer), loaded with leaves held bit for bit, one
+   ``predict`` on them and ``verify_weights.main`` record-then-check for
+   ``hunyuan_llm``, ``hunyuan_vae`` and ``hunyuan_dit`` (the files are
+   removed afterwards);
+12. parallel_attention: several ranks, spawned as ``python3 chip_smoke.py
    --rank ...`` (``parallel_layout``: on a one-card machine two ranks share
    the card over ``gloo``, since NCCL refuses two ranks of one communicator
    on one device; with 2-4 cards one rank per card over NCCL): Ulysses and
@@ -84,17 +101,17 @@ a non-zero exit code.  Phases:
    ``attention(impl="flash")`` with ``close_bf16``; each rank's flash
    launches, the collectives' transport (direct, or staged through the host
    with its count) and one all-to-all, all-gather and send/recv timed;
-12. parallel_train: one recipe iteration (full width, 2 + 4 blocks, 2
+13. parallel_train: one recipe iteration (full width, 2 + 4 blocks, 2
    generations per prompt) on mesh (dp 1, fsdp = ranks), one prompt per
    rank, against one rank (its own process, run first) on every prompt with
    the same injected noise: the parameters' update and the gradient norm,
    each rank's peak (under 80 GB per card) and launches; then the sharded
    checkpoint, its resume into a new trainer and the export;
-13. parallel_cli (needs checkpoints and rewards): ``sample.main`` over the
+14. parallel_cli (needs checkpoints and rewards): ``sample.main`` over the
    ranks on the checkpoints phase's directory and ``eval_rewards.main``
    (HPSv2.1) over them on its images: JAX's file names and seeds, and rank
    0's summary over every image.
-14. parallel_tp: one recipe iteration (full width, 2 + 4 blocks, 2
+15. parallel_tp: one recipe iteration (full width, 2 + 4 blocks, 2
    generations per prompt, drawn biases) on mesh (dp 1, fsdp = ranks / 2,
    tp 2: the Megatron split of the blocks, 12 of the 24 heads per rank), one
    prompt per batch rank, against one rank (its own process, run first) on
@@ -109,7 +126,8 @@ A rank that fails or outlives its phase's timeout fails the run (every rank
 is killed, each failed rank's log printed).  Times of ranks sharing one card
 say nothing of separate cards.
 Each path's kernel launches are counted from 0 just before it runs and read
-just after, and must equal the prediction exactly.  Last come the
+just after, and must equal the prediction exactly.  Each phase ends with a
+``phase_time`` record of its wall seconds.  Last come the
 ``kernels`` line, the ``nvidia-smi`` line, and the final status line.
 
 ``--only`` with ``train_main`` needs ``rewards`` too, ``parallel_cli`` needs
@@ -214,6 +232,7 @@ def check_ptxas(report, kernel):
 def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=False,
                     kv_valid=None, timed=False, seed=0):
     """Kernel vs plain version on one shape, bf16; raises on disagreement.
+    ``mask``: True draws a random (B, Sk) key mask; a tensor is that mask.
 
     With unit-normal q, k, v an output entry averages about n = kv_len keys
     and has a standard deviation near sqrt(e/n) (0.024 at n = 4608).  The
@@ -225,8 +244,8 @@ def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=Fa
     g = torch.Generator(dev).manual_seed(seed)
     shp = (lambda s: (B, s, H, D)) if layout == "bshd" else (lambda s: (B, H, s, D))
     q, k, v = (torch.randn(shp(s), generator=g, device=dev).bfloat16() for s in (S, Sk, Sk))
-    m = None
-    if mask:
+    m = None if mask is False else mask
+    if mask is True:
         m = torch.rand((B, Sk), generator=g, device=dev) > 0.3
         m[:, 0] = True
     got = FA.flash_attention(q, k, v, mask=m, layout=layout, kv_valid=kv_valid)
@@ -240,7 +259,8 @@ def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=Fa
     ok = bool(torch.isfinite(got).all()) and rel <= 5e-3 and bool(
         (diff.abs() <= atol + 1e-2 * want.float().abs()).all())
     rec = {"phase": "kernel_check", "kernel": FA.KERNEL, "B": B, "H": H, "S": S,
-           "Sk": Sk, "D": D, "layout": layout, "mask": mask, "kv_valid": kv_valid,
+           "Sk": Sk, "D": D, "layout": layout, "mask": m is not None,
+           "masked_keys": None if m is None else int((~m).sum()), "kv_valid": kv_valid,
            "dtype": "bfloat16", "max_abs_err": err, "atol": atol, "rel_l2": rel,
            "ok": ok}
     if timed:
@@ -250,8 +270,10 @@ def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=Fa
             qs, k, v, kbias=kbias, kv_len=kv_len, layout=layout), 20)
         rec["plain_ms"] = time_ms(torch, lambda: FA.flash_attention_reference(
             q, k, v, mask=m, layout=layout, kv_valid=kv_valid), 3, warmup=1)
+        # the keys the data leaves valid are the least work (the most of any row)
+        kv_need = kv_len if m is None else int(m.sum(dim=1).max())
         rec["bound_ms"], rec["bound_by"] = attention_bound_ms(
-            B, H, S, Sk, kv_len, D, m is not None)
+            B, H, S, Sk, kv_need, D, m is not None)
         qt, kt, vt = ((t.transpose(1, 2) if layout == "bshd" else t) for t in (q, k, v))
         amask = None
         if kv_valid is not None:
@@ -594,7 +616,6 @@ def profile_forward(torch, M, params, cfg, dev, card):
     and the device's idle share of the profiled wall time.  Runs after the
     launch count is read, so its launches are not counted."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from mixgrpo_tpu_torch.models.flux.rope import make_image_ids, make_text_ids, rope_tables
 
@@ -611,35 +632,39 @@ def profile_forward(torch, M, params, cfg, dev, card):
     def fwd():
         with torch.no_grad():
             M.flux_forward(params, cfg, img, txt, pooled, t, gs, cos, sin)
-        torch.cuda.synchronize()
 
-    fwd()
-    t0 = time.perf_counter()
-    fwd()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    profile_device(torch, "one flux_dev forward, B=2, 1024px, bf16", fwd, card, kernel_class)
+
+
+def profile_device(torch, what, fn, card, classify):
+    """One call of ``fn`` after a warm-up: its wall ms unprofiled, then under
+    ``torch.profiler`` its profiled wall ms, the device's busy ms summed by
+    ``classify(kernel name)``, its idle share of the profiled wall, and the
+    ten longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
         t0 = time.perf_counter()
-        fwd()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    call()
+    wall_ms = call()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = call()
     kernels = device_kernels(prof)
-    classes = {"flash_attn_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    classes = {}
     for name, ms, _ in kernels:
-        low = name.lower()
-        if "flash_fwd_kernel" in low:
-            classes["flash_attn_fwd"] += ms
-        elif any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
-            classes["gemm"] += ms
-        else:
-            classes["other"] += ms
+        cls = classify(name)
+        classes[cls] = classes.get(cls, 0.0) + ms
     busy = sum(classes.values())
     kernels.sort(key=lambda k: -k[1])
-    emit({"phase": "profile", "what": "one flux_dev forward, B=2, 1024px, bf16",
-          "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
-          "device_busy_ms": busy or None,
+    emit({"phase": "profile", "what": what, "wall_ms": wall_ms,
+          "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy or None,
           "idle_share": (1 - busy / prof_wall_ms) if busy else None,
-          "class_ms": classes if busy else None,
-          "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
-                          for n, ms, c in kernels[:10]],
+          "class_ms": classes or None,
+          "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in kernels[:10]],
           "device": card})
 
 
@@ -690,6 +715,14 @@ def kernel_phase(torch, FA, F, dev, card, rows):
                                         kv_valid=kv_valid, timed=True))
     full.append(check_attention(torch, FA, F, dev, 2, 24, 4608, 4608, 128,
                                 layout="bshd", timed=True))
+    # HunyuanVideo at 192x336, 129 frames: S = 256 + 8316 = 8572 run as 8576,
+    # the joint key mask of its text (40 of 256 tokens kept: key tile 1 wholly
+    # masked) and of the 4 pad keys
+    hv = torch.ones((1, 8576), dtype=torch.bool, device=dev)
+    hv[:, 40:256] = False
+    hv[:, 8572:] = False
+    full.append(check_attention(torch, FA, F, dev, 1, 24, 8576, 8576, 128, mask=hv,
+                                timed=True))
     main_shape = next(r for r in full if r["B"] == 2 and r["S"] == 4608
                       and r["layout"] == "bhsd")
     rows["flash_attn_fwd"] = dict(main_shape, max_abs_err=max(r["max_abs_err"] for r in full))
@@ -1407,7 +1440,6 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
     that the phase can be rehearsed at a tiny size.  With ``keep`` the
     directory stays for ``parallel_cli`` (the caller removes it)."""
     import json as _json
-    import resource
     import shutil
     import tempfile
 
@@ -1455,29 +1487,9 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
               "clip_text_params": sum(t.numel() for t in clip_st.values()), "device": card})
 
         # -- 2. load each component onto the card in bf16, leaves bit for bit --------
-        loads, checks = [], []
-
-        def load(name, fn, path):
-            torch.cuda.synchronize()
-            with RssPeak() as rss:
-                t0 = time.perf_counter()
-                out = fn()
-                torch.cuda.synchronize()
-                sec = time.perf_counter() - t0
-            nbytes = SafetensorsDir(path).nbytes()
-            rec = {"component": name, "seconds": sec, "gb": nbytes / 1e9,
-                   "gb_per_s": nbytes / 1e9 / sec, "host_rss_before_gb": rss.before,
-                   "host_rss_peak_gb": rss.peak,
-                   "host_rss_rise_gb": rss.peak - rss.before,
-                   "host_ru_maxrss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-                   * 1024 / 1e9}
-            loads.append(rec)
-            return out
-
-        def same(what, got, want):
-            ok = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
-            checks.append({"leaf": what, "dtype": str(got.dtype).replace("torch.", ""),
-                           "shape": list(got.shape), "bit_for_bit": bool(ok)})
+        log = LoadLog(torch)
+        load = lambda name, fn, path: log.load(name, fn, SafetensorsDir(path).nbytes())
+        same = log.same
 
         tdir = os.path.join(d, "transformer")
         lb = load("transformer", lambda: load_flux_params(tdir, cfg, dtype=bf16, device=dev),
@@ -1530,11 +1542,11 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
              SafetensorsDir(cdir).get("text_model.embeddings.token_embedding.weight", device=dev),
              clip_st["text_model.embeddings.token_embedding.weight"])
         del lc, clip_st
-        for rec in loads:
+        for rec in log.loads:
             emit(dict(phase="checkpoints_load", **rec, device=card))
-        emit({"phase": "checkpoints_leaves", "checks": checks, "device": card})
-        if not all(c["bit_for_bit"] for c in checks):
-            raise AssertionError(f"checkpoints: leaves differ from what was written: {checks}")
+        emit({"phase": "checkpoints_leaves", "checks": log.checks, "device": card})
+        if not all(c["bit_for_bit"] for c in log.checks):
+            raise AssertionError(f"checkpoints: leaves differ from what was written: {log.checks}")
 
         # the prompt encoders: bf16 against f32 on the card, and their launches
         encs = {dt: build_prompt_encoder_from_dir(d, family=fam, device=dev, dtype=dt)
@@ -3733,9 +3745,595 @@ def parallel_cli_phase(torch, FA, dev, card, root, ckpt, paths):
         raise AssertionError(f"parallel_cli failed its checks: {rec}")
     return rec
 
+# ---------------------------------------------------------------------------
+# HunyuanVideo text-to-video (phase hunyuan_video)
+# ---------------------------------------------------------------------------
+
+HV_PROMPTS = (
+    "A red fox trots through fresh snow at golden hour; the camera tracks beside it.",
+    "東京の夜, rain on a crossing, umbrellas and neon — 2½ seconds, x² zoom 😀",
+)
+HV_SEEDS = (1234, 5678)
+HV_STEPS = 4  # cut from 50
+HV_SIZE = (192, 336, 129)  # the JAX sampler's defaults: 33 x 24 x 42 latents
+HV_540P = (544, 960, 129)  # HunyuanVideo's published 540p setting
+HV_FILE_DEPTH = (2, 4)  # the transformer file's double + single blocks
+HV_FILE_LLAMA_LAYERS = 4  # of 32: skip 2 leaves two layers running
+LLAMA3_SPECIAL = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                  "<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+                  "<|eot_id|>": 128009}
+
+
+def llama3_tokenizer_json(corpus, n_merges):
+    """A Llama-3-structured byte-level BPE ``tokenizer.json``: the Split
+    pre-tokenizer with Llama-3's pattern and ByteLevel, a BPE model with
+    ``ignore_merges`` whose ``n_merges`` merges are learned here from
+    ``corpus`` (the most frequent pair each time, the first of equals in
+    sorted order), the special tokens at Llama-3's ids, and the
+    ``<|begin_of_text|> $A`` template after ByteLevel."""
+    from mixgrpo_tpu_torch.models.text import tokenizer_json as TJ
+
+    enc = TJ._bytes_to_unicode()
+    words = {}
+    for text in corpus:
+        for piece in TJ._llama3_split(text):
+            w = tuple(enc[b] for b in piece.encode("utf-8"))
+            words[w] = words.get(w, 0) + 1
+    vocab = {enc[b]: i for i, b in enumerate(sorted(enc))}
+    merges = []
+    for _ in range(n_merges):
+        pairs = {}
+        for w, n in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] = pairs.get(p, 0) + n
+        if not pairs:
+            break
+        a, b = max(sorted(pairs), key=lambda p: pairs[p])
+        merges.append([a, b])
+        vocab.setdefault(a + b, len(vocab))
+        merged = {}
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + n
+        words = merged
+    # filler entries up to Llama-3's 128,000 regular tokens, so that the
+    # special tokens get their ids (``tokenizers`` numbers them after the
+    # vocabulary); "\u3000" is no byte-level character, so no piece matches one
+    for i in range(len(vocab), min(LLAMA3_SPECIAL.values())):
+        vocab[f"\u3000{i}"] = i
+    special = lambda c, i: {"id": i, "content": c, "single_word": False, "lstrip": False,
+                            "rstrip": False, "normalized": False, "special": True}
+    # the ids between Llama-3's specials are its reserved tokens
+    specials = {i: f"<|reserved_special_token_{i - 128000}|>"
+                for i in range(min(LLAMA3_SPECIAL.values()), max(LLAMA3_SPECIAL.values()) + 1)}
+    specials.update({i: c for c, i in LLAMA3_SPECIAL.items()})
+    bos = "<|begin_of_text|>"
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [special(c, i) for i, c in sorted(specials.items())],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": TJ.LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+             "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [LLAMA3_SPECIAL[bos]],
+                                      "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def write_llama3_tokenizer(d, n_merges=600):
+    """``tokenizer.json`` (learned from the official templates and
+    ``HV_PROMPTS``) and ``tokenizer_config.json`` (``<|end_of_text|>`` pads)
+    in ``d``."""
+    import json as _json
+
+    from mixgrpo_tpu_torch.models.hunyuan.text_encoder import HUNYUAN_PROMPT_TEMPLATES
+
+    corpus = [t["template"].format(p) for t in HUNYUAN_PROMPT_TEMPLATES.values()
+              for p in HV_PROMPTS]
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        _json.dump(llama3_tokenizer_json(corpus, n_merges), f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        _json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                    "bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>",
+                    "pad_token": "<|end_of_text|>", "model_max_length": 131072}, f)
+
+
+def llama_hf_state(torch, cfg, dev, seed, dtype=None):
+    """HF ``LlamaForCausalLM`` names (``model.``-prefixed, no head) with HF's
+    initialisation (normal, std 0.02; norms 1), bf16 on the card."""
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(dev).manual_seed(seed)
+    n = lambda *shape: torch.randn(shape, generator=g, device=dev, dtype=dtype) * 0.02
+    ones = lambda: torch.ones((cfg.d_model,), device=dev, dtype=dtype)
+    d, hd = cfg.d_model, cfg.head_dim
+    st = {"model.embed_tokens.weight": n(cfg.vocab, d), "model.norm.weight": ones()}
+    for i in range(cfg.n_layers):
+        b = f"model.layers.{i}"
+        st.update({f"{b}.input_layernorm.weight": ones(),
+                   f"{b}.post_attention_layernorm.weight": ones(),
+                   f"{b}.self_attn.q_proj.weight": n(cfg.n_heads * hd, d),
+                   f"{b}.self_attn.k_proj.weight": n(cfg.n_kv_heads * hd, d),
+                   f"{b}.self_attn.v_proj.weight": n(cfg.n_kv_heads * hd, d),
+                   f"{b}.self_attn.o_proj.weight": n(d, cfg.n_heads * hd),
+                   f"{b}.mlp.gate_proj.weight": n(cfg.d_ff, d),
+                   f"{b}.mlp.up_proj.weight": n(cfg.d_ff, d),
+                   f"{b}.mlp.down_proj.weight": n(d, cfg.d_ff)})
+    return st
+
+
+def causal_vae_state(dec, enc=None):
+    """The port's causal-VAE decoder (and encoder) dicts under the released
+    ``AutoencoderKLCausal3D`` names: a CausalConv3d's kernel at
+    ``<name>.conv.weight`` as (out, in, kt, kh, kw), ``quant_conv`` and
+    ``post_quant_conv`` plain, (in, out) linears as (out, in)."""
+    st = {}
+
+    def conv(name, p, plain=False):
+        key = name if plain else f"{name}.conv"
+        st[f"{key}.weight"], st[f"{key}.bias"] = p["w"].permute(4, 3, 0, 1, 2), p["b"]
+
+    def gn(name, p):
+        st[f"{name}.weight"], st[f"{name}.bias"] = p["scale"], p["bias"]
+
+    def resnet(name, p):
+        gn(f"{name}.norm1", p["norm1"])
+        conv(f"{name}.conv1", p["conv1"])
+        gn(f"{name}.norm2", p["norm2"])
+        conv(f"{name}.conv2", p["conv2"])
+        if "shortcut" in p:
+            conv(f"{name}.conv_shortcut", p["shortcut"])
+
+    for prefix, params in (("decoder", dec), ("encoder", enc)):
+        if params is None:
+            continue
+        conv(f"{prefix}.conv_in", params["conv_in"])
+        resnet(f"{prefix}.mid_block.resnets.0", params["mid_res1"])
+        resnet(f"{prefix}.mid_block.resnets.1", params["mid_res2"])
+        a, att = f"{prefix}.mid_block.attentions.0", params["mid_attn"]
+        gn(f"{a}.group_norm", att["norm"])
+        for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("out", "to_out.0")):
+            st[f"{a}.{theirs}.weight"], st[f"{a}.{theirs}.bias"] = att[ours]["w"].t(), \
+                att[ours]["b"]
+        gn(f"{prefix}.conv_norm_out", params["norm_out"])
+        conv(f"{prefix}.conv_out", params["conv_out"])
+        kind, up = ("up", "upsample") if prefix == "decoder" else ("down", "downsample")
+        for bi, blk in enumerate(params[f"{kind}_blocks"]):
+            for li, rp in enumerate(blk["resnets"]):
+                resnet(f"{prefix}.{kind}_blocks.{bi}.resnets.{li}", rp)
+            if up in blk:
+                conv(f"{prefix}.{kind}_blocks.{bi}.{kind}samplers.0.conv", blk[up])
+    for name in ("post_quant_conv",):
+        if dec is not None and name in dec:
+            conv(name, dec[name], plain=True)
+    if enc is not None:
+        conv("quant_conv", enc["quant_conv"], plain=True)
+    return st
+
+
+class LoadLog:
+    """Timed loads (seconds, GB/s, the host's RSS rise) and leaves held bit
+    for bit against what was written."""
+
+    def __init__(self, torch):
+        self.torch, self.loads, self.checks = torch, [], []
+
+    def load(self, name, fn, nbytes):
+        import resource
+
+        self.torch.cuda.synchronize()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            out = fn()
+            self.torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        self.loads.append({"component": name, "seconds": sec, "gb": nbytes / 1e9,
+                           "gb_per_s": nbytes / 1e9 / sec, "host_rss_before_gb": rss.before,
+                           "host_rss_peak_gb": rss.peak, "host_rss_rise_gb": rss.peak - rss.before,
+                           "host_ru_maxrss_gb": resource.getrusage(
+                               resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9})
+        return out
+
+    def same(self, what, got, want):
+        ok = got.dtype == want.dtype and got.shape == want.shape and self.torch.equal(got, want)
+        self.checks.append({"leaf": what, "dtype": str(got.dtype).replace("torch.", ""),
+                            "shape": list(got.shape), "bit_for_bit": bool(ok)})
+
+
+def hunyuan_geometry():
+    """The released geometries: the HunyuanVideo DiT, llava-llama-3-8b's
+    text tower, CLIP-L and the causal VAE; the sizes of the phase's videos,
+    and the depth cuts of its files.  A CPU rehearsal passes tiny ones."""
+    import dataclasses
+
+    from mixgrpo_tpu_torch.models.hunyuan.model import HunyuanVideoConfig
+    from mixgrpo_tpu_torch.models.hunyuan.vae3d import CausalVAEConfig
+    from mixgrpo_tpu_torch.models.text.clip import CLIPConfig
+    from mixgrpo_tpu_torch.models.text.llama import LlamaConfig
+
+    dit, llama = HunyuanVideoConfig.hunyuan_video(), LlamaConfig.llava_llama3_8b()
+    return {"dit": dit, "llama": llama, "clip": CLIPConfig.vit_l_14(),
+            "vae": CausalVAEConfig.hunyuan_video(), "size": HV_SIZE, "size_540p": HV_540P,
+            "text_len": 256, "text_kept": 40,
+            "dit_file": dataclasses.replace(dit, depth_double=HV_FILE_DEPTH[0],
+                                            depth_single=HV_FILE_DEPTH[1]),
+            "llama_file": dataclasses.replace(llama, n_layers=HV_FILE_LLAMA_LAYERS)}
+
+
+def hunyuan_models(torch, dev, geo, dit=None, llama=None, seed=30):
+    """Random bf16 HunyuanVideo components on ``dev`` at ``geo``'s widths:
+    the DiT (``dit``, default ``geo["dit"]``), the Llama-3 tower
+    (``llama``, default ``geo["llama"]``), CLIP-L's text tower (read from
+    HF-named weights) and the causal VAE decoder."""
+    from mixgrpo_tpu_torch.models.hunyuan.model import init_hunyuan_video
+    from mixgrpo_tpu_torch.models.hunyuan.vae3d import init_causal_vae_decoder
+    from mixgrpo_tpu_torch.models.text.clip_load import load_clip_hf_text_only
+    from mixgrpo_tpu_torch.models.text.llama import init_llama
+
+    bf16, gen = torch.bfloat16, lambda s: torch.Generator(dev).manual_seed(s)
+    cfg, lcfg = dit or geo["dit"], llama or geo["llama"]
+    ccfg, vcfg = geo["clip"], geo["vae"]
+    dit = init_hunyuan_video(cfg, generator=gen(seed), device=dev, dtype=bf16)
+    for bp in dit["txt_in"]["blocks"]:  # init's zero gates would bypass the refiner
+        bp["mod"]["lin"]["w"].normal_(0.0, 0.02, generator=gen(seed + 4))
+    return {"cfg": cfg, "dit": dit,
+            "llama_cfg": lcfg,
+            "llama": init_llama(lcfg, generator=gen(seed + 1), device=dev, dtype=bf16),
+            "clip_cfg": ccfg,
+            "clip": load_clip_hf_text_only(hf_clip_text_state(torch, ccfg, dev, seed + 2), ccfg,
+                                           device=dev, dtype=bf16),
+            "vae_cfg": vcfg,
+            "vae": init_causal_vae_decoder(vcfg, generator=gen(seed + 3), device=dev, dtype=bf16)}
+
+
+def hunyuan_pipeline(torch, dev, m, tok_dir, merges):
+    """``HunyuanVideoPipeline`` + text encoders over ``hunyuan_models``'
+    dict, ``HV_STEPS`` steps, with each of its three stages timed (the card
+    synchronised around each) into ``pipe.stage_s``."""
+    from mixgrpo_tpu_torch.models.hunyuan.pipeline import HunyuanVideoPipeline
+    from mixgrpo_tpu_torch.models.hunyuan.text_encoder import (
+        HUNYUAN_PROMPT_TEMPLATES, CLIPTextPooler, LLMTextEncoder, clip_tokenize_fn,
+        json_tokenize_fn,
+    )
+
+    enc = LLMTextEncoder(m["llama"], m["llama_cfg"], json_tokenize_fn(tok_dir),
+                         prompt_template=HUNYUAN_PROMPT_TEMPLATES["dit-llm-encode"],
+                         prompt_template_video=HUNYUAN_PROMPT_TEMPLATES["dit-llm-encode-video"])
+    pooler = CLIPTextPooler(m["clip"], m["clip_cfg"], clip_tokenize_fn(merges))
+    pipe = HunyuanVideoPipeline(m["cfg"], m["dit"], vae_cfg=m["vae_cfg"], vae_params=m["vae"],
+                                num_steps=HV_STEPS, text_encoder=enc, clip_pooler=pooler,
+                                device=dev)
+    pipe.stage_s = {"encode": [], "denoise": [], "decode": []}
+
+    def timed(stage, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            pipe.stage_s[stage].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for stage, name in (("encode", "encode_prompt"), ("denoise", "_sample"),
+                        ("decode", "_decode")):
+        setattr(pipe, name, timed(stage, getattr(pipe, name)))
+    return pipe
+
+
+def video_kernel_class(name):
+    """``kernel_class`` with the causal VAE's own kernels split out:
+    GroupNorm's statistics and affine, replicate padding, nearest
+    upsampling, and the convolutions beside the GEMMs."""
+    low = name.lower()
+    for cls, keys in (("group_norm", ("rowwisemoments", "computefusedparams", "groupnorm",
+                                      "group_norm")),
+                      ("replicate_pad", ("replication_pad",)),
+                      ("upsample", ("upsample_nearest",)),
+                      ("conv", ("conv", "fprop", "dgrad", "cudnn"))):
+        if any(k in low for k in keys):
+            return cls
+    return kernel_class(name)
+
+
+def check_videos(samples, shape):
+    import numpy as np
+
+    bad = [i for i, s in enumerate(samples)
+           if s.shape != shape or not np.isfinite(s).all() or s.min() < 0 or s.max() > 1]
+    if bad:
+        raise AssertionError(f"videos {bad} are misshapen, not finite or outside [0, 1]")
+
+
+def hunyuan_video_phase(torch, FA, dev, card, root, rows, geo=None):
+    """HunyuanVideo at full width and depth with random bf16 weights (see the
+    module docstring): ``HunyuanVideoSampler.predict`` at 192x336, 129
+    frames, 4 steps, two prompts and seeds (B = 1 per call), its seconds per
+    video split into text encoding, denoising and decode, its peak and its
+    launches (60 forwards per DiT call, nothing else); one DiT forward with
+    the kernel against eager attention at that size, most of the text
+    masked; two forwards at 544x960, 129 frames (cold, then warm); then the released
+    layouts written at full width (the transformer ``.pt`` cut to 2 + 4
+    blocks, the Llama-3 tower to 4 of 32 layers, the whole VAE, CLIP-L, the
+    tokenizer), loaded through ``HunyuanVideoPipeline.from_checkpoint`` and
+    ``LLMTextEncoder.from_checkpoint`` with leaves held bit for bit, one
+    ``predict`` on them, and ``verify_weights.main`` record-then-check for
+    ``hunyuan_llm``, ``hunyuan_vae`` and ``hunyuan_dit``.  ``geo`` (default
+    ``hunyuan_geometry()``) lets the phase be rehearsed at a tiny size."""
+    import shutil
+    import tempfile
+
+    from mixgrpo_tpu_torch.models.flux.model import param_count
+    from mixgrpo_tpu_torch.models.hunyuan.model import hunyuan_video_forward
+    from mixgrpo_tpu_torch.models.hunyuan.sampler import HunyuanVideoSampler
+
+    geo = geo or hunyuan_geometry()
+    tmp = tempfile.mkdtemp(dir=root, prefix=".smoke_hunyuan_")
+    try:
+        tok_dir, merges = os.path.join(tmp, "tokenizer"), os.path.join(tmp, "merges.txt")
+        write_llama3_tokenizer(tok_dir)
+        with open(merges, "w") as f:
+            f.write("\n".join(CLIP_MERGES) + "\n")
+
+        # -- 1. predict at full width and depth ----------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases left
+        t0 = time.perf_counter()
+        m = hunyuan_models(torch, dev, geo)
+        cfg, per_call = m["cfg"], m["cfg"].depth_double + m["cfg"].depth_single
+        torch.cuda.synchronize()
+        emit({"phase": "hunyuan_weights", "dit_params": param_count(m["dit"]),
+              "llama_params": param_count(m["llama"]), "clip_text_params": param_count(m["clip"]),
+              "vae_decoder_params": param_count(m["vae"]), "dtype": "bfloat16",
+              "seconds": time.perf_counter() - t0, "allocated_before_gb": before_gb,
+              "allocated_gb": torch.cuda.memory_allocated() / 1e9, "device": card})
+        pipe = hunyuan_pipeline(torch, dev, m, tok_dir, merges)
+        pipe.text_encoder.max_length = L_txt = geo["text_len"]
+        h, w, frames = geo["size"]
+        lat_shape = (1, (frames - 1) // 4 + 1, h // 8, w // 8, cfg.in_channels)
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        out = HunyuanVideoSampler(pipe).predict(list(HV_PROMPTS), height=h, width=w,
+                                                video_length=frames, seed=list(HV_SEEDS))
+        wall = time.perf_counter() - t0
+        launches = FA.flash_attn_fwd.launches
+        peak = torch.cuda.max_memory_allocated()
+        n = len(HV_PROMPTS)
+        check_launches(FA, "hunyuan_video_predict", launches, per_call, n * HV_STEPS)
+        check_videos(out["samples"], (frames, h, w, 3))
+        st = pipe.stage_s
+        rec = {"phase": "hunyuan_video_predict", "height": h, "width": w, "frames": frames,
+               "latents": list(lat_shape[1:]), "steps": HV_STEPS, "videos": n,
+               "seeds": out["seeds"], "tiled_decode": pipe.tiles(lat_shape),
+               "text_tokens": L_txt, "seq": L_txt + lat_shape[1] * (h // 16) * (w // 16),
+               "wall_s": wall, "s_per_video": wall / n,
+               "encode_s": st["encode"], "denoise_s_per_video": st["denoise"],
+               "decode_s_per_video": st["decode"], "flash_launches": launches,
+               "max_memory_allocated_gb": peak / 1e9,
+               "frame_mean": [float(s.mean()) for s in out["samples"]], "device": card}
+        emit(rec)
+        if peak >= 80e9 or not pipe.tiles(lat_shape):
+            raise AssertionError(f"hunyuan predict: peak {peak / 1e9} GB, or no tiled decode")
+        del out, pipe
+
+        # where a video's time goes: one DiT call and one decode tile, profiled
+        from mixgrpo_tpu_torch.models.hunyuan.vae3d import causal_vae_decode
+
+        g = torch.Generator(dev).manual_seed(35)
+        z = torch.randn(lat_shape, generator=g, device=dev).bfloat16()
+        txt = torch.randn((1, L_txt, cfg.text_states_dim), generator=g, device=dev).bfloat16()
+        pooled = torch.randn((1, cfg.text_states_dim_2), generator=g, device=dev).bfloat16()
+        mask = torch.zeros((1, L_txt), dtype=torch.int32, device=dev)
+        mask[:, :geo["text_kept"]] = 1  # 216 of 256 text tokens masked
+        t, gs = torch.full((1,), 0.6, device=dev), torch.full((1,), 6.0, device=dev)
+        fwd = lambda impl, zz=z: hunyuan_video_forward(m["dit"], cfg, zz, txt, pooled, t, gs,
+                                                       mask, attn_impl=impl)
+        with torch.no_grad():
+            profile_device(torch, f"one hunyuan_video DiT call at {h}x{w}x{frames}, bf16",
+                           lambda: fwd("flash"), card, video_kernel_class)
+            tile = z[:, :17, :, :32].float()  # one tile of the tiled decode
+            profile_device(torch, f"one causal VAE decode tile {list(tile.shape[1:4])}, bf16",
+                           lambda: causal_vae_decode(m["vae"], m["vae_cfg"], tile), card,
+                           video_kernel_class)
+        del tile
+        for k in ("llama", "clip", "vae"):
+            m.pop(k)
+        torch.cuda.empty_cache()
+
+        # -- 2. the model path through the kernel against eager attention --------
+        FA.reset_launches()
+        with torch.no_grad():
+            v_flash = fwd("flash")
+            torch.cuda.synchronize()
+            check_launches(FA, "hunyuan_flash_vs_eager", FA.flash_attn_fwd.launches, per_call, 1)
+            v_eager = fwd("eager")
+        ok, err, rel = close_bf16(v_flash, v_eager)
+        emit({"phase": "reference", "what": f"hunyuan_video forward at {h}x{w}x{frames}, "
+              f"{L_txt - geo['text_kept']} of {L_txt} text tokens masked, bf16, kernel vs "
+              "eager attention",
+              "rel_l2": rel, "max_abs_err": err, "max_abs_eager": v_eager.abs().max().item(),
+              "limit": "close_bf16", "ok": ok, "device": card})
+        if not ok:
+            raise AssertionError(f"hunyuan forward: kernel path vs eager rel_l2={rel}, err={err}")
+        del v_flash, v_eager
+
+        # -- 3. two forwards at 544x960, 129 frames: cold, then warm ---------------
+        h5, w5, f5 = geo["size_540p"]
+        z5 = torch.randn((1, (f5 - 1) // 4 + 1, h5 // 8, w5 // 8, cfg.in_channels),
+                         generator=g, device=dev).bfloat16()
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        call_ms = []
+        for _ in range(2):  # the first call at this shape is cold: new blocks, GEMM set-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                v5 = fwd("flash", z5)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        check_launches(FA, "hunyuan_540p_forward", FA.flash_attn_fwd.launches, per_call, 2)
+        n_img = z5.shape[1] * (h5 // 16) * (w5 // 16)
+        emit({"phase": "hunyuan_540p_forward", "height": h5, "width": w5, "frames": f5,
+              "image_tokens": n_img, "seq": L_txt + n_img,
+              "seq_padded": -(-(L_txt + n_img) // 128) * 128, "ms": call_ms[1],
+              "cold_ms": call_ms[0],
+              "finite": bool(torch.isfinite(v5).all()),
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "device": card})
+        if not bool(torch.isfinite(v5).all()):
+            raise AssertionError("hunyuan 540p forward: not finite")
+        del v5, z5, m
+        torch.cuda.empty_cache()
+
+        # -- 4. from files in the released layouts ---------------------------------
+        hunyuan_files_phase(torch, FA, dev, card, tmp, tok_dir, merges, geo)
+    finally:  # cleanup only; failures propagate
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def hunyuan_files_phase(torch, FA, dev, card, tmp, tok_dir, merges, geo):
+    """Step 4 of ``hunyuan_video_phase``: write, load, hold, predict, verify."""
+    from mixgrpo_tpu_torch import verify_weights as VW
+    from mixgrpo_tpu_torch.models.hunyuan.load import export_hunyuan_state_dict
+    from mixgrpo_tpu_torch.models.hunyuan.pipeline import HunyuanVideoPipeline
+    from mixgrpo_tpu_torch.models.hunyuan.sampler import HunyuanVideoSampler
+    from mixgrpo_tpu_torch.models.hunyuan.text_encoder import (
+        CLIPTextPooler, LLMTextEncoder, clip_tokenize_fn,
+    )
+    from mixgrpo_tpu_torch.models.hunyuan.vae3d import init_causal_vae_encoder
+    from mixgrpo_tpu_torch.models.text.clip_load import load_clip_hf_text_only
+    from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir, save_file
+
+    bf16 = torch.bfloat16
+    cut = geo["dit_file"]
+    dd, ds = cut.depth_double, cut.depth_single
+    t0 = time.perf_counter()
+    m = hunyuan_models(torch, dev, geo, dit=cut, llama=geo["llama_file"], seed=40)
+    paths = {"dit": os.path.join(tmp, "transformer", "pytorch_model_module.pt"),
+             "llm": os.path.join(tmp, "text_encoder"), "vae": os.path.join(tmp, "vae"),
+             "clip": os.path.join(tmp, "text_encoder_2")}
+    sd = export_hunyuan_state_dict(m["dit"], cut, device="cpu")
+    os.makedirs(os.path.dirname(paths["dit"]))
+    torch.save({"module": sd}, paths["dit"])
+    del sd
+    llama_st = llama_hf_state(torch, m["llama_cfg"], dev, 44)
+    save_file(llama_st, os.path.join(paths["llm"], "model.safetensors"))
+    vae_enc = init_causal_vae_encoder(m["vae_cfg"], generator=torch.Generator(dev).manual_seed(45),
+                                      device=dev)
+    vae_dec = m["vae"]
+    save_file(causal_vae_state(vae_dec, vae_enc),
+              os.path.join(paths["vae"], "diffusion_pytorch_model.safetensors"),
+              dtype=torch.float32)
+    clip_st = hf_clip_text_state(torch, m["clip_cfg"], dev, 46)
+    save_file(clip_st, os.path.join(paths["clip"], "model.safetensors"))
+    torch.cuda.synchronize()
+    size = lambda p: sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(p)
+                         for f in fs) if os.path.isdir(p) else os.path.getsize(p)
+    emit({"phase": "hunyuan_files_write", "seconds": time.perf_counter() - t0,
+          "gb": {k: size(p) / 1e9 for k, p in paths.items()},
+          "dit_depth": [dd, ds], "llama_layers": m["llama_cfg"].n_layers, "device": card})
+
+    log = LoadLog(torch)
+    enc = log.load("llava-llama-3 text tower", lambda: LLMTextEncoder.from_checkpoint(
+        paths["llm"], tok_dir, cfg=m["llama_cfg"], device=dev), size(paths["llm"]))
+    pre = f"model.layers.{m['llama_cfg'].n_layers - 1}"
+    log.same("llama blocks.q[-1] (transposed)", enc.params["blocks"]["q"][-1],
+             llama_st[f"{pre}.self_attn.q_proj.weight"].t())
+    log.same("llama blocks.down[-1]", enc.params["blocks"]["down"][-1],
+             llama_st[f"{pre}.mlp.down_proj.weight"].t())
+    log.same("llama token_emb", enc.params["token_emb"], llama_st["model.embed_tokens.weight"])
+    del llama_st
+    ccfg = m["clip_cfg"]
+    clip = log.load("clip-l text", lambda: load_clip_hf_text_only(
+        SafetensorsDir(paths["clip"]), ccfg, device=dev, dtype=bf16), size(paths["clip"]))
+    log.same("clip token_emb (F16 -> bf16)", clip["text"]["token_emb"],
+             clip_st["text_model.embeddings.token_embedding.weight"].to(bf16))
+    del clip_st
+    pooler = CLIPTextPooler(clip, ccfg, clip_tokenize_fn(merges))
+    pipe = log.load("transformer .pt + vae", lambda: HunyuanVideoPipeline.from_checkpoint(
+        paths["dit"], paths["vae"], device=dev, num_steps=HV_STEPS, text_encoder=enc,
+        clip_pooler=pooler), size(paths["dit"]) + size(paths["vae"]))
+    lp, want = pipe.params, m["dit"]
+    for what, path in (("img_in.w (Conv3d (1, 2, 2), (ph, pw, C) order)", ("img_in", "w")),
+                       ("double.img_qkv.w[-1]", ("double", "img_qkv", "w", -1)),
+                       ("double.txt_knorm[0]", ("double", "txt_knorm", 0)),
+                       ("single.linear1.w[-1]", ("single", "linear1", "w", -1)),
+                       ("txt_in.blocks[-1].qkv.w (refiner)", ("txt_in", "blocks", -1, "qkv",
+                                                               "w")),
+                       ("final_proj.w", ("final_proj", "w"))):
+        a, b = lp, want
+        for k in path:
+            a, b = a[k], b[k]
+        log.same(what, a, b)
+    log.same("vae decoder.conv_in.w (f32 -> bf16)", pipe.vae_params["conv_in"]["w"],
+             vae_dec["conv_in"]["w"])
+    log.same("vae decoder.up_blocks[1].upsample.w", pipe.vae_params["up_blocks"][1]["upsample"]["w"],
+             vae_dec["up_blocks"][1]["upsample"]["w"])
+    log.same("vae decoder.mid_attn.q.w", pipe.vae_params["mid_attn"]["q"]["w"],
+             vae_dec["mid_attn"]["q"]["w"])
+    for rec in log.loads:
+        emit(dict(phase="hunyuan_files_load", **rec, device=card))
+    emit({"phase": "hunyuan_files_leaves", "checks": log.checks, "device": card})
+    if pipe.cfg != cut or not all(c["bit_for_bit"] for c in log.checks):
+        raise AssertionError(f"hunyuan files: config {pipe.cfg} or leaves differ: {log.checks}")
+    del m, vae_dec, vae_enc
+
+    h, w, frames = geo["size"]
+    enc.max_length = geo["text_len"]
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    out = HunyuanVideoSampler(pipe).predict(HV_PROMPTS[0], height=h, width=w,
+                                            video_length=frames, seed=7)
+    sec = time.perf_counter() - t0
+    check_launches(FA, "hunyuan_files_predict", FA.flash_attn_fwd.launches, dd + ds, HV_STEPS)
+    check_videos(out["samples"], (frames, h, w, 3))
+    emit({"phase": "hunyuan_files_predict", "seconds": sec, "seeds": out["seeds"],
+          "device": card})
+    del pipe, enc, pooler, out
+    torch.cuda.empty_cache()
+
+    goldens = os.path.join(tmp, "goldens.npz")
+    args = ["--goldens", goldens, "--hunyuan-llm", paths["llm"], "--hunyuan-vae", paths["vae"],
+            "--hunyuan-dit", paths["dit"], "--device", str(dev)]
+    t0 = time.perf_counter()
+    recorded = VW.main(args + ["--record"])
+    checked = VW.main(args)
+    names = ("hunyuan_llm", "hunyuan_vae", "hunyuan_dit")
+    emit({"phase": "hunyuan_verify_weights", "recorded": recorded, "checked": checked,
+          "seconds": time.perf_counter() - t0, "device": card})
+    if recorded != {n: "recorded" for n in names} or checked != {n: "ok" for n in names}:
+        raise AssertionError(f"verify_weights on the HunyuanVideo files: {checked}")
+    torch.cuda.empty_cache()
+
+
 PHASES = ("build", "kernels", "serve", "checkpoints", "rewards", "train_main", "train",
-          "update_full_depth", "train_flash_lora", "parallel_attention", "parallel_train",
-          "parallel_cli", "parallel_tp")
+          "update_full_depth", "train_flash_lora", "hunyuan_video", "parallel_attention",
+          "parallel_train", "parallel_cli", "parallel_tp")
 TRAIN_DEPTH = (2, 4)
 FULL_DEPTH = (19, 38)
 
@@ -3810,23 +4408,24 @@ def main() -> int:
         for kernel in ("flash_bwd_kernelILi128ELb0E", "flash_bwd_kernelILi128ELb1E",
                        "flash_bwd_dq_kernelILi128E"):
             check_ptxas(build.reports.get(FA.BWD_KERNEL, ""), kernel)
-        kernel_phase(torch, FA, F, dev, card, rows)
+        timed_phase("kernels", kernel_phase, torch, FA, F, dev, card, rows)
     if "serve" in only:
-        serve_phase(torch, FA, F, M, dev, card, rows)
+        timed_phase("serve", serve_phase, torch, FA, F, M, dev, card, rows)
     import shutil
 
     kept = []  # the directories parallel_cli reads, removed at the end
     try:
         ckpt = paths = None
         if "checkpoints" in only:
-            ckpt = checkpoints_phase(torch, FA, M, dev, card, root,
-                                     keep="parallel_cli" in only)
+            ckpt = timed_phase("checkpoints", lambda: checkpoints_phase(
+                torch, FA, M, dev, card, root, keep="parallel_cli" in only))
             kept.append(ckpt["root"])
         if "rewards" in only:
             try:
-                paths = rewards_phase(torch, FA, dev, card, root)
+                paths = timed_phase("rewards", rewards_phase, torch, FA, dev, card, root)
                 if "train_main" in only:
-                    train_main_phase(torch, FA, M, dev, card, root, paths)
+                    timed_phase("train_main", train_main_phase, torch, FA, M, dev, card, root,
+                                paths)
             finally:  # cleanup only; failures propagate
                 shutil.rmtree(os.path.join(root, ".smoke_train_main"), ignore_errors=True)
                 kept.append(os.path.join(root, ".smoke_rewards"))
@@ -3843,29 +4442,49 @@ def main() -> int:
     return final_lines(torch, FA, rows, card, kind)
 
 
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, followed by a ``phase_time`` record of its wall seconds
+    (also when it raises); then the phase's garbage is collected, so that
+    objects it left in reference cycles (a trainer and its weights) do not
+    hold device memory into the next phase."""
+    import gc
+
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        emit({"phase": "phase_time", "name": name, "seconds": time.perf_counter() - t0})
+        gc.collect()
+
+
 def run_later_phases(torch, FA, M, dev, card, root, only, rows, ckpt, paths):
     """The phases after the reward zoo, in order; the multi-rank phases last."""
     if "train" in only:
-        launches = train_phase(torch, FA, M, dev, card, root)
+        launches = timed_phase("train", train_phase, torch, FA, M, dev, card, root)
         for n in ("flash_attn_fwd_lse", "flash_attn_bwd_fused"):
             rows.setdefault(n, {})["launches"] = launches[n]
         torch.cuda.empty_cache()
     if "update_full_depth" in only:
-        full = update_full_depth_phase(torch, FA, M, dev, card)
+        full = timed_phase("update_full_depth", update_full_depth_phase, torch, FA, M, dev,
+                           card)
         for n in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
             rows.setdefault(n, {})["launches"] = full[1024]["launches"][n]
         torch.cuda.empty_cache()
     if "train_flash_lora" in only:
-        train_flash_lora_phase(torch, FA, M, dev, card, root)
+        timed_phase("train_flash_lora", train_flash_lora_phase, torch, FA, M, dev, card, root)
+        torch.cuda.empty_cache()
+    if "hunyuan_video" in only:
+        timed_phase("hunyuan_video", hunyuan_video_phase, torch, FA, dev, card, root, rows)
         torch.cuda.empty_cache()
     if "parallel_attention" in only:
-        parallel_attention_phase(torch, FA, dev, card, root)
+        timed_phase("parallel_attention", parallel_attention_phase, torch, FA, dev, card, root)
     if "parallel_train" in only:
-        parallel_train_phase(torch, FA, dev, card, root)
+        timed_phase("parallel_train", parallel_train_phase, torch, FA, dev, card, root)
     if "parallel_cli" in only:
-        parallel_cli_phase(torch, FA, dev, card, root, ckpt, paths)
+        timed_phase("parallel_cli", parallel_cli_phase, torch, FA, dev, card, root, ckpt,
+                    paths)
     if "parallel_tp" in only:
-        parallel_tp_phase(torch, FA, dev, card, root)
+        timed_phase("parallel_tp", parallel_tp_phase, torch, FA, dev, card, root)
 
 
 def final_lines(torch, FA, rows, card, kind):

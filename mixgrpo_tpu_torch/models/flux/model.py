@@ -302,6 +302,28 @@ def _single_block(p, cfg: FluxConfig, x, vec, rope_cos, rope_sin, attn_impl,
 # ----------------------------------------------------------------------------
 
 
+def _attn_layout() -> str:
+    layout = os.environ.get("MIXGRPO_ATTN_LAYOUT", "bhsd")
+    if layout not in ("bhsd", "bshd"):
+        raise ValueError(f"MIXGRPO_ATTN_LAYOUT must be bhsd or bshd, got {layout!r}")
+    return layout
+
+
+def _pad_joint(x, rope_cos, rope_sin, S_total: int, multiple: int):
+    """Pad the token tail of ``x`` (B, L, C) so a joint sequence of
+    ``S_total`` tokens becomes a multiple of ``multiple``; the pad positions
+    get identity RoPE.  Applied only when S_total >= 8 x multiple, so tiny
+    test shapes keep their exact layout; 0 disables.  Returns (x, rope_cos,
+    rope_sin, npad); the caller masks the npad keys and slices them off."""
+    npad = (-S_total) % multiple if multiple else 0
+    if not npad or S_total < 8 * multiple:
+        return x, rope_cos, rope_sin, 0
+    D = rope_cos.shape[-1]
+    return (F.pad(x, (0, 0, 0, npad)),
+            torch.cat([rope_cos, rope_cos.new_ones((npad, D))]),
+            torch.cat([rope_sin, rope_sin.new_zeros((npad, D))]), npad)
+
+
 def flux_forward(
     params: Dict[str, Any],
     cfg: FluxConfig,
@@ -345,19 +367,12 @@ def flux_forward(
     Applied only when S >= 8 x multiple, so tiny test shapes keep their exact
     layout; 0 disables.  At 720px S = 2537 runs as 2560 with kv_valid 2537.
     """
-    layout = os.environ.get("MIXGRPO_ATTN_LAYOUT", "bhsd")
-    if layout not in ("bhsd", "bshd"):
-        raise ValueError(f"MIXGRPO_ATTN_LAYOUT must be bhsd or bshd, got {layout!r}")
+    layout = _attn_layout()
     L_txt, L_img = txt.shape[1], img.shape[1]
     S_total = L_txt + L_img
-    npad = (-S_total) % pad_seq_multiple if pad_seq_multiple else 0
-    attn_valid = None
-    if npad and S_total >= 8 * pad_seq_multiple:
-        img = F.pad(img, (0, 0, 0, npad))
-        D = rope_cos.shape[-1]
-        rope_cos = torch.cat([rope_cos, rope_cos.new_ones((npad, D))])
-        rope_sin = torch.cat([rope_sin, rope_sin.new_zeros((npad, D))])
-        attn_valid = S_total
+    img, rope_cos, rope_sin, npad = _pad_joint(img, rope_cos, rope_sin, S_total,
+                                               pad_seq_multiple)
+    attn_valid = S_total if npad else None
 
     x = L.linear(params["x_embedder"], img, dtype)
     c = L.linear(params["context_embedder"], txt, dtype)

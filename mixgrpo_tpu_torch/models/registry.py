@@ -2,9 +2,8 @@
 
 Port of mixgrpo_tpu/models/registry.py: a model_type string maps to (config
 factory, init fn, forward fn, checkpoint loader), so apps stay
-model-agnostic.  Only the FLUX family is ported; ``hunyuan_video`` and
-``mochi`` are registered under their names and raise until the video stack
-is ported (ROADMAP Queue 1 item 9).
+model-agnostic.  FLUX and HunyuanVideo are ported; ``mochi`` is registered
+under its name and raises until it is ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -26,6 +25,16 @@ def _flux_entry() -> ModelEntry:
     return ModelEntry(FluxConfig.flux_dev, init_flux, flux_forward, load_flux_params)
 
 
+def _hunyuan_entry() -> ModelEntry:
+    from mixgrpo_tpu_torch.models.hunyuan.load import load_hunyuan_video
+    from mixgrpo_tpu_torch.models.hunyuan.model import (
+        HunyuanVideoConfig, hunyuan_video_forward, init_hunyuan_video,
+    )
+
+    return ModelEntry(HunyuanVideoConfig.hunyuan_video, init_hunyuan_video,
+                      hunyuan_video_forward, load_hunyuan_video)
+
+
 def _video_entry(model_type: str) -> Callable[[], ModelEntry]:
     def entry() -> ModelEntry:
         raise NotImplementedError(f"{model_type!r} waits for the port of the video stack "
@@ -35,7 +44,7 @@ def _video_entry(model_type: str) -> Callable[[], ModelEntry]:
 
 _REGISTRY: Dict[str, Callable[[], ModelEntry]] = {
     "flux": _flux_entry,
-    "hunyuan_video": _video_entry("hunyuan_video"),
+    "hunyuan_video": _hunyuan_entry,
     "mochi": _video_entry("mochi"),
 }
 
@@ -59,5 +68,10 @@ def load_vae(model_type: str) -> ModelEntry:
         return ModelEntry(VAEConfig.flux_dev, init_vae_decoder, vae_decode,
                           load_vae_decoder_params)
     if model_type == "hunyuan_video":
-        _video_entry(model_type)()
+        from mixgrpo_tpu_torch.models.hunyuan.vae3d import (
+            CausalVAEConfig, causal_vae_decode, init_causal_vae_decoder, load_causal_vae_decoder,
+        )
+
+        return ModelEntry(CausalVAEConfig.hunyuan_video, init_causal_vae_decoder,
+                          causal_vae_decode, load_causal_vae_decoder)
     raise ValueError(f"no VAE registered for {model_type!r}")

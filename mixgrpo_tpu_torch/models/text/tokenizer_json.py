@@ -1,13 +1,16 @@
-"""A reader of HF ``tokenizer.json`` files: the T5 tokenizer (``tokenizer_2``)
-and ImageReward's BERT WordPiece tokenizer.
+"""A reader of HF ``tokenizer.json`` files: the T5 tokenizer (``tokenizer_2``),
+ImageReward's BERT WordPiece tokenizer and the Llama-3 byte-level BPE
+tokenizer of HunyuanVideo's text encoder.
 
 The JAX package tokenizes T5 prompts with
 ``transformers.AutoTokenizer.from_pretrained(tokenizer_2)``
 (mixgrpo_tpu/preprocess.py:125,141, sample.py:238,266) and ImageReward's
 prompts with ``transformers.BertTokenizerFast.from_pretrained``
-(mixgrpo_tpu/rewards/image_reward.py:125-128); the card's machine has
-neither ``transformers`` nor ``tokenizers``, so the port reads the file
-itself and runs the same pipeline, id for id:
+(mixgrpo_tpu/rewards/image_reward.py:125-128) and the llava-llama-3
+prompts with ``transformers.AutoTokenizer``
+(mixgrpo_tpu/models/hunyuan/text_encoder.py:163-179); the card's machine
+has neither ``transformers``, ``tokenizers`` nor ``regex``, so the port reads
+the file itself and runs the same pipeline, id for id:
 
   added tokens (split out of the raw text, or out of the normalized text
   for those marked ``normalized``) -> normalizer -> pre-tokenizer -> model
@@ -31,16 +34,29 @@ skipped):
 - pre-tokenizers: ``Whitespace`` (``\\w+|[^\\w\\s]+``), ``WhitespaceSplit``,
   ``Metaspace`` (``prepend_scheme`` "always" or "never", or the older
   ``add_prefix_space``; ``split``), ``BertPreTokenizer`` (split on
-  whitespace, each punctuation character a piece of its own) and
-  ``Sequence``;
+  whitespace, each punctuation character a piece of its own), ``Split``
+  (Llama-3's pattern only, ``Isolated``, not inverted: Python's ``re`` has no
+  ``\\p{...}``, so the pattern runs as a scanner over ``unicodedata``
+  categories, ``\\p{L}`` as ``str.isalpha``, ``\\p{N}`` as Nd, Nl and No,
+  ``\\s`` as Oniguruma's: tab to CR, NEL, Zs, Zl and Zp; the categories
+  are Python's Unicode database, 15.0 on Python 3.12, so a letter assigned
+  later splits otherwise than in ``tokenizers``), ``ByteLevel``
+  (``use_regex`` and ``add_prefix_space`` off: each piece's UTF-8 bytes
+  mapped to GPT-2's printable characters) and ``Sequence``;
 - models: ``WordLevel``, ``Unigram`` (Viterbi over the scored pieces,
   ties to the earliest start; a character no piece covers becomes ``unk_id``
   scored ``min_score - 10``; runs of unknowns fuse into one) and
   ``WordPiece`` (greedy longest match from the left, continuations prefixed
   ``##``; a word with an unmatched rest, or over
-  ``max_input_chars_per_word`` characters, becomes the unk token);
-- post-processors: ``TemplateProcessing`` (single-sequence template) and
-  ``BertProcessing`` (``[CLS] ... [SEP]``).
+  ``max_input_chars_per_word`` characters, becomes the unk token) and
+  ``BPE`` (``ignore_merges``: a piece whole in the vocabulary is taken as
+  is; else its characters merged pair by pair, the lowest-ranked pair first
+  and the leftmost of equals; an unknown character becomes ``unk_token``,
+  runs of them one with ``fuse_unk``, or is dropped without one; dropout,
+  ``byte_fallback`` and subword affixes raise);
+- post-processors: ``TemplateProcessing`` (single-sequence template),
+  ``BertProcessing`` (``[CLS] ... [SEP]``), ``ByteLevel`` (offsets only: no
+  change to the ids) and a ``Sequence`` of these holding one template.
 
 ``load_bert_tokenizer`` reads a directory's ``tokenizer.json``, or, where it
 ships only ``vocab.txt`` (as ``bert-base-uncased``'s older layout does),
@@ -54,7 +70,11 @@ Grapheme clusters (used only by ``Precompiled``) follow a subset of Unicode
 UAX #29: a base character with the combining marks, ZWJ sequences,
 variation selectors and emoji modifiers after it, CR LF, and regional
 indicator pairs.  ``tokenizer_config.json`` gives the pad token and the
-special tokens that ``AutoTokenizer`` registers as added tokens.
+special tokens that ``AutoTokenizer`` registers as added tokens.  An added
+token missing from the model's vocabulary is numbered as ``tokenizers``
+numbers it, whatever id the file gives: the vocabulary's size, or one past
+the largest added id before it (Llama-3's specials follow its 128,000
+regular tokens, so their ids are the file's).
 """
 
 from __future__ import annotations
@@ -279,10 +299,123 @@ def _bert_split(piece: str) -> List[str]:
     return out
 
 
+# Llama-3's Split pattern, the only one taken
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
+                r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+_CRLF = "\r\n"
+
+
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's byte -> printable character table (``ByteLevel``)."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def _is_number(ch: str) -> bool:
+    return unicodedata.category(ch) in ("Nd", "Nl", "No")
+
+
+def _is_space(ch: str) -> bool:
+    """Oniguruma's Unicode ``\\s``."""
+    return ch in "\t\n\x0b\x0c\r\x85" or unicodedata.category(ch) in ("Zs", "Zl", "Zp")
+
+
+def _is_other(ch: str) -> bool:
+    return not (_is_space(ch) or ch.isalpha() or _is_number(ch))
+
+
+def _fold(ch: str) -> str:
+    """Simple case folding, as ``(?i:...)`` compares characters."""
+    return "s" if ch == "\u017f" else ch.lower()
+
+
+def _llama3_match(text: str, i: int) -> int:
+    """End of the match of ``LLAMA3_SPLIT`` at ``i`` (its alternatives tried
+    in order, with the backtracking the regex does), or ``i`` for none."""
+    n, c = len(text), text[i]
+    if c == "'":  # (?i:'s|'t|'re|'ve|'m|'ll|'d)
+        for suf in _CONTRACTIONS:
+            j = i + 1 + len(suf)
+            if j <= n and all(_fold(a) == b for a, b in zip(text[i + 1:j], suf)):
+                return j
+    # [^\r\n\p{L}\p{N}]?\p{L}+
+    j = i + 1 if (i + 1 < n and c not in _CRLF and not c.isalpha() and not _is_number(c)
+                  and text[i + 1].isalpha()) else i
+    if text[j].isalpha():
+        while j < n and text[j].isalpha():
+            j += 1
+        return j
+    if _is_number(c):  # \p{N}{1,3}
+        j = i
+        while j < min(n, i + 3) and _is_number(text[j]):
+            j += 1
+        return j
+    j = i + 1 if c == " " else i  #  ?[^\s\p{L}\p{N}]+[\r\n]*
+    if j < n and _is_other(text[j]):
+        while j < n and _is_other(text[j]):
+            j += 1
+        while j < n and text[j] in _CRLF:
+            j += 1
+        return j
+    if not _is_space(c):
+        return i
+    j = i
+    while j < n and _is_space(text[j]):
+        j += 1
+    crlf = [k for k in range(i, j) if text[k] in _CRLF]
+    if crlf:  # \s*[\r\n]+: the whitespace up to its last CR or LF
+        return crlf[-1] + 1
+    if j == n or j - i == 1:  # \s+(?!\S) at the end, else \s+
+        return j
+    return j - 1  # \s+(?!\S): all but the last, which the next piece takes
+
+
+def _llama3_split(piece: str) -> List[str]:
+    """``LLAMA3_SPLIT`` with ``Isolated`` behaviour: every match a piece of
+    its own, and each unmatched stretch between."""
+    out, gap, i = [], "", 0
+    while i < len(piece):
+        e = _llama3_match(piece, i)
+        if e > i:
+            if gap:
+                out.append(gap)
+                gap = ""
+            out.append(piece[i:e])
+            i = e
+        else:
+            gap += piece[i]
+            i += 1
+    if gap:
+        out.append(gap)
+    return out
+
+
 def _pre_tokenizer(spec) -> callable:
     if spec is None:
         return lambda pieces: pieces
     kind = spec.get("type")
+    if kind == "Split":
+        pat = spec.get("pattern", {})
+        if pat.get("Regex") != LLAMA3_SPLIT or spec.get("behavior") != "Isolated" \
+                or spec.get("invert"):
+            raise ValueError(f"tokenizer.json: Split {pat}, behavior "
+                             f"{spec.get('behavior')!r}, invert {spec.get('invert')!r} is "
+                             "not handled here (only Llama-3's pattern, Isolated)")
+        return lambda pieces: [w for p in pieces for w in _llama3_split(p)]
+    if kind == "ByteLevel":
+        if spec.get("use_regex", True) or spec.get("add_prefix_space", True):
+            raise ValueError("tokenizer.json: ByteLevel pre_tokenizer with use_regex or "
+                             "add_prefix_space is not handled here")
+        enc = _bytes_to_unicode()
+        return lambda pieces: ["".join(enc[b] for b in p.encode("utf-8")) for p in pieces]
     if kind == "BertPreTokenizer":
         return lambda pieces: [w for p in pieces for w in _bert_split(p)]
     if kind == "Whitespace":
@@ -428,8 +561,54 @@ class _WordPiece:
         return out
 
 
+class _BPE:
+    def __init__(self, spec):
+        for opt in ("dropout", "continuing_subword_prefix", "end_of_word_suffix",
+                    "byte_fallback"):
+            if spec.get(opt):
+                raise ValueError(f"tokenizer.json: BPE {opt} is not handled here")
+        self.vocab: Dict[str, int] = spec["vocab"]
+        self.ranks: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        for r, m in enumerate(spec["merges"]):
+            a, b = m.split(" ", 1) if isinstance(m, str) else m
+            self.ranks.setdefault((self.vocab[a], self.vocab[b]), (r, self.vocab[a + b]))
+        self.unk = spec.get("unk_token")
+        self.fuse_unk = bool(spec.get("fuse_unk"))
+        self.ignore_merges = bool(spec.get("ignore_merges"))
+
+    def token_id(self, tok: str) -> Optional[int]:
+        return self.vocab.get(tok)
+
+    def __call__(self, piece: str) -> List[int]:
+        if self.ignore_merges and piece in self.vocab:
+            return [self.vocab[piece]]
+        ids: List[int] = []
+        unk_last = False
+        for ch in piece:
+            i = self.vocab.get(ch)
+            if i is not None:
+                ids.append(i)
+                unk_last = False
+            elif self.unk is not None:
+                if not (self.fuse_unk and unk_last):
+                    ids.append(self.vocab[self.unk])
+                unk_last = True
+        while len(ids) > 1:
+            best = None  # (rank, position, merged id): the lowest rank, leftmost
+            for k in range(len(ids) - 1):
+                m = self.ranks.get((ids[k], ids[k + 1]))
+                if m is not None and (best is None or m[0] < best[0]):
+                    best = (m[0], k, m[1])
+            if best is None:
+                break
+            ids[best[1]:best[1] + 2] = [best[2]]
+        return ids
+
+
 def _model(spec):
     kind = spec.get("type")
+    if kind == "BPE":
+        return _BPE(spec)
     if kind == "WordPiece":
         return _WordPiece(spec)
     if kind == "WordLevel":
@@ -473,13 +652,20 @@ class TokenizerJSON:
 
         # added tokens: the file's, then the config's special tokens (which
         # AutoTokenizer registers the same way)
+        # ``tokenizers`` numbers an added token that is not in the model's
+        # vocabulary itself, whatever id the file gives: the vocabulary's size,
+        # or one past the largest added id, as they are added in file order
         self.added: Dict[str, Tuple[int, bool]] = {}
+        n_vocab = len(spec["model"]["vocab"])
         for t in spec.get("added_tokens", []):
             for opt in ("lstrip", "rstrip", "single_word"):
                 if t.get(opt):
                     raise ValueError(f"tokenizer.json: added token {t['content']!r} has "
                                      f"{opt}, which is not handled here")
-            self.added[t["content"]] = (t["id"], bool(t.get("normalized", False)))
+            i = self.model.token_id(t["content"])
+            if i is None:
+                i = max([n_vocab] + [j + 1 for j, _ in self.added.values()])
+            self.added[t["content"]] = (i, bool(t.get("normalized", False)))
         for key in ("pad_token", "eos_token", "unk_token", "bos_token", "cls_token",
                     "sep_token", "mask_token"):
             tok = cfg.get(key)
@@ -495,8 +681,14 @@ class TokenizerJSON:
 
     def _template(self, spec):
         self.template: List = [("A", None)]
-        if spec is None:
+        if spec is None or spec.get("type") == "ByteLevel":  # ByteLevel: offsets only
             return
+        if spec.get("type") == "Sequence":
+            kept = [p for p in spec["processors"] if p.get("type") != "ByteLevel"]
+            if len(kept) > 1:
+                raise ValueError("tokenizer.json: a Sequence post_processor with more than "
+                                 "one template is not handled here")
+            return self._template(kept[0] if kept else None)
         if spec.get("type") == "BertProcessing":
             self.template = [("special", [spec["cls"][1]]), ("A", None),
                              ("special", [spec["sep"][1]])]

@@ -22,9 +22,13 @@ Workflow:
 
 The inputs come from numpy seeds (JAX draws its FLUX and VAE inputs from
 ``jax.random``), so the port's goldens are its own and are not shared with
-the JAX package's.  Every check computes in f32 unless given a ``dtype``, on
-``--device`` (``cuda`` by default).  The Hunyuan and Mochi checks wait for
-the video stack (ROADMAP Queue 1 item 9) and raise.
+the JAX package's.  The HunyuanVideo checks draw from numpy with the seed
+JAX gives its ``jax.random.key`` (13, 14, 17; the DiT's latents, text and
+pooled vector all from 17, as JAX draws them from one key).  Every check
+computes in f32 unless given a ``dtype``, on ``--device`` (``cuda`` by
+default).  ``hunyuan_llm`` takes the depth of the file it reads (a tower cut
+to fewer than 32 layers runs all but the skipped two).  The Mochi checks
+wait for the Mochi port (ROADMAP Queue 1 item 9) and raise.
 """
 
 from __future__ import annotations
@@ -194,9 +198,66 @@ def check_image_reward(path: str, cfg=None, med_config=None, device="cuda", dtyp
     return {"image_reward_scores": model.score(_image(224, 224), ids, np.ones_like(ids))}
 
 
+def check_hunyuan_llm(path: str, cfg=None, device="cuda", dtype=None):
+    import dataclasses
+
+    from mixgrpo_tpu_torch.models.text.llama import (
+        LlamaConfig, llama_hidden_states, llama_layers_in, load_llama_hf,
+    )
+    from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir
+
+    state = SafetensorsDir(path)
+    cfg = cfg or dataclasses.replace(LlamaConfig.llava_llama3_8b(),
+                                     n_layers=llama_layers_in(state))
+    params = load_llama_hf(state, cfg, device=device, dtype=torch.float32)
+    ids = _ids(min(cfg.vocab, 32000), 2, 24, seed=8)
+    mask = np.ones_like(ids)
+    mask[1, 18:] = 0
+    out = llama_hidden_states(params, cfg, torch.from_numpy(ids), torch.from_numpy(mask),
+                              hidden_state_skip_layer=2, dtype=dtype or torch.float32)
+    return {"hunyuan_llm_out": out}
+
+
+def check_hunyuan_vae(path: str, cfg=None, device="cuda", dtype=None):
+    from mixgrpo_tpu_torch.models.hunyuan.vae3d import (
+        CausalVAEConfig, causal_vae_decode, causal_vae_encode, load_causal_vae_decoder,
+        load_causal_vae_encoder,
+    )
+
+    cfg = cfg or CausalVAEConfig.hunyuan_video()
+    dt = dtype or torch.float32
+    dec = load_causal_vae_decoder(path, cfg, device=device, dtype=torch.float32)
+    lat = torch.from_numpy(_normal(13, (1, 2, 8, 8, cfg.latent_channels))).to(device)
+    out = {"hunyuan_vae_dec": causal_vae_decode(dec, cfg, lat, dtype=dt)}
+    try:
+        enc = load_causal_vae_encoder(path, cfg, device=device, dtype=torch.float32)
+    except KeyError:  # a decoder-only checkpoint
+        return out
+    vid = torch.from_numpy(_normal(14, (1, 5, 32, 32, 3))).to(device)
+    out["hunyuan_vae_enc"] = causal_vae_encode(enc, cfg, vid, sample=False, dtype=dt)
+    return out
+
+
+def check_hunyuan_dit(path: str, cfg=None, device="cuda", dtype=None):
+    from mixgrpo_tpu_torch.models.hunyuan.load import load_hunyuan_video
+    from mixgrpo_tpu_torch.models.hunyuan.model import hunyuan_video_forward
+
+    params, cfg = load_hunyuan_video(path, cfg, device=device, dtype=torch.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    z = t(_normal(17, (1, 2, 8, 8, cfg.in_channels)))
+    txt = t(_normal(17, (1, 6, cfg.text_states_dim)))
+    pooled = t(_normal(17, (1, cfg.text_states_dim_2)))
+    g = t(np.full((1,), 6.0, np.float32)) if cfg.guidance_embed else None
+    with torch.no_grad():
+        out = hunyuan_video_forward(params, cfg, z, txt, pooled, t(np.full((1,), 0.5, np.float32)),
+                                    g, text_mask=t(np.ones((1, 6), np.int32)),
+                                    dtype=dtype or torch.float32, attn_impl="eager")
+    return {"hunyuan_dit_out": out}
+
+
 def _video_check(name):
     def check(path: str, cfg=None, device="cuda", dtype=None):
-        raise NotImplementedError(f"the {name} check waits for the port of the video stack "
+        raise NotImplementedError(f"the {name} check waits for the port of Mochi "
                                   "(ROADMAP Queue 1 item 9)")
     return check
 
@@ -210,8 +271,10 @@ CHECKS: Dict[str, Callable] = {
     "pick_score": check_pick_score,
     "clip_score": check_clip_score,
     "image_reward": check_image_reward,
-    **{n: _video_check(n) for n in ("hunyuan_llm", "hunyuan_vae", "hunyuan_dit", "mochi",
-                                    "mochi_vae")},
+    "hunyuan_llm": check_hunyuan_llm,
+    "hunyuan_vae": check_hunyuan_vae,
+    "hunyuan_dit": check_hunyuan_dit,
+    **{n: _video_check(n) for n in ("mochi", "mochi_vae")},
 }
 
 

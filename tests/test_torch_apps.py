@@ -441,15 +441,23 @@ def test_eval_rewards_main_matches_jax(tmp_path, monkeypatch):
 def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch):
     """record -> check ok -> a changed golden caught, for every check the
     port has, at the tiny preset (as tests/test_verify_weights.py does for
-    JAX's); the video checks raise; the CLI refuses no checkpoint.  The
+    JAX's); the Mochi checks raise; the CLI refuses no checkpoint.  The
     fingerprints of the checks whose inputs JAX also draws from numpy (t5,
-    clip_l and the four reward models) equal those of JAX's ``run_checks``
-    on the same files within 1e-4.  JAX's reward checks score at its models'
+    clip_l, the four reward models and hunyuan_llm) equal those of JAX's
+    ``run_checks`` on the same files within 1e-4, and so do hunyuan_vae's
+    and hunyuan_dit's, with JAX's ``jax.random.normal(key(s))`` replaced by
+    the port's numpy draw of seed s (the HunyuanVideo files written by
+    ``chip_smoke``'s writers at the tiny geometry).  JAX's reward checks score at its models'
     default bf16 and its ``ImageRewardModel.from_checkpoint`` hard-codes
     ViT-L and BERT-base: here its reward models compute in f32 and read the
     tiny geometry, as the port's checks do."""
+    import jax
+
     from mixgrpo_tpu import verify_weights as JVW
+    from mixgrpo_tpu.models.hunyuan import model as JHunyuan
+    from mixgrpo_tpu.models.hunyuan import vae3d as JVae3d
     from mixgrpo_tpu.models.text import blip as JB
+    from mixgrpo_tpu.models.text import llama as JLlama
     from mixgrpo_tpu.rewards import clip_family as JCF
     from mixgrpo_tpu.rewards import image_reward as JIR
     from mixgrpo_tpu_torch import verify_weights as VW
@@ -469,6 +477,11 @@ def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch)
              "hps": {"path": ck["hps"], **dev}, "pick_score": {"path": ck["pick_score"], **dev},
              "clip_score": {"path": ck["clip_score"], **dev},
              "image_reward": {"path": ir, "med_config": med, "cfg": (VCFG, tcfg), **dev}}
+    hv = write_hunyuan_ckpts(str(tmp_path / "hunyuan"))
+    specs.update({"hunyuan_llm": {"path": hv["llm"], "cfg": hv["llm_cfg"], **dev},
+                  "hunyuan_vae": {"path": hv["vae"], "cfg": hv["vae_cfg"], **dev},
+                  # the tiny config: its RoPE split is not the one inferred from D = 24
+                  "hunyuan_dit": {"path": hv["dit"], "cfg": hv["dit_cfg"], **dev}})
     goldens = str(tmp_path / "goldens.npz")
     assert set(VW.run_checks(specs, goldens, record=True).values()) == {"recorded"}
     assert VW.run_checks(specs, goldens, record=False) == {k: "ok" for k in specs}
@@ -483,7 +496,18 @@ def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch)
               "clip_l": {"path": specs["clip_l"]["path"], "cfg": jfam["clip"]},
               "hps": {"path": ck["hps"]}, "pick_score": {"path": ck["pick_score"]},
               "clip_score": {"path": ck["clip_score"]},
-              "image_reward": {"path": ir, "med_config": med}}
+              "image_reward": {"path": ir, "med_config": med},
+              "hunyuan_llm": {"path": hv["llm"], "cfg": JLlama.LlamaConfig.tiny()},
+              "hunyuan_vae": {"path": hv["vae"], "cfg": JVae3d.CausalVAEConfig.tiny()},
+              "hunyuan_dit": {"path": hv["dit"], "cfg": JHunyuan.HunyuanVideoConfig.tiny()}}
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: jnp.asarray(
+        VW._normal(int(jax.random.key_data(key)[-1]), shape), dtype))
+    # JAX's checks call these eagerly, one compile per op: jitted, the same program
+    for mod, name, static in ((JVae3d, "causal_vae_decode", ("dtype",)),
+                              (JVae3d, "causal_vae_encode", ("sample", "dtype")),
+                              (JHunyuan, "hunyuan_video_forward", ("dtype", "remat"))):
+        monkeypatch.setattr(mod, name, jax.jit(getattr(mod, name), static_argnums=(1,),
+                                               static_argnames=static))
     jgoldens = str(tmp_path / "goldens_jax.npz")
     assert set(JVW.run_checks(jspecs, jgoldens, record=True).values()) == {"recorded"}
     mine, want = dict(np.load(goldens)), dict(np.load(jgoldens))
@@ -496,14 +520,43 @@ def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch)
     np.savez(goldens, **g)
     chk = VW.run_checks(specs, goldens, record=False)
     assert chk["hps"].startswith("MISMATCH") and chk["flux"] == chk["image_reward"] == "ok"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        VW.run_checks({"mochi": {"path": "x"}}, goldens, record=False)
+    for name in ("mochi", "mochi_vae"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            VW.run_checks({name: {"path": "x"}}, goldens, record=False)
     with pytest.raises(SystemExit):
         VW.main(["--goldens", goldens])
     # the CLI on the HPS file: record, then check
     assert VW.main(["--goldens", goldens, "--record", "--hps", ck["hps"], "--device", "cpu"]) \
         == {"hps": "recorded"}
     assert VW.main(["--goldens", goldens, "--hps", ck["hps"], "--device", "cpu"]) == {"hps": "ok"}
+
+
+def write_hunyuan_ckpts(d):
+    """Tiny HunyuanVideo files in the released layouts, by the port's and
+    ``chip_smoke``'s writers: the transformer ``.pt`` (``{"module": ...}``),
+    a Llama tower as HF-named safetensors and the causal VAE (decoder and
+    encoder) as safetensors."""
+    import chip_smoke as CS
+    from mixgrpo_tpu_torch.models.hunyuan import load as HL
+    from mixgrpo_tpu_torch.models.hunyuan import model as HM
+    from mixgrpo_tpu_torch.models.hunyuan import vae3d as HV
+    from mixgrpo_tpu_torch.models.text.llama import LlamaConfig
+    from mixgrpo_tpu_torch.utils.safetensors_io import save_file
+
+    g = lambda s: torch.Generator().manual_seed(s)
+    cfg, vcfg, lcfg = HM.HunyuanVideoConfig.tiny(), HV.CausalVAEConfig.tiny(), LlamaConfig.tiny()
+    dit = os.path.join(d, "transformer", "pytorch_model_module.pt")
+    os.makedirs(os.path.dirname(dit))
+    params = HM.init_hunyuan_video(cfg, generator=g(50), device="cpu")
+    torch.save({"module": HL.export_hunyuan_state_dict(params, cfg)}, dit)
+    llm, vae = os.path.join(d, "text_encoder"), os.path.join(d, "vae")
+    save_file(CS.llama_hf_state(torch, lcfg, "cpu", 51, dtype=torch.float32),
+              os.path.join(llm, "model.safetensors"))
+    save_file(CS.causal_vae_state(
+        HV.init_causal_vae_decoder(vcfg, generator=g(52), device="cpu"),
+        HV.init_causal_vae_encoder(vcfg, generator=g(53), device="cpu")),
+        os.path.join(vae, "diffusion_pytorch_model.safetensors"))
+    return {"dit": dit, "dit_cfg": cfg, "llm": llm, "llm_cfg": lcfg, "vae": vae, "vae_cfg": vcfg}
 
 
 def test_tsne_probe_main(tree, cache, tmp_path, monkeypatch):

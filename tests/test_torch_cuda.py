@@ -667,3 +667,74 @@ def test_native_reader_rows_to_card(dev, tmp_path):
             on_card = torch.from_numpy(a[key]).to(dev)
             assert on_card.dtype == torch.float32
             assert torch.equal(on_card.cpu(), torch.from_numpy(b[key]))
+
+
+def test_masked_forward_at_hunyuan_shape(dev):
+    """The forward kernel's key-bias branch at HunyuanVideo's 192x336, 129
+    frame shape: B = 1, H = 24, S = Sk = 8,576 (8,572 tokens padded), D =
+    128, the joint key mask of 40 kept text tokens (key tile 1 wholly masked)
+    and the 4 pad keys, against its plain version (``assert_close_bf16``),
+    through ``attention(impl="flash")`` and launched once."""
+    from mixgrpo_tpu_torch.ops.attention import attention
+
+    g = torch.Generator(dev).manual_seed(8)
+    q, k, v = (torch.randn((1, 24, 8576, 128), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    m = torch.ones((1, 8576), dtype=torch.bool, device=dev)
+    m[:, 40:256] = False
+    m[:, 8572:] = False
+    FA.reset_launches()
+    got = attention(q, k, v, mask=m[:, None, None, :], impl="flash")
+    assert FA.flash_attn_fwd.launches == 1
+    want = FA.flash_attention_reference(q, k, v, mask=m)
+    assert_close_bf16(got, want, int(m.sum()))
+
+
+def test_tiny_hunyuan_predict_on_card(dev):
+    """``HunyuanVideoSampler.predict`` at the tiny config on the card (bf16,
+    the forward kernel under every block): 60 forwards per DiT call become
+    3 per call here (1 double + 2 single blocks), nothing else launches, the
+    frames are finite in [0, 1], and the DiT's latents with the kernel are
+    close to eager attention's on the same noise."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.models.hunyuan import model as HM
+    from mixgrpo_tpu_torch.models.hunyuan import pipeline as HP
+    from mixgrpo_tpu_torch.models.hunyuan import sampler as HS
+    from mixgrpo_tpu_torch.models.hunyuan import vae3d as HV
+
+    # the tiny config at head dim 32, the least the kernel takes
+    cfg = HM.HunyuanVideoConfig(**{**vars(HM.HunyuanVideoConfig.tiny()), "hidden_size": 128,
+                                   "rope_dim_list": (8, 12, 12)})
+    vcfg = HV.CausalVAEConfig.tiny()
+    gen = lambda s: torch.Generator(dev).manual_seed(s)
+    params = HM.init_hunyuan_video(cfg, generator=gen(0), device=dev, dtype=torch.bfloat16)
+    vae = HV.init_causal_vae_decoder(vcfg, generator=gen(1), device=dev, dtype=torch.bfloat16)
+
+    class Encoder:
+        def __call__(self, prompts, data_type="video"):
+            txt = torch.randn((len(prompts), 6, cfg.text_states_dim), generator=gen(2),
+                              device=dev)
+            mask = torch.ones((len(prompts), 6), dtype=torch.int64, device=dev)
+            mask[:, 4:] = 0
+            return txt, mask
+
+    pipe = HP.HunyuanVideoPipeline(cfg, params, vae_cfg=vcfg, vae_params=vae, num_steps=3,
+                                   text_encoder=Encoder(), device=dev)
+    FA.reset_launches()
+    out = HS.HunyuanVideoSampler(pipe).predict(["a", "b"], height=32, width=32, video_length=5,
+                                               seed=3)
+    assert FA.flash_attn_fwd.launches == 3 * 3 * 2
+    assert all(f.launches == 0 for n, f in FA.KERNEL_WRAPPERS.items() if n != "flash_attn_fwd")
+    for s in out["samples"]:
+        assert s.shape == (5, 32, 32, 3) and np.isfinite(s).all()
+        assert 0 <= s.min() and s.max() <= 1
+    txt, mask = Encoder()(["a"])
+    pooled = torch.zeros((1, cfg.text_states_dim_2), device=dev)
+    z0 = torch.randn((1, 2, 4, 4, cfg.in_channels), generator=gen(4), device=dev)
+    lat = {}
+    for impl in ("flash", "eager"):
+        p = HP.HunyuanVideoPipeline(cfg, params, num_steps=3, attn_impl=impl, device=dev)
+        lat[impl] = p(txt, pooled, text_mask=mask, video_length=5, height=32, width=32, z0=z0)
+    rel = (lat["flash"] - lat["eager"]).norm() / lat["eager"].norm()
+    assert torch.isfinite(lat["flash"]).all() and rel < 2e-2

@@ -1,8 +1,8 @@
 """The port stands alone: ``mixgrpo_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX (nor jaxlib, optax, orbax) nor the JAX package ``mixgrpo_tpu``,
 nor the packages the card's machine lacks or is not known to have
-(``transformers``, ``tokenizers``, ``safetensors``, ``requests``); only the
-tests import them."""
+(``transformers``, ``tokenizers``, ``regex``, ``safetensors``, ``requests``);
+only the tests import them."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = {"jax", "jaxlib", "optax", "orbax", "mixgrpo_tpu", "transformers", "tokenizers",
-          "safetensors", "requests"}
+          "regex", "safetensors", "requests"}
 
 
 def _port_files():
@@ -38,7 +38,12 @@ def test_port_package_is_present():
                    "tsne_probe.py", "data/sampler.py", "data/native_loader.py",
                    "ops/quant.py", "parallel/__init__.py", "parallel/mesh.py",
                    "parallel/collectives.py", "parallel/ulysses.py", "parallel/ring.py",
-                   "parallel/sharding.py"):
+                   "parallel/sharding.py", "models/hunyuan/__init__.py",
+                   "models/hunyuan/scheduler.py", "models/hunyuan/model.py",
+                   "models/hunyuan/load.py", "models/hunyuan/prompting.py",
+                   "models/hunyuan/text_encoder.py", "models/hunyuan/vae3d.py",
+                   "models/hunyuan/pipeline.py", "models/hunyuan/sampler.py",
+                   "models/text/llama.py", "models/video_tiling.py"):
         assert f"mixgrpo_tpu_torch/{module}" in files
 
 

@@ -345,11 +345,19 @@ def test_registry_entries():
     assert e.init is M.init_flux and e.forward is M.flux_forward
     v = R.load_vae("flux")
     assert v.config() == V.VAEConfig.flux_dev() and v.load is Ld.load_vae_decoder_params
-    for name in ("hunyuan_video", "mochi"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            R.get_model(name)
+    from mixgrpo_tpu_torch.models.hunyuan import load as HL
+    from mixgrpo_tpu_torch.models.hunyuan import model as HM
+    from mixgrpo_tpu_torch.models.hunyuan import vae3d as HV
+
+    h = R.get_model("hunyuan_video")
+    assert h.config() == HM.HunyuanVideoConfig.hunyuan_video() and h.load is HL.load_hunyuan_video
+    assert h.init is HM.init_hunyuan_video and h.forward is HM.hunyuan_video_forward
+    hv = R.load_vae("hunyuan_video")
+    assert hv.config() == HV.CausalVAEConfig.hunyuan_video()
+    assert (hv.init, hv.forward, hv.load) == (HV.init_causal_vae_decoder, HV.causal_vae_decode,
+                                              HV.load_causal_vae_decoder)
     with pytest.raises(NotImplementedError, match="item 9"):
-        R.load_vae("hunyuan_video")
+        R.get_model("mochi")
     with pytest.raises(ValueError):
         R.get_model("sdxl")
     with pytest.raises(ValueError):

@@ -413,7 +413,8 @@ BAD = [
     ("normalizer", {"type": "Nmt"}),  # not taken (BertNormalizer is: BERT's WordPiece)
     ("pre_tokenizer", {"type": "ByteLevel", "add_prefix_space": False}),
     ("pre_tokenizer", dict(META, prepend_scheme="first")),
-    ("model", {"type": "BPE", "vocab": {}, "merges": []}),
+    # BPE is taken (the Llama-3 tokenizer), its byte fallback is not
+    ("model", {"type": "BPE", "vocab": {}, "merges": [], "byte_fallback": True}),
     ("post_processor", {"type": "RobertaProcessing"}),
 ]
 
