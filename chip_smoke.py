@@ -18,8 +18,9 @@ a non-zero exit code.  Phases:
    main paths (the forward without lse at the serving shape, the forward
    with lse and the fused backward at the 720px update, dkv and dq at the
    1024px update, the forward with HunyuanVideo's key mask at B = 1, H = 24,
-   S = 8,576; at both updates the fused kernel and the split pair are
-   timed side by side), with its time, the plain version's time, the card's
+   S = 8,576, and at Mochi's final block, S = 11,130 over Sk = 11,386; at
+   both updates the fused kernel and the split pair are timed side by
+   side), with its time, the plain version's time, the card's
    bound for the same work and one PyTorch library call's time as a
    yardstick (never used by the port), and the card's SM clock sampled right
    after each timing; dkv, dq and fused launched twice must give identical
@@ -91,7 +92,33 @@ a non-zero exit code.  Phases:
    ``predict`` on them and ``verify_weights.main`` record-then-check for
    ``hunyuan_llm``, ``hunyuan_vae`` and ``hunyuan_dit`` (the files are
    removed afterwards);
-12. parallel_attention: several ranks, spawned as ``python3 chip_smoke.py
+12. mochi_video: Mochi-1 text-to-video at full width and depth with random
+   bf16 weights (the asymmetric DiT's 48 blocks, 10.03 B parameters, and
+   the causal VAE decoder): ``MochiPipeline`` at the published 480x848, 37
+   frames (7 x 60 x 106 latents, S = 11,130 + 256 text tokens), 2 steps (cut
+   from 64) of real CFG 4.5, two prompts of random T5 features with 40 of
+   256 tokens valid (B = 1 per video), the tiled decode; its seconds per
+   video split into denoising and decode, DiT calls, tiles, peak and
+   launches (48 forwards per DiT call, the final block's at Sq != Sk); the
+   profile of one DiT call and one decode tile; one DiT forward at that
+   size with each of its 48 kernel calls held against eager attention on
+   the same inputs, and its output against eager attention's, no further
+   from it than ``MOCHI_FLOOR_SLACK`` times the floor read in the run (eager
+   attention against itself on q times D^-1/2 rounded to bf16, as the
+   kernel takes it: no two bf16 attentions meet ``close_bf16`` at 48
+   blocks), and against the model's in f32, while a planted fault stands
+   further; its distance to the plain version's is recorded;
+   two forwards at 163 frames (S = 44,776), cold then warm, the first and
+   the final block's kernel calls of the cold one (S = Sk = 44,776; 44,520
+   queries over 44,776 keys) held against the kernel's plain version on the
+   same inputs (``close_bf16``); a gradient through
+   ``mochi_forward`` at 2 + the final block, full width, against eager (the
+   forward with lse, dkv and dq at Sq != Sk); then a transformer directory
+   in the diffusers layout (2 + final block) and the VAE decoder written,
+   loaded in bf16 with a dozen leaves held bit for bit, the convert CLI's
+   round trip and ``verify_weights.main`` for ``mochi`` and ``mochi_vae``
+   (the files are removed afterwards);
+13. parallel_attention: several ranks, spawned as ``python3 chip_smoke.py
    --rank ...`` (``parallel_layout``: on a one-card machine two ranks share
    the card over ``gloo``, since NCCL refuses two ranks of one communicator
    on one device; with 2-4 cards one rank per card over NCCL): Ulysses and
@@ -101,17 +128,17 @@ a non-zero exit code.  Phases:
    ``attention(impl="flash")`` with ``close_bf16``; each rank's flash
    launches, the collectives' transport (direct, or staged through the host
    with its count) and one all-to-all, all-gather and send/recv timed;
-13. parallel_train: one recipe iteration (full width, 2 + 4 blocks, 2
+14. parallel_train: one recipe iteration (full width, 2 + 4 blocks, 2
    generations per prompt) on mesh (dp 1, fsdp = ranks), one prompt per
    rank, against one rank (its own process, run first) on every prompt with
    the same injected noise: the parameters' update and the gradient norm,
    each rank's peak (under 80 GB per card) and launches; then the sharded
    checkpoint, its resume into a new trainer and the export;
-14. parallel_cli (needs checkpoints and rewards): ``sample.main`` over the
+15. parallel_cli (needs checkpoints and rewards): ``sample.main`` over the
    ranks on the checkpoints phase's directory and ``eval_rewards.main``
    (HPSv2.1) over them on its images: JAX's file names and seeds, and rank
    0's summary over every image.
-15. parallel_tp: one recipe iteration (full width, 2 + 4 blocks, 2
+16. parallel_tp: one recipe iteration (full width, 2 + 4 blocks, 2
    generations per prompt, drawn biases) on mesh (dp 1, fsdp = ranks / 2,
    tp 2: the Megatron split of the blocks, 12 of the 24 heads per rank), one
    prompt per batch rank, against one rank (its own process, run first) on
@@ -723,6 +750,9 @@ def kernel_phase(torch, FA, F, dev, card, rows):
     hv[:, 8572:] = False
     full.append(check_attention(torch, FA, F, dev, 1, 24, 8576, 8576, 128, mask=hv,
                                 timed=True))
+    # Mochi's final block at 480x848, 37 frames: 11,130 visual queries over
+    # 11,386 visual + text keys, no mask
+    full.append(check_attention(torch, FA, F, dev, 1, 24, 11130, 11386, 128, timed=True))
     main_shape = next(r for r in full if r["B"] == 2 and r["S"] == 4608
                       and r["layout"] == "bhsd")
     rows["flash_attn_fwd"] = dict(main_shape, max_abs_err=max(r["max_abs_err"] for r in full))
@@ -3936,6 +3966,40 @@ def causal_vae_state(dec, enc=None):
     return st
 
 
+def mochi_vae_state(dec):
+    """The port's Mochi VAE decoder dict under diffusers'
+    ``AutoencoderKLMochi`` decoder names: a 3x3x3 conv's kernel at
+    ``<name>.conv.weight`` as (out, in, kt, kh, kw), ``conv_in`` and
+    ``proj_out`` (1x1x1) and each up block's ``proj`` as (out, in) Linears,
+    GroupNorms under ``norm_layer``."""
+    st = {}
+
+    def conv(name, p):
+        st[f"{name}.weight"], st[f"{name}.bias"] = p["w"].permute(4, 3, 0, 1, 2), p["b"]
+
+    def lin(name, p):  # (in, out) or a 1x1x1 kernel -> an (out, in) Linear
+        st[f"{name}.weight"] = p["w"].reshape(-1, p["w"].shape[-1]).t()
+        st[f"{name}.bias"] = p["b"]
+
+    def resnet(name, p):
+        for i in (1, 2):
+            n = p[f"norm{i}"]
+            st[f"{name}.norm{i}.norm_layer.weight"] = n["scale"]
+            st[f"{name}.norm{i}.norm_layer.bias"] = n["bias"]
+            conv(f"{name}.conv{i}.conv", p[f"conv{i}"])
+
+    lin("decoder.conv_in", dec["conv_in"])
+    lin("decoder.proj_out", dec["proj_out"])
+    for stage in ("block_in", "block_out"):
+        for i, rp in enumerate(dec[stage]):
+            resnet(f"decoder.{stage}.resnets.{i}", rp)
+    for bi, blk in enumerate(dec["up_blocks"]):
+        for li, rp in enumerate(blk["resnets"]):
+            resnet(f"decoder.up_blocks.{bi}.resnets.{li}", rp)
+        lin(f"decoder.up_blocks.{bi}.proj", blk["proj"])
+    return st
+
+
 class LoadLog:
     """Timed loads (seconds, GB/s, the host's RSS rise) and leaves held bit
     for bit against what was written."""
@@ -4331,9 +4395,447 @@ def hunyuan_files_phase(torch, FA, dev, card, tmp, tok_dir, merges, geo):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Mochi-1
+# ---------------------------------------------------------------------------
+
+MOCHI_SEEDS = (2024, 2025)
+MOCHI_STEPS = 2  # cut from 64
+MOCHI_SIZE = (480, 848, 37)  # the published 480x848; 37 frames: 7 x 60 x 106 latents
+MOCHI_LONG = (480, 848, 163)  # the published 163 frames: 28 x 60 x 106 latents
+MOCHI_CUT_DEPTH = 3  # the gradient's and the files' blocks: 2 + the final block
+MOCHI_EAGER_HEADS = 8  # heads per chunk of the eager reference (4.1 GB of f32 scores)
+MOCHI_LONG_HEADS = 1  # per chunk of the plain version at 163 frames (8.0 GB of f32 scores)
+# The full-depth output of the kernel path may stand this much further from
+# eager attention's than eager attention stands from itself on q rounded
+# once otherwise.  On the H100 the sound pairs read 0.990-1.000 of that
+# floor, a planted 0.8% error in the softmax scale 1.17 and 1.6% 1.39.
+MOCHI_FLOOR_SLACK = 1.1
+
+
+def mochi_geometry():
+    """The released geometries (the DiT, 10.03 B parameters, and the VAE
+    decoder), the phase's sizes and its depth cut.  A CPU rehearsal passes
+    tiny ones."""
+    from mixgrpo_tpu_torch.models.mochi.model import MochiConfig
+    from mixgrpo_tpu_torch.models.mochi.vae import MochiVAEConfig
+
+    return {"dit": MochiConfig.mochi_preview(), "vae": MochiVAEConfig.mochi_preview(),
+            "size": MOCHI_SIZE, "size_long": MOCHI_LONG, "text_len": 256, "text_kept": 40,
+            "cut_depth": MOCHI_CUT_DEPTH, "eager_heads": MOCHI_EAGER_HEADS,
+            "long_heads": MOCHI_LONG_HEADS}
+
+
+def mochi_kernel_class(name):
+    """``video_kernel_class`` with SiLU (the SwiGLU gates and the
+    modulations) split out of the elementwise class."""
+    return "silu" if "silu" in name.lower() else video_kernel_class(name)
+
+
+def by_heads(torch, fn, heads):
+    """``fn(q, k, v)`` (bhsd, no mask) run ``heads`` heads at a time through
+    ``batch_chunks``: one Mochi layer's f32 scores at 480x848, 37 frames are
+    12.4 GB whole.  ``fn`` is the eager attention (``ops/attention.py``'s
+    f32 path) or the kernel's plain version."""
+    def attend(q, k, v, **_):
+        hb = lambda t: t.transpose(0, 1)  # heads first, so batch_chunks slices heads
+        f = lambda a, b, c: hb(fn(hb(a), hb(b), hb(c)))
+        return hb(batch_chunks(torch, f, q.shape[1], heads, hb(q), hb(k), hb(v)))
+    return attend
+
+
+def mochi_inputs(torch, dev, geo, seed, frames=None):
+    """The inputs of one Mochi DiT call, drawn from ``seed``: latents (1, lt,
+    h/8, w/8, C) and T5 features (1, L, 4096) in bf16, a mask keeping
+    ``text_kept`` of ``text_len`` tokens, and t = 0.6."""
+    cfg, (h, w, f) = geo["dit"], geo["size"]
+    f = frames or f
+    g = torch.Generator(dev).manual_seed(seed)
+    z = torch.randn((1, (f - 1) // 6 + 1, h // 8, w // 8, cfg.in_channels), generator=g,
+                    device=dev).bfloat16()
+    txt = torch.randn((1, geo["text_len"], cfg.text_embed_dim), generator=g,
+                      device=dev).bfloat16()
+    mask = torch.zeros((1, geo["text_len"]), dtype=torch.int32, device=dev)
+    mask[:, :geo["text_kept"]] = 1
+    return z, txt, mask, torch.full((1,), 0.6, device=dev)
+
+
+def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
+    """Mochi-1 at full width and depth with random bf16 weights (see the
+    module docstring): ``MochiPipeline`` at 480x848, 37 frames, 2 steps of
+    CFG 4.5 (two DiT calls a step), two prompts of random T5 features with
+    40 of 256 tokens valid (B = 1 per video), the tiled decode; its seconds
+    per video split into denoise and decode, its DiT calls, tiles, peak and
+    launches (48 forwards per DiT call, nothing else); the profile of one DiT
+    call and of one decode tile; one DiT forward at that size with each
+    block's kernel call held against eager attention on its inputs, and the
+    output against eager attention's, the floor of eager attention against
+    itself on the rounded q, the model's in f32 and a planted fault's, all
+    8 heads at a time (``by_heads``); two forwards at
+    163 frames (cold, then warm), the first and the final block's kernel
+    calls of the cold one held against the plain version one head at a time;
+    a gradient through ``mochi_forward`` at 2 +
+    the final block against eager (the forward with lse, dkv and dq at Sq !=
+    Sk); then the files (``mochi_files_phase``).  Returns the Mochi launches
+    of each kernel.  ``geo`` (default ``mochi_geometry()``) lets the phase
+    be rehearsed at a tiny size."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from mixgrpo_tpu_torch.models.flux.model import param_count
+    from mixgrpo_tpu_torch.models.mochi import model as MM
+    from mixgrpo_tpu_torch.models.mochi import vae as MV
+    from mixgrpo_tpu_torch.models.mochi.pipeline import MochiPipeline
+
+    geo = geo or mochi_geometry()
+    cfg, vcfg, bf16 = geo["dit"], geo["vae"], torch.bfloat16
+    gen = lambda s: torch.Generator(dev).manual_seed(s)
+    per_call, launches = cfg.num_layers, {}
+
+    # -- 1. the pipeline at full width and depth -----------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dit = MM.init_mochi(cfg, generator=gen(50), device=dev, dtype=bf16)
+    vae = MV.init_mochi_vae_decoder(vcfg, generator=gen(51), device=dev, dtype=bf16)
+    torch.cuda.synchronize()
+    emit({"phase": "mochi_weights", "dit_params": param_count(dit),
+          "vae_decoder_params": param_count(vae), "dtype": "bfloat16",
+          "seconds": time.perf_counter() - t0,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9, "device": card})
+    pipe = MochiPipeline(cfg, dit, num_steps=MOCHI_STEPS, guidance_scale=4.5, vae_cfg=vcfg,
+                         vae_params=vae, device=dev)
+    stage_s = {"denoise": [], "decode": []}
+    for stage, name in (("denoise", "_sample"), ("decode", "_decode")):
+        def timed(*a, _fn=getattr(pipe, name), _stage=stage, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_s[_stage].append(time.perf_counter() - t)
+            return out
+        setattr(pipe, name, timed)
+    h, w, frames = geo["size"]
+    prompts = [mochi_inputs(torch, dev, geo, seed) for seed in MOCHI_SEEDS]
+    lat_shape = tuple(prompts[0][0].shape)
+    decode, tiles = MV.mochi_vae_decode, []  # the tiled decode calls it once per tile
+
+    def count_tiles(*a, **k):
+        tiles.append(1)
+        return decode(*a, **k)
+
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    MV.mochi_vae_decode = count_tiles
+    try:
+        videos = [pipe(txt, text_mask=mask, num_frames=frames, height=h, width=w,
+                       generator=gen(seed))[0].cpu().numpy()
+                  for (_, txt, mask, _), seed in zip(prompts, MOCHI_SEEDS)]
+    finally:
+        MV.mochi_vae_decode = decode
+    wall = time.perf_counter() - t0
+    n, calls = len(videos), len(videos) * MOCHI_STEPS * 2
+    launches["flash_attn_fwd"] = FA.flash_attn_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(FA, "mochi_video_pipeline", launches["flash_attn_fwd"], per_call, calls)
+    check_videos(videos, (1 + (lat_shape[1] - 1) * 6, h, w, 3))
+    S_vis = lat_shape[1] * (h // 16) * (w // 16)
+    emit({"phase": "mochi_video_pipeline", "height": h, "width": w, "frames": frames,
+          "frames_out": videos[0].shape[0], "latents": list(lat_shape[1:4]),
+          "steps": MOCHI_STEPS, "guidance": 4.5, "videos": n, "dit_calls": calls,
+          "seq": S_vis + geo["text_len"], "seq_final_block_q": S_vis,
+          "tiled_decode": pipe.tiles(lat_shape), "tiles_per_video": len(tiles) / n,
+          "wall_s": wall, "s_per_video": wall / n, "denoise_s_per_video": stage_s["denoise"],
+          "decode_s_per_video": stage_s["decode"], "flash_launches": launches["flash_attn_fwd"],
+          "max_memory_allocated_gb": peak / 1e9,
+          "frame_mean": [float(v.mean()) for v in videos], "device": card})
+    if peak >= 80e9:
+        raise AssertionError(f"mochi pipeline: peak {peak / 1e9} GB")
+    del videos, pipe
+
+    # where a video's time goes: one DiT call and one decode tile, profiled
+    z, txt, mask, t = prompts[0]
+    fwd = lambda zz=z, **kw: MM.mochi_forward(dit, cfg, zz, txt, t, mask, **kw)
+    with torch.no_grad():
+        profile_device(torch, f"one mochi DiT call at {h}x{w}x{frames}, bf16",
+                       lambda: fwd(), card, mochi_kernel_class)
+        tile = z[:, :, :32, :32].float()  # one tile of the tiled decode
+        profile_device(torch, f"one mochi VAE decode tile {list(tile.shape[1:4])}, bf16",
+                       lambda: MV.mochi_vae_decode(vae, vcfg, tile), card, mochi_kernel_class)
+    del tile, vae
+    torch.cuda.empty_cache()
+
+    # -- 2. the model path through the kernel against eager attention ---------------
+    # Each of the 48 kernel calls of the full-depth forward is held against
+    # eager attention on its own q, k, v (close_bf16).  End to end no two
+    # bf16 attentions meet close_bf16 at 48 blocks: each rounds its output
+    # to bf16, and the roundings add up over the depth.  So the floor is read
+    # in the run, from eager attention against itself on q rounded once
+    # otherwise (q times D^-1/2 in bf16, as the kernel and JAX's kernel take
+    # it); the kernel path must stand no further from eager's output than
+    # MOCHI_FLOOR_SLACK times that floor, and from the model's output in f32
+    # (f32 activations, eager attention) than that times eager's bf16 path's
+    # distance; a planted fault (the kernel on q scaled by 1 + 2^-7) must
+    # stand further than the limit.
+    from mixgrpo_tpu_torch.ops.attention import _eager_attention
+
+    eager = by_heads(torch, _eager_attention, geo["eager_heads"])
+    eager_qs = by_heads(torch, lambda q, k, v: _eager_attention(FA._scaled_q(q), k, v,
+                                                                scale=1.0), geo["eager_heads"])
+    plain = by_heads(torch, FA.flash_attention_reference, geo["eager_heads"])
+    attention, per_block = MM.attention, []
+
+    def checked(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        per_block.append(close_bf16(out, eager(q, k, v)))
+        return out
+
+    def planted(q, k, v, **kw):
+        return attention((q.float() * (1 + 2.0 ** -7)).to(q.dtype), k, v, **kw)
+
+    variants = {"plain": (plain, bf16), "eager_rounded_q": (eager_qs, bf16),
+                "eager": (eager, bf16), "f32": (eager, torch.float32),
+                "planted_fault": (planted, bf16)}
+    FA.reset_launches()
+    with torch.no_grad():
+        try:
+            MM.attention = checked
+            outs = {"kernel": fwd()}
+            torch.cuda.synchronize()
+            check_launches(FA, "mochi_flash_vs_eager", FA.flash_attn_fwd.launches, per_call, 1)
+            for name, (attend, dt) in variants.items():
+                MM.attention = attend
+                outs[name] = fwd(dtype=dt)
+        finally:
+            MM.attention = attention
+    pairs = {f"{a}_vs_{b}": close_bf16(outs[a], outs[b])
+             for a, b in (("kernel", "eager"), ("kernel", "plain"), ("kernel", "f32"),
+                          ("eager", "eager_rounded_q"), ("eager", "f32"),
+                          ("planted_fault", "eager"))}
+    rel = {k: c[2] for k, c in pairs.items()}
+    floor = rel["eager_vs_eager_rounded_q"]
+    ok = (len(per_block) == per_call and all(c[0] for c in per_block)
+          and rel["kernel_vs_eager"] <= MOCHI_FLOOR_SLACK * floor
+          and rel["kernel_vs_f32"] <= MOCHI_FLOOR_SLACK * rel["eager_vs_f32"]
+          and rel["planted_fault_vs_eager"] > MOCHI_FLOOR_SLACK * floor)
+    emit({"phase": "reference", "what": f"mochi forward at {h}x{w}x{frames}, full depth, "
+          f"{geo['text_len'] - geo['text_kept']} of {geo['text_len']} text tokens masked in "
+          "the pooler, bf16, kernel vs eager attention: each block's attention on its own "
+          "inputs; the output against eager's, the plain version's and the f32 model's",
+          "blocks_checked": len(per_block), "blocks_ok": sum(c[0] for c in per_block),
+          "block_rel_l2_max": max(c[2] for c in per_block),
+          "block_max_abs_err_max": max(c[1] for c in per_block),
+          "max_abs_f32": outs["f32"].abs().max().item(),
+          "pairs": {k: {"rel_l2": c[2], "max_abs_err": c[1], "close_bf16": c[0]}
+                    for k, c in pairs.items()},
+          "floor_rel_l2": floor, "slack": MOCHI_FLOOR_SLACK,
+          "kernel_over_floor": rel["kernel_vs_eager"] / floor,
+          "planted_fault_over_floor": rel["planted_fault_vs_eager"] / floor,
+          "limit": "close_bf16 per block; kernel_vs_eager <= slack x floor; kernel_vs_f32 <= "
+                   "slack x eager_vs_f32; planted_fault_vs_eager > slack x floor",
+          "ok": ok, "device": card})
+    if not ok:
+        raise AssertionError(f"mochi forward: kernel path {pairs}, blocks {per_block}")
+    del outs
+
+    # -- 3. two forwards at 163 frames: cold, then warm -------------------------------
+    # the cold call keeps the first and the final block's attention inputs
+    # and kernel outputs, held afterwards against the plain version
+    zl = mochi_inputs(torch, dev, geo, 52, frames=geo["size_long"][2])[0]
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    call_ms, kept, seen = [], [], []
+
+    def keep(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        seen.append(1)
+        if len(seen) in (1, per_call):
+            kept.append((len(seen) - 1, *(x.clone() for x in (q, k, v, out))))
+        return out
+
+    for cold in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MM.attention = keep if cold else attention
+        try:
+            with torch.no_grad():
+                vl = fwd(zl)
+        finally:
+            MM.attention = attention
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    check_launches(FA, "mochi_163_forward", FA.flash_attn_fwd.launches, per_call, 2)
+    peak, finite = torch.cuda.max_memory_allocated(), bool(torch.isfinite(vl).all())
+    del vl
+    plain_long, blocks = by_heads(torch, FA.flash_attention_reference, geo["long_heads"]), []
+    with torch.no_grad():
+        for i, q, k, v, out in kept:
+            c = close_bf16(out, plain_long(q, k, v))
+            blocks.append({"block": i, "S": q.shape[2], "Sk": k.shape[2], "ok": c[0],
+                           "max_abs_err": c[1], "rel_l2": c[2]})
+    n_vis = zl.shape[1] * (h // 16) * (w // 16)
+    ok = finite and len(blocks) == 2 and all(b["ok"] for b in blocks)
+    emit({"phase": "mochi_long_forward", "height": h, "width": w,
+          "frames": geo["size_long"][2], "latents": list(zl.shape[1:4]), "seq": n_vis +
+          geo["text_len"], "seq_final_block_q": n_vis, "ms": call_ms[1], "cold_ms": call_ms[0],
+          "finite": finite, "max_memory_allocated_gb": peak / 1e9, "kernel_vs_plain": blocks,
+          "limit": "close_bf16", "ok": ok, "device": card})
+    if not ok:
+        raise AssertionError(f"mochi 163-frame forward: finite {finite}, kernel vs plain "
+                             f"{blocks}")
+    del kept, zl
+
+    # -- 4. a gradient at 2 + the final block: kernel path against eager --------------
+    d = geo["cut_depth"]
+    ccfg = dataclasses.replace(cfg, num_layers=d)
+    cut = dict(dit, blocks=tree_map(lambda x: x[:d - 1].clone(), dit["blocks"]),
+               final_block=tree_map(lambda x: x.clone(), dit["final_block"]))
+    del dit
+    torch.cuda.empty_cache()
+    w_out = torch.randn(z.shape, generator=gen(53), device=dev)
+    wq = cut["final_block"]["qkv"]["w"]
+
+    def grads(attend):
+        zz = z.float().requires_grad_(True)
+        cut["final_block"]["qkv"]["w"] = wq.detach().clone().requires_grad_(True)
+        attention, MM.attention = MM.attention, attend or MM.attention
+        try:
+            out = MM.mochi_forward(cut, ccfg, zz, txt, t, mask)
+            (out * w_out).sum().backward()
+        finally:
+            MM.attention = attention
+        return out.detach(), zz.grad, cut["final_block"]["qkv"]["w"].grad
+
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    got = grads(None)
+    torch.cuda.synchronize()
+    grad_launches = {k: f.launches for k, f in FA.KERNEL_WRAPPERS.items()}
+    want = grads(eager)
+    checks = [close_bf16(g, e) for g, e in zip(got, want)]
+    # the forward with lse runs twice per block (remat's recompute), dkv and dq once
+    expected = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 2 * d, "flash_attn_bwd_fused": 0,
+                "flash_attn_bwd_dkv": d, "flash_attn_bwd_dq": d}
+    ok = all(c[0] for c in checks) and grad_launches == expected
+    emit({"phase": "mochi_gradient", "what": f"d(sum(out * w))/d(latents, final qkv) through "
+          f"mochi_forward at {h}x{w}x{frames}, {d - 1} + final block, full width, remat, bf16, "
+          "kernel vs eager attention", "outputs": ["forward", "d_latents", "d_final_qkv"],
+          "rel_l2": [c[2] for c in checks], "max_abs_err": [c[1] for c in checks],
+          "limit": "close_bf16", "launches": grad_launches, "expected_launches": expected,
+          "default_bwd": [FA.default_bwd(S_vis + geo["text_len"], S_vis + geo["text_len"]),
+                          FA.default_bwd(S_vis, S_vis + geo["text_len"])],
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": ok,
+          "device": card})
+    if not ok:
+        raise AssertionError(f"mochi gradient: {checks}, launches {grad_launches}")
+    launches.update({k: v for k, v in grad_launches.items() if k != "flash_attn_fwd"})
+    del cut, got, want, prompts
+    torch.cuda.empty_cache()
+
+    # -- 5. from files in the diffusers layouts -----------------------------------------
+    tmp = tempfile.mkdtemp(dir=root, prefix=".smoke_mochi_")
+    try:
+        mochi_files_phase(torch, FA, dev, card, tmp, geo)
+    finally:  # cleanup only; failures propagate
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def mochi_files_phase(torch, FA, dev, card, tmp, geo):
+    """Step 5 of ``mochi_video_phase``: a transformer directory written by
+    ``save_mochi_diffusers`` at full width, cut to 2 + the final block, and
+    the full VAE decoder under diffusers' names, loaded onto the card in
+    bf16 with a dozen leaves held bit for bit; the convert CLI's round trip
+    (byte for byte); ``verify_weights.main`` record-then-check for ``mochi``
+    and ``mochi_vae``."""
+    import dataclasses
+    import filecmp
+
+    from mixgrpo_tpu_torch import verify_weights as VW
+    from mixgrpo_tpu_torch.models.mochi import convert as MC
+    from mixgrpo_tpu_torch.models.mochi.model import init_mochi
+    from mixgrpo_tpu_torch.models.mochi.pipeline import MochiPipeline
+    from mixgrpo_tpu_torch.models.mochi.vae import init_mochi_vae_decoder
+    from mixgrpo_tpu_torch.utils.safetensors_io import save_file
+
+    bf16 = torch.bfloat16
+    cut = dataclasses.replace(geo["dit"], num_layers=geo["cut_depth"])
+    t0 = time.perf_counter()
+    dit = init_mochi(cut, generator=torch.Generator(dev).manual_seed(54), device=dev, dtype=bf16)
+    vae = init_mochi_vae_decoder(geo["vae"], generator=torch.Generator(dev).manual_seed(55),
+                                 device=dev, dtype=bf16)
+    paths = {"dit": os.path.join(tmp, "transformer"), "vae": os.path.join(tmp, "vae")}
+    MC.save_mochi_diffusers(dit, cut, paths["dit"])
+    save_file(mochi_vae_state(vae), os.path.join(paths["vae"],
+                                                 "diffusion_pytorch_model.safetensors"),
+              dtype=torch.float32)
+    torch.cuda.synchronize()
+    emit({"phase": "mochi_files_write", "seconds": time.perf_counter() - t0,
+          "gb": {k: dir_bytes(p) / 1e9 for k, p in paths.items()}, "dit_depth": cut.num_layers,
+          "dtype_on_disk": "F32", "device": card})
+
+    log = LoadLog(torch)
+    pipe = log.load("transformer + vae", lambda: MochiPipeline.from_checkpoint(
+        paths["dit"], paths["vae"], vae_cfg=geo["vae"], device=dev, dtype=bf16,
+        num_steps=MOCHI_STEPS),
+        dir_bytes(paths["dit"]) + dir_bytes(paths["vae"]))
+    for what, path in (("patch_embed.w (conv (out, C, 2, 2) flattened)", ("patch_embed", "w")),
+                       ("blocks.qkv.w[-1] (to_q|to_k|to_v)", ("blocks", "qkv", "w", -1)),
+                       ("blocks.add_kv.w[0]", ("blocks", "add_kv", "w", 0)),
+                       ("blocks.add_qnorm[1]", ("blocks", "add_qnorm", 1)),
+                       ("final_block.mod_c.lin.w (norm1_context.linear_1)",
+                        ("final_block", "mod_c", "lin", "w")),
+                       ("final_block.ff_in.w", ("final_block", "ff_in", "w")),
+                       ("pooler.to_kv.w", ("pooler", "to_kv", "w")),
+                       ("pos_frequencies", ("pos_frequencies",)),
+                       ("proj_out.w", ("proj_out", "w"))):
+        a, b = pipe.params, dit
+        for k in path:
+            a, b = a[k], b[k]
+        log.same(what, a, b)
+    log.same("vae conv_in.w (1x1x1 from a Linear)", pipe.vae_params["conv_in"]["w"],
+             vae["conv_in"]["w"])
+    log.same("vae up_blocks[1].proj.w", pipe.vae_params["up_blocks"][1]["proj"]["w"],
+             vae["up_blocks"][1]["proj"]["w"])
+    log.same("vae block_out[-1].conv2.w", pipe.vae_params["block_out"][-1]["conv2"]["w"],
+             vae["block_out"][-1]["conv2"]["w"])
+    for rec in log.loads:
+        emit(dict(phase="mochi_files_load", **rec, device=card))
+    emit({"phase": "mochi_files_leaves", "checks": log.checks, "device": card})
+    if pipe.cfg != dataclasses.replace(cut, max_text_len=256) or not all(
+            c["bit_for_bit"] for c in log.checks):
+        raise AssertionError(f"mochi files: config {pipe.cfg} or leaves differ: {log.checks}")
+    del pipe, dit, vae
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "round_trip")
+    MC.main(["--in", paths["dit"], "--out", out, "--device", str(dev)])
+    same = all(filecmp.cmp(os.path.join(paths["dit"], f), os.path.join(out, f), shallow=False)
+               for f in ("diffusion_pytorch_model.safetensors", "config.json"))
+    emit({"phase": "mochi_convert_cli", "seconds": time.perf_counter() - t0,
+          "byte_for_byte": same, "device": card})
+    if not same:
+        raise AssertionError("mochi convert CLI: the round trip changed the files")
+    torch.cuda.empty_cache()
+
+    goldens = os.path.join(tmp, "goldens.npz")
+    args = ["--goldens", goldens, "--mochi", paths["dit"], "--mochi-vae", paths["vae"],
+            "--device", str(dev)]
+    t0 = time.perf_counter()
+    recorded = VW.main(args + ["--record"])
+    checked = VW.main(args)
+    names = ("mochi", "mochi_vae")
+    emit({"phase": "mochi_verify_weights", "recorded": recorded, "checked": checked,
+          "seconds": time.perf_counter() - t0, "device": card})
+    if recorded != {n: "recorded" for n in names} or checked != {n: "ok" for n in names}:
+        raise AssertionError(f"verify_weights on the Mochi files: {checked}")
+    torch.cuda.empty_cache()
+
+
 PHASES = ("build", "kernels", "serve", "checkpoints", "rewards", "train_main", "train",
-          "update_full_depth", "train_flash_lora", "hunyuan_video", "parallel_attention",
-          "parallel_train", "parallel_cli", "parallel_tp")
+          "update_full_depth", "train_flash_lora", "hunyuan_video", "mochi_video",
+          "parallel_attention", "parallel_train", "parallel_cli", "parallel_tp")
 TRAIN_DEPTH = (2, 4)
 FULL_DEPTH = (19, 38)
 
@@ -4476,6 +4978,11 @@ def run_later_phases(torch, FA, M, dev, card, root, only, rows, ckpt, paths):
     if "hunyuan_video" in only:
         timed_phase("hunyuan_video", hunyuan_video_phase, torch, FA, dev, card, root, rows)
         torch.cuda.empty_cache()
+    if "mochi_video" in only:
+        mochi = timed_phase("mochi_video", mochi_video_phase, torch, FA, dev, card, root, rows)
+        for name, n in mochi.items():
+            rows.setdefault(name, {})["mochi_launches"] = n
+        torch.cuda.empty_cache()
     if "parallel_attention" in only:
         timed_phase("parallel_attention", parallel_attention_phase, torch, FA, dev, card, root)
     if "parallel_train" in only:
@@ -4505,7 +5012,8 @@ def final_lines(torch, FA, rows, card, kind):
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[FA.KERNEL if name.startswith("flash_attn_fwd")
                                           else FA.BWD_KERNEL],
-                        "replaces": replaces[name], **{k: row[k] for k in keys}})
+                        "replaces": replaces[name], **{k: row[k] for k in keys},
+                        "mochi_launches": row.get("mochi_launches")})
     emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

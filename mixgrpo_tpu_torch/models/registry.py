@@ -2,8 +2,9 @@
 
 Port of mixgrpo_tpu/models/registry.py: a model_type string maps to (config
 factory, init fn, forward fn, checkpoint loader), so apps stay
-model-agnostic.  FLUX and HunyuanVideo are ported; ``mochi`` is registered
-under its name and raises until it is ported (ROADMAP Queue 1 item 9).
+model-agnostic.  FLUX, HunyuanVideo and Mochi are registered as in JAX:
+Mochi's entry has no checkpoint loader (``models/mochi/load.py`` loads a
+diffusers directory), and ``load_vae("mochi")`` raises, as JAX's does.
 """
 
 from __future__ import annotations
@@ -35,17 +36,16 @@ def _hunyuan_entry() -> ModelEntry:
                       hunyuan_video_forward, load_hunyuan_video)
 
 
-def _video_entry(model_type: str) -> Callable[[], ModelEntry]:
-    def entry() -> ModelEntry:
-        raise NotImplementedError(f"{model_type!r} waits for the port of the video stack "
-                                  "(ROADMAP Queue 1 item 9)")
-    return entry
+def _mochi_entry() -> ModelEntry:
+    from mixgrpo_tpu_torch.models.mochi.model import MochiConfig, init_mochi, mochi_forward
+
+    return ModelEntry(MochiConfig.mochi_preview, init_mochi, mochi_forward)
 
 
 _REGISTRY: Dict[str, Callable[[], ModelEntry]] = {
     "flux": _flux_entry,
     "hunyuan_video": _hunyuan_entry,
-    "mochi": _video_entry("mochi"),
+    "mochi": _mochi_entry,
 }
 
 

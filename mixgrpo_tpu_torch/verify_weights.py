@@ -27,8 +27,10 @@ JAX gives its ``jax.random.key`` (13, 14, 17; the DiT's latents, text and
 pooled vector all from 17, as JAX draws them from one key).  Every check
 computes in f32 unless given a ``dtype``, on ``--device`` (``cuda`` by
 default).  ``hunyuan_llm`` takes the depth of the file it reads (a tower cut
-to fewer than 32 layers runs all but the skipped two).  The Mochi checks
-wait for the Mochi port (ROADMAP Queue 1 item 9) and raise.
+to fewer than 32 layers runs all but the skipped two), and so does
+``mochi`` (its config read from the file's tensors); the Mochi checks draw
+from numpy with JAX's seeds (15 for the DiT's latents and text, as JAX
+draws both from one key; 16 for the VAE's latents).
 """
 
 from __future__ import annotations
@@ -255,11 +257,33 @@ def check_hunyuan_dit(path: str, cfg=None, device="cuda", dtype=None):
     return {"hunyuan_dit_out": out}
 
 
-def _video_check(name):
-    def check(path: str, cfg=None, device="cuda", dtype=None):
-        raise NotImplementedError(f"the {name} check waits for the port of Mochi "
-                                  "(ROADMAP Queue 1 item 9)")
-    return check
+def check_mochi(path: str, cfg=None, device="cuda", dtype=None):
+    from mixgrpo_tpu_torch.models.mochi.load import infer_mochi_config, load_mochi_hf
+    from mixgrpo_tpu_torch.models.mochi.model import mochi_forward
+    from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir
+
+    state = SafetensorsDir(path)
+    cfg = cfg or infer_mochi_config(state)
+    params = load_mochi_hf(state, cfg, device=device, dtype=torch.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    z = t(_normal(15, (1, 2, 8, 8, cfg.in_channels)))
+    txt = t(_normal(15, (1, 6, cfg.text_embed_dim)))
+    with torch.no_grad():
+        out = mochi_forward(params, cfg, z, txt, t(np.full((1,), 0.5, np.float32)),
+                            t(np.ones((1, 6), np.int32)), dtype=dtype or torch.float32,
+                            attn_impl="eager", remat=False)
+    return {"mochi_out": out}
+
+
+def check_mochi_vae(path: str, cfg=None, device="cuda", dtype=None):
+    from mixgrpo_tpu_torch.models.mochi.vae import (
+        MochiVAEConfig, load_mochi_vae_decoder, mochi_vae_decode,
+    )
+
+    cfg = cfg or MochiVAEConfig.mochi_preview()
+    params = load_mochi_vae_decoder(path, cfg, device=device, dtype=torch.float32)
+    lat = torch.from_numpy(_normal(16, (1, 2, 8, 8, cfg.latent_channels))).to(device)
+    return {"mochi_vae_dec": mochi_vae_decode(params, cfg, lat, dtype=dtype or torch.float32)}
 
 
 CHECKS: Dict[str, Callable] = {
@@ -274,7 +298,8 @@ CHECKS: Dict[str, Callable] = {
     "hunyuan_llm": check_hunyuan_llm,
     "hunyuan_vae": check_hunyuan_vae,
     "hunyuan_dit": check_hunyuan_dit,
-    **{n: _video_check(n) for n in ("mochi", "mochi_vae")},
+    "mochi": check_mochi,
+    "mochi_vae": check_mochi_vae,
 }
 
 

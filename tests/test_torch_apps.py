@@ -441,13 +441,14 @@ def test_eval_rewards_main_matches_jax(tmp_path, monkeypatch):
 def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch):
     """record -> check ok -> a changed golden caught, for every check the
     port has, at the tiny preset (as tests/test_verify_weights.py does for
-    JAX's); the Mochi checks raise; the CLI refuses no checkpoint.  The
-    fingerprints of the checks whose inputs JAX also draws from numpy (t5,
-    clip_l, the four reward models and hunyuan_llm) equal those of JAX's
-    ``run_checks`` on the same files within 1e-4, and so do hunyuan_vae's
-    and hunyuan_dit's, with JAX's ``jax.random.normal(key(s))`` replaced by
-    the port's numpy draw of seed s (the HunyuanVideo files written by
-    ``chip_smoke``'s writers at the tiny geometry).  JAX's reward checks score at its models'
+    JAX's); the CLI refuses no checkpoint.  The fingerprints of the checks
+    whose inputs JAX also draws from numpy (t5, clip_l, the four reward
+    models and hunyuan_llm) equal those of JAX's ``run_checks`` on the same
+    files within 1e-4, and so do hunyuan_vae's, hunyuan_dit's, mochi's and
+    mochi_vae's, with JAX's ``jax.random.normal(key(s))`` replaced by the
+    port's numpy draw of seed s (the HunyuanVideo and Mochi files written
+    by the port's and ``chip_smoke``'s writers at the tiny geometry; the
+    port's mochi check reads its config from the file).  JAX's reward checks score at its models'
     default bf16 and its ``ImageRewardModel.from_checkpoint`` hard-codes
     ViT-L and BERT-base: here its reward models compute in f32 and read the
     tiny geometry, as the port's checks do."""
@@ -456,6 +457,8 @@ def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch)
     from mixgrpo_tpu import verify_weights as JVW
     from mixgrpo_tpu.models.hunyuan import model as JHunyuan
     from mixgrpo_tpu.models.hunyuan import vae3d as JVae3d
+    from mixgrpo_tpu.models.mochi import model as JMochi
+    from mixgrpo_tpu.models.mochi import vae as JMochiVae
     from mixgrpo_tpu.models.text import blip as JB
     from mixgrpo_tpu.models.text import llama as JLlama
     from mixgrpo_tpu.rewards import clip_family as JCF
@@ -482,6 +485,9 @@ def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch)
                   "hunyuan_vae": {"path": hv["vae"], "cfg": hv["vae_cfg"], **dev},
                   # the tiny config: its RoPE split is not the one inferred from D = 24
                   "hunyuan_dit": {"path": hv["dit"], "cfg": hv["dit_cfg"], **dev}})
+    mo = write_mochi_ckpts(str(tmp_path / "mochi"))
+    specs.update({"mochi": {"path": mo["dit"], **dev},
+                  "mochi_vae": {"path": mo["vae"], "cfg": mo["vae_cfg"], **dev}})
     goldens = str(tmp_path / "goldens.npz")
     assert set(VW.run_checks(specs, goldens, record=True).values()) == {"recorded"}
     assert VW.run_checks(specs, goldens, record=False) == {k: "ok" for k in specs}
@@ -499,13 +505,17 @@ def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch)
               "image_reward": {"path": ir, "med_config": med},
               "hunyuan_llm": {"path": hv["llm"], "cfg": JLlama.LlamaConfig.tiny()},
               "hunyuan_vae": {"path": hv["vae"], "cfg": JVae3d.CausalVAEConfig.tiny()},
-              "hunyuan_dit": {"path": hv["dit"], "cfg": JHunyuan.HunyuanVideoConfig.tiny()}}
+              "hunyuan_dit": {"path": hv["dit"], "cfg": JHunyuan.HunyuanVideoConfig.tiny()},
+              "mochi": {"path": mo["dit"], "cfg": JMochi.MochiConfig.tiny()},
+              "mochi_vae": {"path": mo["vae"], "cfg": JMochiVae.MochiVAEConfig.tiny()}}
     monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: jnp.asarray(
         VW._normal(int(jax.random.key_data(key)[-1]), shape), dtype))
     # JAX's checks call these eagerly, one compile per op: jitted, the same program
     for mod, name, static in ((JVae3d, "causal_vae_decode", ("dtype",)),
                               (JVae3d, "causal_vae_encode", ("sample", "dtype")),
-                              (JHunyuan, "hunyuan_video_forward", ("dtype", "remat"))):
+                              (JHunyuan, "hunyuan_video_forward", ("dtype", "remat")),
+                              (JMochi, "mochi_forward", ("dtype", "remat")),
+                              (JMochiVae, "mochi_vae_decode", ("dtype",))):
         monkeypatch.setattr(mod, name, jax.jit(getattr(mod, name), static_argnums=(1,),
                                                static_argnames=static))
     jgoldens = str(tmp_path / "goldens_jax.npz")
@@ -520,9 +530,10 @@ def test_verify_weights_record_check_and_corruption(tree, tmp_path, monkeypatch)
     np.savez(goldens, **g)
     chk = VW.run_checks(specs, goldens, record=False)
     assert chk["hps"].startswith("MISMATCH") and chk["flux"] == chk["image_reward"] == "ok"
-    for name in ("mochi", "mochi_vae"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            VW.run_checks({name: {"path": "x"}}, goldens, record=False)
+    g["mochi/mochi_out.mean"] = g["mochi/mochi_out.mean"] + 1.0
+    np.savez(goldens, **g)
+    chk = VW.run_checks(specs, goldens, record=False)
+    assert chk["mochi"].startswith("MISMATCH") and chk["mochi_vae"] == "ok"
     with pytest.raises(SystemExit):
         VW.main(["--goldens", goldens])
     # the CLI on the HPS file: record, then check
@@ -557,6 +568,25 @@ def write_hunyuan_ckpts(d):
         HV.init_causal_vae_encoder(vcfg, generator=g(53), device="cpu")),
         os.path.join(vae, "diffusion_pytorch_model.safetensors"))
     return {"dit": dit, "dit_cfg": cfg, "llm": llm, "llm_cfg": lcfg, "vae": vae, "vae_cfg": vcfg}
+
+
+def write_mochi_ckpts(d):
+    """Tiny Mochi files in the diffusers layouts, by the port's writers: the
+    transformer directory (``save_mochi_diffusers``) and the VAE decoder
+    (``chip_smoke.mochi_vae_state``)."""
+    import chip_smoke as CS
+    from mixgrpo_tpu_torch.models.mochi import convert as MC
+    from mixgrpo_tpu_torch.models.mochi import model as MM
+    from mixgrpo_tpu_torch.models.mochi import vae as MV
+    from mixgrpo_tpu_torch.utils.safetensors_io import save_file
+
+    g = lambda s: torch.Generator().manual_seed(s)
+    cfg, vcfg = MM.MochiConfig.tiny(), MV.MochiVAEConfig.tiny()
+    dit, vae = os.path.join(d, "transformer"), os.path.join(d, "vae")
+    MC.save_mochi_diffusers(MM.init_mochi(cfg, generator=g(60), device="cpu"), cfg, dit)
+    save_file(CS.mochi_vae_state(MV.init_mochi_vae_decoder(vcfg, generator=g(61), device="cpu")),
+              os.path.join(vae, "diffusion_pytorch_model.safetensors"))
+    return {"dit": dit, "dit_cfg": cfg, "vae": vae, "vae_cfg": vcfg}
 
 
 def test_tsne_probe_main(tree, cache, tmp_path, monkeypatch):

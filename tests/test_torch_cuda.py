@@ -3,8 +3,10 @@ plain PyTorch versions (the forward with and without lse, the fused, dkv and
 dq backward kernels), what they refuse, and the model and update paths
 through them (LoRA's update among them), a MixGRPO-Flash rollout on the
 card against the CPU, ``backend_smoke``, the safetensors reader's BF16 path
-straight to the card, T5 and CLIP on the card against the CPU, and the four
-reward models on a CUDA batch (bf16 against f32, no kernel launch).
+straight to the card, T5 and CLIP on the card against the CPU, the four
+reward models on a CUDA batch (bf16 against f32, no kernel launch), and the
+video DiTs' shapes: HunyuanVideo's masked forward and Mochi's final block
+(Sq != Sk), and both pipelines at a tiny size.
 
 Every test carries the ``cuda`` marker and skips without a card.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -738,3 +740,66 @@ def test_tiny_hunyuan_predict_on_card(dev):
         lat[impl] = p(txt, pooled, text_mask=mask, video_length=5, height=32, width=32, z0=z0)
     rel = (lat["flash"] - lat["eager"]).norm() / lat["eager"].norm()
     assert torch.isfinite(lat["flash"]).all() and rel < 2e-2
+
+
+def test_forward_at_mochi_final_block_shape(dev):
+    """The forward kernel with Sq != Sk at Mochi's final block at 480x848, 37
+    frames: B = 1, H = 24, S = 11,130 visual queries over Sk = 11,386 visual
+    + text keys, D = 128, no mask, against its plain version computed 8
+    heads at a time (``assert_close_bf16``), launched once."""
+    from mixgrpo_tpu_torch.ops.attention import attention
+
+    g = torch.Generator(dev).manual_seed(9)
+    q = torch.randn((1, 24, 11130, 128), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((1, 24, 11386, 128), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    FA.reset_launches()
+    got = attention(q, k, v, impl="flash")
+    assert FA.flash_attn_fwd.launches == 1 and got.shape == q.shape
+    want = torch.cat([FA.flash_attention_reference(q[:, h:h + 8], k[:, h:h + 8], v[:, h:h + 8])
+                      for h in range(0, 24, 8)], dim=1)
+    assert_close_bf16(got, want, 11386)
+
+
+def test_tiny_mochi_pipeline_on_card(dev):
+    """``MochiPipeline`` at the tiny config on the card (bf16, the forward
+    kernel in every block, the final block at Sq != Sk): 2 blocks x 2 CFG
+    calls x 3 steps forwards and nothing else, frames finite in [0, 1]; the
+    latents through the kernel close to eager attention's on the same noise;
+    a gradient through ``mochi_forward`` (forward with lse, then dkv and dq
+    at these lengths) close to eager's."""
+    from mixgrpo_tpu_torch.models.mochi import model as MM
+    from mixgrpo_tpu_torch.models.mochi import pipeline as MP
+    from mixgrpo_tpu_torch.models.mochi import vae as MV
+
+    cfg = MM.MochiConfig(**{**vars(MM.MochiConfig.tiny()), "head_dim": 32})
+    vcfg = MV.MochiVAEConfig.tiny()
+    gen = lambda s: torch.Generator(dev).manual_seed(s)
+    params = MM.init_mochi(cfg, generator=gen(0), device=dev, dtype=torch.bfloat16)
+    vae = MV.init_mochi_vae_decoder(vcfg, generator=gen(1), device=dev, dtype=torch.bfloat16)
+    txt = torch.randn((1, 6, cfg.text_embed_dim), generator=gen(2), device=dev)
+    mask = torch.ones((1, 6), dtype=torch.int32, device=dev)
+    mask[:, 4:] = 0
+    pipe = MP.MochiPipeline(cfg, params, num_steps=3, vae_cfg=vcfg, vae_params=vae, device=dev)
+    FA.reset_launches()
+    video = pipe(txt, text_mask=mask, num_frames=7, height=32, width=32, generator=gen(3))
+    assert FA.flash_attn_fwd.launches == cfg.num_layers * 2 * 3
+    assert all(f.launches == 0 for n, f in FA.KERNEL_WRAPPERS.items() if n != "flash_attn_fwd")
+    assert video.shape == (1, 7, 32, 32, 3) and torch.isfinite(video).all()
+    assert 0 <= video.min() and video.max() <= 1
+    z0 = torch.randn((1, 2, 4, 4, cfg.in_channels), generator=gen(4), device=dev)
+    lat = {}
+    for impl in ("flash", "eager"):
+        p = MP.MochiPipeline(cfg, params, num_steps=3, attn_impl=impl, device=dev)
+        lat[impl] = p(txt, text_mask=mask, num_frames=7, height=32, width=32, z0=z0)
+    rel = (lat["flash"] - lat["eager"]).norm() / lat["eager"].norm()
+    assert torch.isfinite(lat["flash"]).all() and rel < 2e-2, rel.item()
+    grads = {}
+    for impl in ("flash", "eager"):
+        z = z0.clone().requires_grad_(True)
+        out = MM.mochi_forward(params, cfg, z, txt, torch.full((1,), 0.5, device=dev), mask,
+                               attn_impl=impl)
+        (out.float() ** 2).mean().backward()
+        grads[impl] = z.grad
+    rel = (grads["flash"] - grads["eager"]).norm() / grads["eager"].norm()
+    assert torch.isfinite(grads["flash"]).all() and rel < 2e-2, rel.item()

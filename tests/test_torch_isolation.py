@@ -43,7 +43,11 @@ def test_port_package_is_present():
                    "models/hunyuan/load.py", "models/hunyuan/prompting.py",
                    "models/hunyuan/text_encoder.py", "models/hunyuan/vae3d.py",
                    "models/hunyuan/pipeline.py", "models/hunyuan/sampler.py",
-                   "models/text/llama.py", "models/video_tiling.py"):
+                   "models/text/llama.py", "models/video_tiling.py",
+                   "models/mochi/__init__.py", "models/mochi/model.py", "models/mochi/vae.py",
+                   "models/mochi/latents.py", "models/mochi/convert.py", "models/mochi/load.py",
+                   "models/mochi/pipeline.py", "models/discriminator.py", "solvers/distill.py",
+                   "data/video.py", "data/video_io.py", "data/t2v_dataset.py"):
         assert f"mixgrpo_tpu_torch/{module}" in files
 
 

@@ -15,6 +15,7 @@
 - the registry's entries.
 """
 
+import dataclasses
 import importlib.util
 import os
 
@@ -356,9 +357,16 @@ def test_registry_entries():
     assert hv.config() == HV.CausalVAEConfig.hunyuan_video()
     assert (hv.init, hv.forward, hv.load) == (HV.init_causal_vae_decoder, HV.causal_vae_decode,
                                               HV.load_causal_vae_decoder)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        R.get_model("mochi")
+    from mixgrpo_tpu.models import registry as JR
+    from mixgrpo_tpu_torch.models.mochi import model as MM
+
+    m, jm = R.get_model("mochi"), JR.get_model("mochi")
+    assert m.config() == MM.MochiConfig.mochi_preview()
+    assert dataclasses.asdict(m.config()) == dataclasses.asdict(jm.config())
+    assert (m.init, m.forward, m.load) == (MM.init_mochi, MM.mochi_forward, None)
+    assert jm.load is None
     with pytest.raises(ValueError):
         R.get_model("sdxl")
-    with pytest.raises(ValueError):
-        R.load_vae("mochi")
+    for reg in (R, JR):  # no VAE entry for Mochi in either package
+        with pytest.raises(ValueError):
+            reg.load_vae("mochi")
