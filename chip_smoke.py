@@ -18,7 +18,9 @@ a non-zero exit code.  Phases:
    main paths (the forward without lse at the serving shape, the forward
    with lse and the fused backward at the 720px update, dkv and dq at the
    1024px update, the forward with HunyuanVideo's key mask at B = 1, H = 24,
-   S = 8,576, and at Mochi's final block, S = 11,130 over Sk = 11,386; at
+   S = 8,576, at Mochi's final block, S = 11,130 over Sk = 11,386, and at
+   Mochi's 163 frames, S = Sk = 44,776 (the plain version one head at a
+   time); at
    both updates the fused kernel and the split pair are timed side by
    side), with its time, the plain version's time, the card's
    bound for the same work and one PyTorch library call's time as a
@@ -47,8 +49,9 @@ a non-zero exit code.  Phases:
 6. update_full_depth: one ``update_step`` at ``virtual_depth=(19, 38)`` over a
    1 + 2 block stack, at 720px (12 pairs, fused backward) and 1024px (2
    pairs, split backward).
-7. train_flash_lora: MixGRPO-Flash with LoRA at full FLUX.1-dev width and
-   depth (19 + 38 blocks): a frozen random bf16 base, a rank-16 adapter,
+7. train_flash_lora: MixGRPO-Flash with LoRA at full FLUX.1-dev width,
+   ``FLASH_LORA_DEPTH`` = 10 + 19 blocks (of 19 + 38, cut to keep the script
+   inside its time limit): a frozen random bf16 base, a rank-16 adapter,
    DPM-Solver++ on the compressed tail after the SDE window; two iterations
    through ``GRPOTrainer.train`` with the second one traced by the trainer's
    profiler, and that trace's device breakdown.
@@ -128,9 +131,9 @@ a non-zero exit code.  Phases:
    ``attention(impl="flash")`` with ``close_bf16``; each rank's flash
    launches, the collectives' transport (direct, or staged through the host
    with its count) and one all-to-all, all-gather and send/recv timed;
-14. parallel_train: one recipe iteration (full width, 2 + 4 blocks, 2
-   generations per prompt) on mesh (dp 1, fsdp = ranks), one prompt per
-   rank, against one rank (its own process, run first) on every prompt with
+14. parallel_train: one recipe iteration (full width, ``PAR_DEPTH`` = 1 + 2
+   blocks, 2 generations per prompt) on mesh (dp 1, fsdp = ranks), one prompt per
+   rank, against one rank (this process, run first) on every prompt with
    the same injected noise: the parameters' update and the gradient norm,
    each rank's peak (under 80 GB per card) and launches; then the sharded
    checkpoint, its resume into a new trainer and the export;
@@ -138,17 +141,34 @@ a non-zero exit code.  Phases:
    ranks on the checkpoints phase's directory and ``eval_rewards.main``
    (HPSv2.1) over them on its images: JAX's file names and seeds, and rank
    0's summary over every image.
-16. parallel_tp: one recipe iteration (full width, 2 + 4 blocks, 2
+16. parallel_tp: one recipe iteration (full width, 1 + 2 blocks, 2
    generations per prompt, drawn biases) on mesh (dp 1, fsdp = ranks / 2,
    tp 2: the Megatron split of the blocks, 12 of the 24 heads per rank), one
-   prompt per batch rank, against one rank (its own process, run first) on
+   prompt per batch rank, against one rank (this process, run first) on
    every prompt with the same injected noise: the final latents, the
    rewards, the update and the gradient norm within ``PAR_TP_*``, each
-   rank's launches and tp all-reduces (12 per DiT call) and their bytes, and
+   rank's launches and tp all-reduces (6 per DiT call) and their bytes, and
    its peak; then the (fsdp, tp) checkpoint, its resume on the same mesh,
-   its restore on one rank (a third process: every leaf and AdamW moment,
+   its restore on one rank (in this process: every leaf and AdamW moment,
    cut back to each rank's slice, bit for bit against the ranks' own) and
    the export against the restored tree, bit for bit.
+17. video_sp: the HunyuanVideo gradient in this process (full width, 2 + 4
+   blocks, 192x336, 129 frames, remat, the text and pad keys masked:
+   output, d latents and a block's d qkv with the kernels against eager
+   attention, ``close_bf16``; 12 forwards with lse, 6 dkv, 6 dq); then the
+   ranks run HunyuanVideo (2 + 4 blocks) with ``attn_impl`` "ulysses" and
+   "ring" and Mochi (2 + final block, 480x848, 37 frames) with "ulysses",
+   sp = ranks, each against the rank's own one-rank "auto" forward
+   (``close_bf16``), with each call's ms, gloo bytes, launches and the heads
+   of each local attention call (12 of 24 at sp = 2);
+18. parallel_lora: one LoRA iteration (rank 16, the frozen bf16 base
+   sharded, full width, 2 + 4 blocks) on mesh (dp 1, fsdp = ranks) and on
+   (dp 1, tp = ranks), against one rank on the same prompts and noise: the
+   factors' update and grad norm (``PAR_UPDATE_REL_L2``,
+   ``PAR_GRAD_NORM_REL``), the rewards, the export byte for byte, each
+   rank's 1/n of every sharded leaf; the fsdp run's checkpoint and resume,
+   and each rank's resident share of the full-depth bf16 base (19 + 38
+   blocks; only allocated).
 A rank that fails or outlives its phase's timeout fails the run (every rank
 is killed, each failed rank's log printed).  Times of ranks sharing one card
 say nothing of separate cards.
@@ -257,9 +277,11 @@ def check_ptxas(report, kernel):
 
 
 def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=False,
-                    kv_valid=None, timed=False, seed=0):
+                    kv_valid=None, timed=False, seed=0, plain_heads=None):
     """Kernel vs plain version on one shape, bf16; raises on disagreement.
     ``mask``: True draws a random (B, Sk) key mask; a tensor is that mask.
+    ``plain_heads``: run the plain version that many heads at a time
+    (``by_heads``; no mask, bhsd), where its f32 scores would not fit whole.
 
     With unit-normal q, k, v an output entry averages about n = kv_len keys
     and has a standard deviation near sqrt(e/n) (0.024 at n = 4608).  The
@@ -277,7 +299,9 @@ def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=Fa
         m[:, 0] = True
     got = FA.flash_attention(q, k, v, mask=m, layout=layout, kv_valid=kv_valid)
     torch.cuda.synchronize()
-    want = FA.flash_attention_reference(q, k, v, mask=m, layout=layout, kv_valid=kv_valid)
+    plain = FA.flash_attention_reference if plain_heads is None else by_heads(
+        torch, FA.flash_attention_reference, plain_heads)
+    want = plain(q, k, v, mask=m, layout=layout, kv_valid=kv_valid)
     kv_len = kv_valid or Sk
     diff = got.float() - want.float()
     err = diff.abs().max().item()
@@ -289,14 +313,15 @@ def check_attention(torch, FA, F, dev, B, H, S, Sk, D, *, layout="bhsd", mask=Fa
            "Sk": Sk, "D": D, "layout": layout, "mask": m is not None,
            "masked_keys": None if m is None else int((~m).sum()), "kv_valid": kv_valid,
            "dtype": "bfloat16", "max_abs_err": err, "atol": atol, "rel_l2": rel,
-           "ok": ok}
+           "plain_heads": plain_heads, "ok": ok}
     if timed:
         qs = FA._scaled_q(q)
         kbias = None if m is None else FA._key_bias(m, B, Sk)
         rec["ms"] = time_ms(torch, lambda: FA.flash_attn_fwd(
             qs, k, v, kbias=kbias, kv_len=kv_len, layout=layout), 20)
-        rec["plain_ms"] = time_ms(torch, lambda: FA.flash_attention_reference(
-            q, k, v, mask=m, layout=layout, kv_valid=kv_valid), 3, warmup=1)
+        rec["plain_ms"] = time_ms(torch, lambda: plain(
+            q, k, v, mask=m, layout=layout, kv_valid=kv_valid), 1 if plain_heads else 3,
+            warmup=1)
         # the keys the data leaves valid are the least work (the most of any row)
         kv_need = kv_len if m is None else int(m.sum(dim=1).max())
         rec["bound_ms"], rec["bound_by"] = attention_bound_ms(
@@ -753,6 +778,10 @@ def kernel_phase(torch, FA, F, dev, card, rows):
     # Mochi's final block at 480x848, 37 frames: 11,130 visual queries over
     # 11,386 visual + text keys, no mask
     full.append(check_attention(torch, FA, F, dev, 1, 24, 11130, 11386, 128, timed=True))
+    # Mochi's first block at 163 frames: S = Sk = 44,776, no mask; the plain
+    # version one head at a time (8.0 GB of f32 scores a head)
+    full.append(check_attention(torch, FA, F, dev, 1, 24, 44776, 44776, 128, timed=True,
+                                plain_heads=1))
     main_shape = next(r for r in full if r["B"] == 2 and r["S"] == 4608
                       and r["layout"] == "bhsd")
     rows["flash_attn_fwd"] = dict(main_shape, max_abs_err=max(r["max_abs_err"] for r in full))
@@ -2835,8 +2864,8 @@ def trace_summary(path, spans=("rollout", "decode", "update")):
 
 
 def train_flash_lora_phase(torch, FA, M, dev, card, root):
-    """MixGRPO-Flash with LoRA at full FLUX.1-dev width and depth: a frozen
-    random bf16 base (19 + 38 blocks), a rank-16 adapter on
+    """MixGRPO-Flash with LoRA at full FLUX.1-dev width: a frozen random bf16
+    base of ``FLASH_LORA_DEPTH`` blocks (10 + 19 of 19 + 38), a rank-16 adapter on
     ``lora.DEFAULT_TARGETS``, the recipe's rollout and update (720px, 25
     steps, eta 0.7, 12 generations in chunks of 2, window 4, accumulation 3,
     gradient checkpointing) with DPM-Solver++ order 2 (midpoint) on the tail
@@ -2860,7 +2889,9 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
     from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, init_vae_decoder
     from mixgrpo_tpu_torch.train import GRPOTrainer
 
-    flux_cfg, vcfg = M.FluxConfig.flux_dev(), VAEConfig.flux_dev()
+    flux_cfg = dataclasses.replace(M.FluxConfig.flux_dev(), depth_double=FLASH_LORA_DEPTH[0],
+                                   depth_single=FLASH_LORA_DEPTH[1])
+    vcfg = VAEConfig.flux_dev()
     blocks = flux_cfg.depth_double + flux_cfg.depth_single
     with tempfile.TemporaryDirectory(dir=root) as tmp:
         cfg = TrainConfig(
@@ -3100,12 +3131,13 @@ def rank_main(argv):
     from mixgrpo_tpu_torch.parallel import collectives as C
     from mixgrpo_tpu_torch.parallel.mesh import init_distributed
 
-    if case in ("attention", "train", "tp"):  # the CLIs start torch.distributed themselves
+    # the CLIs start torch.distributed themselves
+    if case in ("attention", "train", "tp", "video_sp", "lora"):
         init_distributed(f"localhost:{port}", world, rank, device=dev)
     rec = {"rank": rank, "case": case}
-    fn = {"attention": rank_attention, "train": rank_train, "train_ref": rank_train,
-          "tp": rank_train, "tp_ref": rank_train, "tp_restore": rank_tp_restore,
-          "sample": rank_sample, "eval": rank_eval}[case]
+    fn = {"attention": rank_attention, "train": rank_train, "tp": rank_train,
+          "sample": rank_sample, "eval": rank_eval, "video_sp": rank_video_sp,
+          "lora": rank_lora}[case]
     fn(torch, FA, C, dev, rank, world, d, rec, argv[5:])
     rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     import torch.distributed as dist
@@ -3191,10 +3223,11 @@ def rank_attention(torch, FA, C, dev, rank, world, d, rec, extra):
         rec["collective_ms"][name] = (time.perf_counter() - t0) * 1e3 / 5
 
 
-def _train_setup(torch, dev, d, mesh_cfg, accum, export):
-    """The parallel_train trainer: full FLUX.1-dev width, ``TRAIN_DEPTH``
-    blocks, the recipe's 720px, 25 steps and window, PAR_TRAIN_G generations
-    per prompt in chunks of 2, the random bf16 VAE and the brightness reward."""
+def _train_setup(torch, dev, d, mesh_cfg, accum, export, depth):
+    """The multi-rank phases' trainer: full FLUX.1-dev width, ``depth``
+    (double, single) blocks, the recipe's 720px, 25 steps and window,
+    PAR_TRAIN_G generations per prompt in chunks of 2, the random bf16 VAE
+    and the brightness reward."""
     import dataclasses
 
     from mixgrpo_tpu_torch.config import RunConfig, TrainConfig
@@ -3208,7 +3241,7 @@ def _train_setup(torch, dev, d, mesh_cfg, accum, export):
         cfg, mesh=mesh_cfg,
         grpo=dataclasses.replace(cfg.grpo, num_generations=PAR_TRAIN_G, rollout_chunk=2),
         optim=dataclasses.replace(cfg.optim, gradient_accumulation_steps=accum))
-    flux_cfg = M.FluxConfig(depth_double=TRAIN_DEPTH[0], depth_single=TRAIN_DEPTH[1])
+    flux_cfg = M.FluxConfig(depth_double=depth[0], depth_single=depth[1])
     vcfg = VAEConfig.flux_dev()
     vae = init_vae_decoder(vcfg, generator=torch.Generator(dev).manual_seed(2), device=dev,
                            dtype=torch.bfloat16)
@@ -3292,7 +3325,7 @@ def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
     accum = PAR_TRAIN_G if multi else PAR_TRAIN_G * n_p
     cfg, flux_cfg, vcfg, vae, GRPOTrainer = _train_setup(
         torch, dev, os.path.join(d, f"run_{case}"), mesh_cfg, accum,
-        "required" if multi else "off")
+        "required" if multi else "off", PAR_DEPTH)
     scores = []
 
     def reward_fn(images01, captions):
@@ -3415,7 +3448,8 @@ def rank_tp_restore(torch, FA, C, dev, rank, world, d, rec, extra):
     n_ranks = int(extra[0])
     saved = MeshConfig(dp=1, fsdp=n_ranks // 2, tp=2)
     cfg, flux_cfg, vcfg, vae, GRPOTrainer = _train_setup(
-        torch, dev, os.path.join(d, "run_tp"), MeshConfig(1, 1, 1, 1), PAR_TRAIN_G, "off")
+        torch, dev, os.path.join(d, "run_tp"), MeshConfig(1, 1, 1, 1), PAR_TRAIN_G, "off",
+        PAR_DEPTH)
     cfg.run.resume_from_checkpoint = True
     t0 = time.perf_counter()
     trainer = GRPOTrainer(cfg, flux_cfg=flux_cfg, vae_cfg=vcfg, vae_params=vae,
@@ -3521,6 +3555,23 @@ def parallel_attention_phase(torch, FA, dev, card, root):
     return ranks
 
 
+def run_here(torch, FA, dev, fn, case, d, extra=()):
+    """``fn`` (a rank function) as the only rank, in this process: the record
+    ``rank_main`` would write, with no process to start."""
+    import gc
+
+    from mixgrpo_tpu_torch.parallel import collectives as C
+
+    rec = {"rank": 0, "case": case}
+    torch.cuda.reset_peak_memory_stats()
+    fn(torch, FA, C, dev, 0, 1, d, rec, list(extra))
+    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["backend"] = None
+    gc.collect()  # the trainer's weights sit in reference cycles
+    torch.cuda.empty_cache()
+    return rec
+
+
 def parallel_train_phase(torch, FA, dev, card, root):
     """One recipe iteration on mesh (dp 1, fsdp = ranks of ``parallel_layout``),
     one prompt per rank, against one rank on the same global batch and noise;
@@ -3538,7 +3589,7 @@ def parallel_train_phase(torch, FA, dev, card, root):
     d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
     try:
         t0 = time.perf_counter()
-        ref = spawn_ranks("train_ref", d, timeout=400, world=1, extra=(str(world),))[0]
+        ref = run_here(torch, FA, dev, rank_train, "train_ref", d, (str(world),))
         ref_wall = time.perf_counter() - t0
         t0 = time.perf_counter()
         ranks = spawn_ranks("train", d, timeout=600, world=world, extra=(str(world),))
@@ -3552,7 +3603,7 @@ def parallel_train_phase(torch, FA, dev, card, root):
     peaks = [r["max_memory_allocated_gb"] for r in ranks]
     m1, m2 = ref["metrics"], ranks[0]["metrics"]
     rec = {"phase": "parallel_train", "mesh": {"dp": 1, "fsdp": world}, "backend": backend,
-           "depth": TRAIN_DEPTH, "num_generations": PAR_TRAIN_G, "prompts": world,
+           "depth": PAR_DEPTH, "num_generations": PAR_TRAIN_G, "prompts": world,
            "window": ref["window"],
            "update_max_abs_diff": float(np.abs(d2 - d1).max()),
            "update_rel_l2": float(np.linalg.norm(d2 - d1) / np.linalg.norm(d1)),
@@ -3574,7 +3625,7 @@ def parallel_train_phase(torch, FA, dev, card, root):
            "wall_s": {"one_rank": ref_wall, "ranks": wall},
            "note": layout_note(world, backend), "device": card}
     emit(rec)
-    blocks = sum(TRAIN_DEPTH)
+    blocks = sum(PAR_DEPTH)
     steps = 25
     # per rank: its rows' rollout chunks, and one update group's forward (lse)
     # and recompute (lse) and backward per block
@@ -3617,13 +3668,13 @@ def parallel_tp_phase(torch, FA, dev, card, root):
     d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
     try:
         t0 = time.perf_counter()
-        ref = spawn_ranks("tp_ref", d, timeout=400, world=1, extra=(str(n_p),))[0]
+        ref = run_here(torch, FA, dev, rank_train, "tp_ref", d, (str(n_p),))
         ref_wall = time.perf_counter() - t0
         t0 = time.perf_counter()
         ranks = spawn_ranks("tp", d, timeout=900, world=world, extra=(str(n_p),))
         wall = time.perf_counter() - t0
         t0 = time.perf_counter()
-        restored = spawn_ranks("tp_restore", d, timeout=400, world=1, extra=(str(world),))[0]
+        restored = run_here(torch, FA, dev, rank_tp_restore, "tp_restore", d, (str(world),))
         restore_wall = time.perf_counter() - t0
         before = np.load(os.path.join(d, "before_tp_ref.npy"))
         d1 = np.load(os.path.join(d, "after_tp_ref.npy")) - before
@@ -3642,7 +3693,7 @@ def parallel_tp_phase(torch, FA, dev, card, root):
     # DiT calls per rank: the rollout's steps (one chunk of PAR_TRAIN_G rows)
     # and the update group's forward and its recompute (remat)
     dit_calls = ref["num_steps"] + 2
-    blocks = TRAIN_DEPTH
+    blocks = PAR_DEPTH
     rec = {"phase": "parallel_tp", "mesh": {"dp": 1, "fsdp": n_p, "tp": 2},
            "backend": backend, "depth": blocks, "num_generations": PAR_TRAIN_G,
            "prompts": n_p, "heads_per_rank": 24 // 2, "bias_std": PAR_TP_BIAS_STD,
@@ -4833,11 +4884,505 @@ def mochi_files_phase(torch, FA, dev, card, tmp, geo):
     torch.cuda.empty_cache()
 
 
+# -- sequence-parallel video DiTs, the HunyuanVideo gradient, LoRA on a mesh ----------
+
+SP_HV_DEPTH = (2, 4)  # video_sp's and the gradient's HunyuanVideo blocks (of 20 + 40)
+SP_MOCHI_DEPTH = 3  # video_sp's Mochi blocks: 2 + the final block (of 48)
+SP_CALLS = 2  # timed calls per attention implementation, after one warm-up call
+LORA_RANK = 16
+PAR_LORA_PROMPTS = 2  # one per batch rank at fsdp = 2
+
+
+def sp_inputs(torch, dev, kind, seed):
+    """One DiT call's inputs at the full sizes: HunyuanVideo at 192x336, 129
+    frames (33 x 24 x 42 latents, S = 256 + 8316, run as 8576) with 40 of
+    256 text tokens kept; Mochi at 480x848, 37 frames (7 x 60 x 106 latents,
+    11,130 visual tokens and 256 text tokens, 40 kept in its pooler)."""
+    from mixgrpo_tpu_torch.models.hunyuan.model import HunyuanVideoConfig
+    from mixgrpo_tpu_torch.models.mochi.model import MochiConfig
+
+    g = torch.Generator(dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+    mask = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+    mask[:, :40] = 1
+    if kind == "hunyuan":
+        cfg = HunyuanVideoConfig.hunyuan_video()
+        h, w, f = HV_SIZE
+        z = rnd(1, (f - 1) // 4 + 1, h // 8, w // 8, cfg.in_channels)
+        return dict(video_latents=z, txt=rnd(1, 256, cfg.text_states_dim),
+                    pooled=rnd(1, cfg.text_states_dim_2),
+                    timestep=torch.full((1,), 0.6, device=dev),
+                    guidance=torch.full((1,), 6.0, device=dev), text_mask=mask)
+    cfg = MochiConfig.mochi_preview()
+    h, w, f = MOCHI_SIZE
+    return dict(video_latents=rnd(1, (f - 1) // 6 + 1, h // 8, w // 8, cfg.in_channels),
+                txt=rnd(1, 256, cfg.text_embed_dim),
+                timestep=torch.full((1,), 0.6, device=dev), text_mask=mask)
+
+
+def sp_model(torch, dev, kind):
+    """(config, random bf16 weights, forward) of a DiT at full width:
+    HunyuanVideo at ``SP_HV_DEPTH`` (the refiner's gates drawn, as
+    ``hunyuan_models`` does) or Mochi at ``SP_MOCHI_DEPTH``."""
+    import dataclasses
+
+    from mixgrpo_tpu_torch.models.hunyuan import model as HM
+    from mixgrpo_tpu_torch.models.mochi import model as MM
+
+    gen = lambda s: torch.Generator(dev).manual_seed(s)
+    if kind == "mochi":
+        cfg = dataclasses.replace(MM.MochiConfig.mochi_preview(), num_layers=SP_MOCHI_DEPTH)
+        return cfg, MM.init_mochi(cfg, generator=gen(72), device=dev,
+                                  dtype=torch.bfloat16), MM.mochi_forward
+    cfg = dataclasses.replace(HM.HunyuanVideoConfig.hunyuan_video(),
+                              depth_double=SP_HV_DEPTH[0], depth_single=SP_HV_DEPTH[1])
+    params = HM.init_hunyuan_video(cfg, generator=gen(70), device=dev, dtype=torch.bfloat16)
+    for bp in params["txt_in"]["blocks"]:  # init's zero gates would bypass the refiner
+        bp["mod"]["lin"]["w"].normal_(0.0, 0.02, generator=gen(71))
+    return cfg, params, HM.hunyuan_video_forward
+
+
+def hunyuan_gradient(torch, FA, dev, card):
+    """d(sum(out * w)) / d(latents, double block 0's img_qkv) through
+    ``hunyuan_video_forward(remat=True)`` at full width, ``SP_HV_DEPTH``
+    blocks, 192x336x129 with 216 of 256 text tokens masked, with the kernels
+    against the same with eager attention (record ``hunyuan_gradient``):
+    the forward with lse, dkv and dq carry the text mask's key-bias row."""
+    from mixgrpo_tpu_torch.models.flux.model import param_count
+
+    cfg, params, fwd = sp_model(torch, dev, "hunyuan")
+    x = sp_inputs(torch, dev, "hunyuan", 73)
+    w_out = torch.randn(x["video_latents"].shape, generator=torch.Generator(dev).manual_seed(74),
+                        device=dev)
+    wq = params["double"]["img_qkv"]["w"]
+
+    def grads(impl):
+        zz = x["video_latents"].float().requires_grad_(True)
+        leaf = wq.detach().clone().requires_grad_(True)
+        params["double"]["img_qkv"]["w"] = leaf
+        out = fwd(params, cfg, **dict(x, video_latents=zz), attn_impl=impl, remat=True)
+        (out * w_out).sum().backward()
+        return out.detach(), zz.grad, leaf.grad[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = grads("auto")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = grads("eager")
+    checks = [close_bf16(g, e) for g, e in zip(got, want)]
+    blocks = sum(SP_HV_DEPTH)
+    S = 256 + x["video_latents"].shape[1] * (HV_SIZE[0] // 16) * (HV_SIZE[1] // 16)
+    S_pad = -(-S // 128) * 128
+    split = FA.default_bwd(S_pad, S_pad) == "split"
+    # the forward with lse twice per block (remat's recompute), one backward each
+    expected = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 2 * blocks,
+                "flash_attn_bwd_fused": 0 if split else blocks,
+                "flash_attn_bwd_dkv": blocks if split else 0,
+                "flash_attn_bwd_dq": blocks if split else 0}
+    ok = all(c[0] for c in checks) and launches == expected
+    emit({"phase": "hunyuan_gradient", "what": "d(sum(out * w))/d(latents, double block 0's "
+          f"img_qkv) through hunyuan_video_forward at {HV_SIZE}, {SP_HV_DEPTH[0]} + "
+          f"{SP_HV_DEPTH[1]} blocks, full width, remat, bf16, 216 of 256 text tokens and "
+          f"{S_pad - S} pad keys masked, kernels vs eager attention",
+          "dit_params": param_count(params), "seq": S, "seq_padded": S_pad,
+          "outputs": ["forward", "d_latents", "d_img_qkv_block0"],
+          "rel_l2": [c[2] for c in checks], "max_abs_err": [c[1] for c in checks],
+          "limit": "close_bf16", "launches": launches, "expected_launches": expected,
+          "default_bwd": FA.default_bwd(S_pad, S_pad), "seconds_kernels": seconds,
+          "max_memory_allocated_gb": peak / 1e9, "ok": ok, "device": card})
+    if not ok:
+        raise AssertionError(f"hunyuan gradient: {checks}, launches {launches} != {expected}")
+    return launches
+
+
+def rank_video_sp(torch, FA, C, dev, rank, world, d, rec, extra):
+    """HunyuanVideo (``SP_HV_DEPTH`` blocks) and Mochi (``SP_MOCHI_DEPTH``)
+    at full width and the phase's sizes, each call with ``attn_impl``
+    ``"auto"`` (this rank alone: the reference), then ``"ulysses"`` and, for
+    HunyuanVideo, ``"ring"`` over sp = ranks; per implementation: ms per call
+    (``SP_CALLS`` after a warm-up), gloo's bytes per call, the kernel's
+    launches and the heads of each local attention call, and the output
+    against the reference (``close_bf16``)."""
+    import mixgrpo_tpu_torch.ops.attention as OA
+    from mixgrpo_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from mixgrpo_tpu_torch.parallel.ulysses import set_sp_context
+
+    mesh = make_mesh(MeshConfig(dp=1, sp=world), device=dev)
+    set_sp_context(mesh, "sp")
+    local_heads = []
+    attention = OA.attention
+
+    def counted(q, *a, **k):  # ulysses' local attention: (B, H/sp, S, D)
+        local_heads.append(q.shape[1])
+        return attention(q, *a, **k)
+
+    runs = []
+    for kind, impls in (("hunyuan", ("auto", "ulysses", "ring")), ("mochi", ("auto", "ulysses"))):
+        cfg, params, fwd = sp_model(torch, dev, kind)
+        x = sp_inputs(torch, dev, kind, 75)
+        ref = None
+        for impl in impls:
+            call = lambda: fwd(params, cfg, **x, attn_impl=impl)
+            OA.attention = counted
+            try:
+                with torch.no_grad():
+                    call()  # warm-up: allocations and first calls
+                    torch.cuda.synchronize()
+                    FA.reset_launches()
+                    C.reset_transport()
+                    local_heads.clear()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    for _ in range(SP_CALLS):
+                        out = call()
+                    torch.cuda.synchronize()
+            finally:
+                OA.attention = attention
+            ms = (time.perf_counter() - t0) * 1e3 / SP_CALLS
+            run = {"model": kind, "impl": impl, "ms_per_call": ms,
+                   "launches_per_call": {n: f.launches / SP_CALLS
+                                         for n, f in FA.KERNEL_WRAPPERS.items()},
+                   "local_heads": sorted(set(local_heads)),
+                   "bytes_per_call": {op: n / SP_CALLS for op, n in
+                                      C.transport_record()["bytes"].items()},
+                   "transport": C.transport_record(),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "finite": bool(torch.isfinite(out).all())}
+            if ref is None:
+                ref = out
+            else:
+                ok, err, rel = close_bf16(out, ref)
+                run.update(ok=ok, max_abs_err=err, rel_l2=rel)
+            runs.append(run)
+        del ref, out, params
+    rec["runs"] = runs
+    set_sp_context(None)
+
+
+def video_sp_phase(torch, FA, dev, card, root):
+    """The HunyuanVideo gradient on this process's card (``hunyuan_gradient``),
+    then HunyuanVideo and Mochi under sequence parallelism over the ranks of
+    ``parallel_layout`` (``rank_video_sp``; record ``video_sp``).  Returns
+    the gradient's launches."""
+    import shutil
+    import tempfile
+
+    from mixgrpo_tpu_torch.parallel.mesh import backend_for
+
+    grad_launches = hunyuan_gradient(torch, FA, dev, card)
+    torch.cuda.empty_cache()
+    world = parallel_layout(torch)
+    backend = backend_for(dev, world)
+    d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("video_sp", d, timeout=400, world=world)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    blocks = {"hunyuan": sum(SP_HV_DEPTH), "mochi": SP_MOCHI_DEPTH}
+    heads = {"auto": 24, "ulysses": 24 // world, "ring": None}
+    ok = all(r["backend"] == backend for r in ranks)
+    for r in ranks:
+        for run in r["runs"]:
+            n = blocks[run["model"]]
+            want = {name: 0.0 for name in run["launches_per_call"]}
+            if run["impl"] != "ring":  # ring attends with einsums
+                want["flash_attn_fwd"] = float(n)
+            run["expected_launches_per_call"] = want
+            run["expected_local_heads"] = [] if run["impl"] != "ulysses" else [heads["ulysses"]]
+            ok &= run["finite"] and run["launches_per_call"] == want
+            ok &= run["local_heads"] == run["expected_local_heads"]
+            ok &= run.get("ok", True)
+            if run["impl"] == "ulysses":
+                ok &= not run["transport"]["staged"].get("all_to_all", 0)
+    emit({"phase": "video_sp", "sp": world, "backend": backend,
+          "depth": {"hunyuan": SP_HV_DEPTH, "mochi": SP_MOCHI_DEPTH},
+          "sizes": {"hunyuan": HV_SIZE, "mochi": MOCHI_SIZE}, "limit": "close_bf16",
+          "ranks": ranks, "seconds": wall,
+          "peak_gb_per_rank": [r["max_memory_allocated_gb"] for r in ranks],
+          "note": layout_note(world, backend), "device": card})
+    if not ok:
+        raise AssertionError("video_sp: an SP forward disagreed with one rank's, launched other "
+                             "kernels or heads than predicted, or staged an all-to-all")
+    return grad_launches
+
+
+def lora_base(torch, flux_cfg, dev):
+    """The frozen bf16 base of parallel_lora, from parallel_tp's seed with
+    every bias drawn (``tp_params``, cast)."""
+    return tree_map(lambda t: t.to(torch.bfloat16), tp_params(torch, flux_cfg, dev))
+
+
+def full_depth_shards(torch, mesh, dev):
+    """Allocate this rank's shards of the full-depth FLUX.1-dev base in bf16,
+    cut as ``GRPOTrainer`` cuts it (``flux_param_specs``, ``shard_params`` on
+    a meta tree: nothing whole is allocated); returns the byte counts."""
+    from mixgrpo_tpu_torch.models.flux import model as M
+    from mixgrpo_tpu_torch.parallel.sharding import flux_param_specs, shard_params
+
+    meta = M.init_flux(M.FluxConfig(), device="meta", dtype=torch.bfloat16)
+    shards = shard_params(meta, mesh, flux_param_specs(meta, mesh))
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in M.param_leaves(tree))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    resident = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev), shards)
+    torch.cuda.synchronize()
+    out = {"params": M.param_count(meta), "whole_gb": nbytes(meta) / 1e9,
+           "shard_gb": nbytes(shards) / 1e9,
+           "resident_gb": (torch.cuda.memory_allocated() - before) / 1e9}
+    del resident
+    torch.cuda.empty_cache()
+    return out
+
+
+def base_share(torch, trainer, flux_cfg):
+    """(GB of the trainer's base on this rank, whether every leaf holds 1/n
+    of the whole leaf, n the product of the sizes of the axes its spec
+    names)."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.models.flux import model as M
+    from mixgrpo_tpu_torch.parallel.sharding import flatten_specs, flux_param_specs
+
+    meta = M.init_flux(flux_cfg, device="meta", dtype=torch.bfloat16)
+    mine, mesh = M.param_leaves(trainer.params), trainer.mesh
+    whole, specs = M.param_leaves(meta), flatten_specs(flux_param_specs(meta, mesh))
+    cut_ok = all(m.numel() * int(np.prod([mesh.size(a) for a in s if a])) == w.numel()
+                 for m, w, s in zip(mine, whole, specs))
+    return sum(t.numel() * t.element_size() for t in mine) / 1e9, cut_ok
+
+
+def file_crc32(path, chunk=1 << 26):
+    """zlib's crc32 of a file's bytes, read in chunks."""
+    import zlib
+
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(chunk)
+            if not block:
+                return crc
+            crc = zlib.crc32(block, crc)
+
+
+def lora_run(torch, FA, C, dev, rank, d, tag, mesh_cfg, per_rank, resume):
+    """One LoRA iteration of parallel_lora (rank ``LORA_RANK``, the frozen
+    bf16 base of ``lora_base``, parallel_train's recipe) on ``mesh_cfg``:
+    one prompt per batch rank (``per_rank``) or every prompt, the same
+    injected noise in every run; then a checkpoint with the export, and with
+    ``resume`` a resume from it and the full-depth base's shards allocated
+    (``full_depth_shards``).  Returns the run's record."""
+    import gc
+
+    import numpy as np
+
+    from mixgrpo_tpu_torch.models.flux.model import param_leaves
+
+    rec = {}
+    n_p = PAR_LORA_PROMPTS
+    cfg, flux_cfg, vcfg, vae, GRPOTrainer = _train_setup(
+        torch, dev, os.path.join(d, f"run_{tag}"), mesh_cfg,
+        PAR_TRAIN_G if per_rank else PAR_TRAIN_G * n_p, "required", TRAIN_DEPTH)
+    make = lambda: GRPOTrainer(cfg, flux_cfg=flux_cfg, vae_cfg=vcfg, vae_params=vae,
+                               params=lora_base(torch, flux_cfg, dev),
+                               reward_fn=brightness_reward, device=dev, use_lora=True,
+                               lora_rank=LORA_RANK, lora_alpha=float(LORA_RANK))
+    t0 = time.perf_counter()
+    trainer = make()
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    rec["base_gb"], rec["base_cut_ok"] = base_share(torch, trainer, flux_cfg)
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((n_p, 512, flux_cfg.context_dim), np.float32)
+    pooled = rng.standard_normal((n_p, flux_cfg.pooled_dim), np.float32)
+    b = trainer.mesh.batch_index
+    rows = slice(b, b + 1) if per_rank else slice(0, n_p)
+    batch = {"prompt_embed": emb[rows], "pooled": pooled[rows],
+             "captions": [f"prompt {i}" for i in range(n_p)][rows]}
+    L = trainer.sampler.num_image_tokens
+    z0 = torch.randn((n_p * PAR_TRAIN_G, L, flux_cfg.in_channels),
+                     generator=torch.Generator(dev).manual_seed(41), device=dev)
+    z0 = z0[b * PAR_TRAIN_G:(b + 1) * PAR_TRAIN_G] if per_rank else z0
+
+    def noise_fn(j, i, shape):
+        chunk = b if j is None else j  # the one-rank run's chunk of these rows
+        gen = torch.Generator(dev).manual_seed(1000 * (chunk + 1) + i)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    factors = param_leaves(trainer.lora_factors)
+    if trainer.mesh.world == 1:
+        np.save(os.path.join(d, "before_lora.npy"), sampled_leaves(factors))
+    timesteps = [int(t) for t in trainer.window.get_current_timesteps()]
+    FA.reset_launches()
+    C.reset_transport()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.train_one_step(batch, timesteps, z0=z0, noise_fn=noise_fn)
+    torch.cuda.synchronize()
+    rec["iteration_s"] = time.perf_counter() - t0
+    rec["iteration_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["launches"] = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items()}
+    rec["transport"] = C.transport_record()
+    rec["metrics"] = {k: float(v) for k, v in m.items() if np.isscalar(v)}
+    rec["num_steps"] = int(m["num_steps"])
+    if rank == 0:
+        np.save(os.path.join(d, f"after_{tag}.npy"), sampled_leaves(factors))
+    trainer.global_step = 1
+    t0 = time.perf_counter()
+    trainer.save_checkpoint()
+    rec["checkpoint_s"] = time.perf_counter() - t0
+    trainer.close()
+    exp = os.path.join(trainer.run_dir, "export_1", "diffusion_pytorch_model.safetensors")
+    if rank == 0:
+        rec["export_crc32"], rec["export_gb"] = file_crc32(exp), os.path.getsize(exp) / 1e9
+    mesh = trainer.mesh
+    if resume:
+        own = [t.detach().cpu() for t in factors]
+        del trainer, factors
+        torch.cuda.empty_cache()
+        cfg.run.resume_from_checkpoint = True
+        tr2 = make()
+        rec["resumed_step"] = tr2.global_step
+        rec["resumed_factors_equal"] = all(torch.equal(a, b.detach().cpu()) for a, b in
+                                           zip(own, param_leaves(tr2.lora_factors)))
+        rec["checkpoint_files"] = sorted(os.listdir(os.path.join(tr2.run_dir, "checkpoints",
+                                                                 "1")))
+        tr2.close()
+        del tr2
+        torch.cuda.empty_cache()
+        rec["full_depth"] = full_depth_shards(torch, mesh, dev)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()  # the trainers' weights sit in reference cycles
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rank_lora(torch, FA, C, dev, rank, world, d, rec, extra):
+    """parallel_lora's ranks: ``lora_run`` on mesh (dp 1, fsdp = ranks), one
+    prompt per rank, with the resume and the full-depth shards (record
+    ``fsdp``), then on (dp 1, tp = ranks), every prompt on every rank
+    (record ``tp``)."""
+    from mixgrpo_tpu_torch.parallel.mesh import MeshConfig
+
+    rec["fsdp"] = lora_run(torch, FA, C, dev, rank, d, "lora", MeshConfig(dp=1, fsdp=world),
+                           per_rank=True, resume=True)
+    rec["tp"] = lora_run(torch, FA, C, dev, rank, d, "lora_tp", MeshConfig(dp=1, tp=world),
+                         per_rank=False, resume=False)
+
+
+def parallel_lora_phase(torch, FA, dev, card, root):
+    """One LoRA iteration over a sharded frozen base on mesh (dp 1, fsdp =
+    ranks of ``parallel_layout``) and on (dp 1, tp = ranks), against one rank
+    (this process) on the same global batch and noise: the factors' update,
+    grad norm, rewards and the export, byte for byte; each rank's 1/n of
+    every sharded leaf; the fsdp run's checkpoint and resume, and each
+    rank's resident share of the full-depth base (record ``parallel_lora``)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mixgrpo_tpu_torch.parallel import collectives as C
+    from mixgrpo_tpu_torch.parallel.mesh import MeshConfig, backend_for
+
+    world = parallel_layout(torch)
+    backend = backend_for(dev, world)
+    d = tempfile.mkdtemp(dir=root, prefix=".smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ref = lora_run(torch, FA, C, dev, 0, d, "lora_ref", MeshConfig(1, 1, 1, 1),
+                       per_rank=False, resume=False)
+        wall = {"one_rank": time.perf_counter() - t0}
+        gc.collect()  # the trainer's weights sit in reference cycles
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("lora", d, timeout=800, world=world)
+        wall["ranks"] = time.perf_counter() - t0
+        before = np.load(os.path.join(d, "before_lora.npy"))
+        d1 = np.load(os.path.join(d, "after_lora_ref.npy")) - before
+        deltas = {c: np.load(os.path.join(d, f"after_{c}.npy")) - before
+                  for c in ("lora", "lora_tp")}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    m1 = ref["metrics"]
+    blocks = sum(TRAIN_DEPTH)
+    bwd = FA.default_bwd(2560, 2560)
+    rec = {"phase": "parallel_lora", "backend": backend, "depth": TRAIN_DEPTH,
+           "lora_rank": LORA_RANK, "num_generations": PAR_TRAIN_G,
+           "prompts": PAR_LORA_PROMPTS, "one_rank": {k: ref[k] for k in (
+               "iteration_s", "iteration_peak_gb", "launches", "base_gb", "export_gb")},
+           "grad_norm_one_rank": m1["grad_norm"], "update_max_abs": float(np.abs(d1).max()),
+           "sampled_entries": int(d1.size), "wall_s": wall,
+           "limits": {"update_rel_l2": PAR_UPDATE_REL_L2, "grad_norm_rel": PAR_GRAD_NORM_REL},
+           "note": layout_note(world, backend), "device": card}
+    ok = bool(np.isfinite(d1).all()) and np.abs(d1).max() > 0
+    ok &= all(r["backend"] == backend for r in ranks)
+    for case, key, mesh in (("lora", "fsdp", {"dp": 1, "fsdp": world}),
+                            ("lora_tp", "tp", {"dp": 1, "tp": world})):
+        runs = [r[key] for r in ranks]
+        m2 = runs[0]["metrics"]
+        d2 = deltas[case]
+        # per rank: its rows' rollout chunks, the update group's forward and recompute
+        n_chunks = 1 if key == "fsdp" else PAR_LORA_PROMPTS
+        want = {"flash_attn_fwd": ref["num_steps"] * blocks * n_chunks,
+                "flash_attn_fwd_lse": 2 * blocks,
+                "flash_attn_bwd_fused": blocks if bwd == "fused" else 0,
+                "flash_attn_bwd_dkv": blocks if bwd == "split" else 0,
+                "flash_attn_bwd_dq": blocks if bwd == "split" else 0}
+        r = {"mesh": mesh, "update_rel_l2": float(np.linalg.norm(d2 - d1) / np.linalg.norm(d1)),
+             "update_max_abs_diff": float(np.abs(d2 - d1).max()),
+             "grad_norm": m2["grad_norm"],
+             "grad_norm_rel": abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"],
+             "loss": [m1["loss"], m2["loss"]], "reward": [m1["reward"], m2["reward"]],
+             "export_equal": runs[0]["export_crc32"] == ref["export_crc32"],
+             "base_gb_per_rank": [x["base_gb"] for x in runs],
+             "iteration_s_per_rank": [x["iteration_s"] for x in runs],
+             "peak_gb_per_rank": [x["peak_gb"] for x in runs],
+             "launches_per_rank": [x["launches"] for x in runs], "expected_launches": want,
+             "transport_per_rank": [x["transport"] for x in runs]}
+        ok &= (all(x["launches"] == want for x in runs)
+               and r["update_rel_l2"] < PAR_UPDATE_REL_L2
+               and r["grad_norm_rel"] < PAR_GRAD_NORM_REL
+               and abs(m2["reward"] - m1["reward"]) < 1e-6 and r["export_equal"]
+               and all(x["base_cut_ok"] for x in runs)
+               and (sum(r["peak_gb_per_rank"]) if backend == "gloo"
+                    else max(r["peak_gb_per_rank"])) < 80)
+        if key == "fsdp":
+            r["resumed"] = [(x["resumed_step"], x["resumed_factors_equal"]) for x in runs]
+            r["checkpoint_files"] = runs[0]["checkpoint_files"]
+            r["full_depth_per_rank"] = [x["full_depth"] for x in runs]
+            ok &= all(x["resumed_step"] == 1 and x["resumed_factors_equal"] for x in runs)
+            ok &= r["checkpoint_files"] == ["manifest.json"] + [
+                f"shard{i}of{world}.pt" for i in range(world)]
+            for fd in r["full_depth_per_rank"]:
+                ok &= fd["params"] == 11901408320 and fd["resident_gb"] < 0.55 * fd["whole_gb"]
+        rec[case] = r
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"parallel_lora failed its checks: {rec}")
+    return rec
+
+
 PHASES = ("build", "kernels", "serve", "checkpoints", "rewards", "train_main", "train",
           "update_full_depth", "train_flash_lora", "hunyuan_video", "mochi_video",
-          "parallel_attention", "parallel_train", "parallel_cli", "parallel_tp")
+          "parallel_attention", "parallel_train", "parallel_cli", "parallel_tp", "video_sp",
+          "parallel_lora")
 TRAIN_DEPTH = (2, 4)
+# parallel_train's and parallel_tp's blocks: cut from TRAIN_DEPTH to keep the
+# whole script inside its time limit once video_sp and parallel_lora came in
+PAR_DEPTH = (1, 2)
 FULL_DEPTH = (19, 38)
+# train_flash_lora's blocks: cut from FULL_DEPTH (as PAR_DEPTH is cut) to keep
+# the whole script inside its time limit once video_sp and parallel_lora came in
+FLASH_LORA_DEPTH = (10, 19)
 
 
 def main() -> int:
@@ -4992,6 +5537,13 @@ def run_later_phases(torch, FA, M, dev, card, root, only, rows, ckpt, paths):
                     paths)
     if "parallel_tp" in only:
         timed_phase("parallel_tp", parallel_tp_phase, torch, FA, dev, card, root)
+    if "video_sp" in only:
+        grad = timed_phase("video_sp", video_sp_phase, torch, FA, dev, card, root)
+        for name, n in grad.items():
+            rows.setdefault(name, {})["hunyuan_gradient_launches"] = n
+        torch.cuda.empty_cache()
+    if "parallel_lora" in only:
+        timed_phase("parallel_lora", parallel_lora_phase, torch, FA, dev, card, root)
 
 
 def final_lines(torch, FA, rows, card, kind):
@@ -5013,7 +5565,8 @@ def final_lines(torch, FA, rows, card, kind):
                         "source": sources[FA.KERNEL if name.startswith("flash_attn_fwd")
                                           else FA.BWD_KERNEL],
                         "replaces": replaces[name], **{k: row[k] for k in keys},
-                        "mochi_launches": row.get("mochi_launches")})
+                        "mochi_launches": row.get("mochi_launches"),
+                        "hunyuan_gradient_launches": row.get("hunyuan_gradient_launches")})
     emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -183,11 +183,10 @@ def main(argv=None):
     if not single and not (args.metadata and args.image_dir and args.output_dir):
         p.error("batch mode requires --metadata, --image_dir and --output_dir")
 
-    from mixgrpo_tpu_torch.parallel.mesh import default_device, init_distributed
+    from mixgrpo_tpu_torch.parallel.mesh import init_distributed, resolve_device
     from mixgrpo_tpu_torch.utils.logging import process_count, process_index
 
-    if args.device == "cuda":
-        args.device = default_device()
+    args.device = resolve_device(args.device)  # raises without a card unless --device cpu
     init_distributed(device=args.device)  # no-op for one
     models = build_models(args)
     if single:

@@ -21,6 +21,16 @@ Two ways to merge, with the same numbers:
     the backward gathers no gradient of a full-size weight stack.  The
     update differentiates through it.
 
+Over a sharded base (``parallel/sharding.py``: the fsdp slices gathered
+where the blocks use them, each block on its tp slice) the factors stay
+whole on every rank and ``shard_factors`` cuts each one to the tp slice of
+the leaf it adds to: a column-parallel leaf's delta a @ b is cut by b's
+columns, a row-parallel leaf's by a's rows, at the same part boundaries as
+the leaf (``Spec.parts``), so a @ b_t is the cut of the whole delta.  Each
+factor enters the tp region through ``collectives.tp_enter``, whose
+backward sums the ranks' gradients, so every rank holds the whole factor
+gradient.
+
 ``save_lora``/``load_lora`` write and read safetensors files through the
 port's ``utils/safetensors_io.py`` (f32 factors, ``__metadata__`` {rank,
 alpha}), so they interchange with JAX's ``save_lora``, which goes through
@@ -115,6 +125,34 @@ def lora_blocks(params: Any, lora: Dict[str, Any], stacks=("double", "single")):
         return _map_with_paths(merge, p)
 
     return apply_lora(params, {**lora, "factors": outside}), merge_block
+
+
+def shard_factors(factors: Dict[str, Any], specs: Any, mesh) -> Dict[str, Any]:
+    """The factors as this rank's blocks use them: where the spec of a
+    factor's leaf (``specs``, the tree of ``sharding.flux_param_specs``)
+    cuts ``tp``, ``b``'s columns (an output dimension) or ``a``'s rows (an
+    input dimension) are cut alike, under autograd; the identity off a tp
+    mesh (see the module docstring)."""
+    from mixgrpo_tpu_torch.parallel import collectives as C
+    from mixgrpo_tpu_torch.parallel.sharding import Spec, cut_leaf
+
+    if not C.tp_split(mesh):
+        return factors
+    index = {"tp": (mesh.index("tp"), mesh.size("tp"))}
+    out = {}
+    for path, f in factors.items():
+        spec = specs
+        for k in path.split("/"):
+            spec = spec[k]
+        if "tp" not in spec:
+            out[path] = f
+            continue
+        a, b = C.tp_enter(f["a"], mesh), C.tp_enter(f["b"], mesh)
+        d = spec.index("tp")  # the leaf's input (ndim - 2) or output (ndim - 1) dimension
+        cut = Spec((None,) * d + ("tp",), spec.parts)
+        out[path] = ({"a": a, "b": cut_leaf(b, cut, index)} if d == b.ndim - 1
+                     else {"a": cut_leaf(a, cut, index), "b": b})
+    return out
 
 
 def save_lora(lora: Dict[str, Any], path: str) -> None:

@@ -24,6 +24,17 @@ key mask as False (``mask`` and ``kv_valid`` are exclusive), get identity
 RoPE, and are sliced off before the final layer, so the padded forward
 equals JAX's unpadded one.  At 192x336 and 129 frames S = 256 + 8316 = 8572
 runs as 8576.
+
+Sequence parallelism (JAX's ``attn_impl="ulysses"``, the reference's one
+live SP path; also ``"ring"``): the joint attention goes through
+``ops/attention.py``'s dispatcher, which splits q, k, v and the key mask
+(text and pad keys) over the mesh axis that
+``parallel.ulysses.set_sp_context`` installed and gathers the output back,
+so the residual stream stays whole on every rank, as JAX's
+``constrain_residual`` keeps it.  The refiner's attention stays eager and
+local.  S must divide by the axis' size (the 128-multiple padding gives
+that for 2, 4 and 8 ranks).  ``remat`` recomputes each block in the backward
+under autograd (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -99,14 +110,17 @@ class HunyuanVideoConfig:
         )
 
 
-def make_video_ids(t: int, latent_h: int, latent_w: int) -> np.ndarray:
-    """(t * h/2 * w/2, 3) position ids [frame, row, col] on the packed grid."""
+def make_video_ids(t: int, latent_h: int, latent_w: int, sp_size: int = 1) -> np.ndarray:
+    """(t * sp_size * h/2 * w/2, 3) position ids [frame, row, col] on the
+    packed grid; ``sp_size``: the temporal axis counts ``t * sp_size`` frames,
+    as JAX's does for a sequence sharded over time."""
     h, w = latent_h // 2, latent_w // 2
-    ids = np.zeros((t, h, w, 3), np.float32)
-    ids[..., 0] += np.arange(t, dtype=np.float32)[:, None, None]
+    tt = t * sp_size
+    ids = np.zeros((tt, h, w, 3), np.float32)
+    ids[..., 0] += np.arange(tt, dtype=np.float32)[:, None, None]
     ids[..., 1] += np.arange(h, dtype=np.float32)[None, :, None]
     ids[..., 2] += np.arange(w, dtype=np.float32)[None, None, :]
-    return ids.reshape(t * h * w, 3)
+    return ids.reshape(tt * h * w, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -236,13 +250,16 @@ def hunyuan_video_forward(
     *,
     dtype=torch.bfloat16,
     attn_impl: str = "auto",
+    remat: bool = True,
     pad_seq_multiple: int = 128,
 ) -> torch.Tensor:
     """Velocity for video latents, (B, T, H, W, C) f32.
 
-    ``pad_seq_multiple``: pad the image tail as ``flux_forward`` does
-    (``_pad_joint``); the pad keys join the key mask and are sliced off
-    again."""
+    ``attn_impl``: the joint attention's (``"ulysses"`` and ``"ring"`` need
+    ``parallel.ulysses.set_sp_context``).  ``remat``: recompute each block
+    in the backward (only when autograd records).  ``pad_seq_multiple``: pad
+    the image tail as ``flux_forward`` does (``_pad_joint``); the pad keys
+    join the key mask and are sliced off again."""
     if cfg.patch_size[0] != 1:
         raise ValueError("temporal patching > 1 is not needed for HunyuanVideo")
     layout = _attn_layout()
@@ -296,11 +313,16 @@ def hunyuan_video_forward(
         return _single_block(p, bcfg, joint, vec, rope_cos, rope_sin, attn_impl, dtype,
                              layout, attn_valid=attn_valid, attn_mask=attn_mask)
 
+    def run(body, *args):
+        if remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+        return body(*args)
+
     for p in doubles:
-        x, c = double(x, c, p)
+        x, c = run(double, x, c, p)
     joint = torch.cat([c, x], dim=1)
     for p in singles:
-        joint = single(joint, p)
+        joint = run(single, joint, p)
     x = joint[:, L_txt:L_txt + L_img]
 
     # the final layer: shift first (FLUX's is scale first)

@@ -12,6 +12,13 @@ pipeline's device, or injected as ``z0`` (the parity tests pass JAX's
 draw).  Decoding tiles past 17 latent frames or 32 latent pixels
 (``vae_tiling="auto"``), as the reference enables tiling for every real
 video decode.
+
+``attn_impl="ulysses"`` (or ``"ring"``) samples under sequence
+parallelism: start every rank (``torchrun``; ``parallel.init_distributed``),
+make the mesh (``parallel.make_mesh(MeshConfig(dp=1, sp=-1))``) and call
+``parallel.ulysses.set_sp_context(mesh)`` first.  Every rank then draws the
+same noise from the same seed, runs the DiT with the joint attention split
+over the ranks, and decodes the same video.
 """
 
 from __future__ import annotations
@@ -90,7 +97,7 @@ class HunyuanVideoPipeline:
             t = torch.broadcast_to(torch.as_tensor(sigma, dtype=torch.float32, device=dev), (B,))
             out = hunyuan_video_forward(
                 self.params, self.cfg, z.reshape(B, T, H, W, C).to(self.dtype), txt, pooled,
-                t, g, text_mask, dtype=self.dtype, attn_impl=self.attn_impl)
+                t, g, text_mask, dtype=self.dtype, attn_impl=self.attn_impl, remat=False)
             return out.reshape(B, -1)
 
         out = run_rollout(SamplerConfig(num_steps_max=self.num_steps, eta=0.0), model_fn,

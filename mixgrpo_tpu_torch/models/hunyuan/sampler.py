@@ -8,7 +8,10 @@ prompt, and a result dict with ``samples`` (numpy (T, H, W, 3) f32 in [0,
 1]), ``seeds``, ``prompts`` and ``negative_prompt``.  HunyuanVideo is
 guidance-distilled: the negative prompt is carried in the result, and no
 classifier-free guidance pass runs.  Each video is one batch-1 call of
-``HunyuanVideoPipeline``.
+``HunyuanVideoPipeline``.  Under sequence parallelism (the pipeline's
+``attn_impl="ulysses"`` or ``"ring"``) every rank must draw the same noise,
+so ``seed`` must be given: None, which draws seeds at random per process,
+is refused there.
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ class HunyuanVideoSampler:
         if negative_prompt is None:
             negative_prompt = self.default_negative_prompt
 
+        if seed is None and self.pipeline.attn_impl in ("ulysses", "ring"):
+            raise ValueError("sequence-parallel sampling needs a seed: every rank must draw "
+                             "the same noise")
         seeds = _resolve_seeds(seed, len(prompts), num_videos_per_prompt)
         txt, mask, pooled = self.pipeline.encode_prompt(prompts)
         samples, i = [], 0

@@ -32,7 +32,9 @@ goes directly where gloo has a CUDA form of the operation
 found on an H100: every collective here but send/recv) and is staged
 through a host copy otherwise.  The choice is this fixed table, keyed on the
 backend and the tensor's device; ``TRANSPORT`` counts each operation's
-direct and staged calls; ``TP`` counts the calls and bytes of
+direct and staged calls and the bytes this rank hands it (``"bytes"``: the
+buffer it sends, or for a reduce-scatter the slice it receives); ``TP``
+counts the calls and bytes of
 ``tp_reduce`` and of ``tp_enter``'s backward.
 """
 
@@ -46,7 +48,8 @@ import torch.distributed as dist
 
 GLOO_CUDA_DIRECT = frozenset({"all_reduce", "broadcast", "all_gather", "reduce_scatter",
                               "all_to_all"})
-TRANSPORT = {"direct": collections.Counter(), "staged": collections.Counter()}
+TRANSPORT = {"direct": collections.Counter(), "staged": collections.Counter(),
+             "bytes": collections.Counter()}
 TP = collections.Counter()
 
 
@@ -63,6 +66,7 @@ def transport_record() -> dict:
 def _staged(op: str, mesh, t: torch.Tensor) -> bool:
     staged = mesh.backend == "gloo" and t.is_cuda and op not in GLOO_CUDA_DIRECT
     TRANSPORT["staged" if staged else "direct"][op] += 1
+    TRANSPORT["bytes"][op] += t.numel() * t.element_size()
     return staged
 
 

@@ -143,8 +143,9 @@ def _is_initialized() -> bool:
 def make_mesh(cfg: MeshConfig = MeshConfig(), device=None) -> Mesh:
     """The mesh of this process over every rank of the default process group
     (one rank when none is initialised); ``cfg`` is resolved against the
-    world size.  ``device`` is this rank's device (default: ``cuda:<local
-    rank>`` when CUDA is available, else the CPU)."""
+    world size.  ``device`` is this rank's device (default:
+    ``default_device()``, which raises without a card: the CPU is used only
+    when asked for)."""
     import torch.distributed as dist
 
     dist_on = _is_initialized()
@@ -171,10 +172,20 @@ def local_rank() -> int:
 
 
 def default_device() -> torch.device:
-    """``cuda:<LOCAL_RANK mod cards>`` when CUDA is available, else the CPU."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", local_rank() % torch.cuda.device_count())
-    return torch.device("cpu")
+    """``cuda:<LOCAL_RANK mod cards>``; raises when CUDA is unavailable (the
+    CPU is used only where the caller asks for it, ``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available: pass device='cpu' (--device cpu) to "
+                           "run on the CPU")
+    return torch.device("cuda", local_rank() % torch.cuda.device_count())
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as the CLIs take it: ``"cuda"`` (or None) is this rank's
+    card, ``default_device()``; anything else is taken as given."""
+    if device is None or str(device) == "cuda":
+        return default_device()
+    return torch.device(device)
 
 
 def backend_for(device, ranks_per_host: int) -> str:
@@ -195,9 +206,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
     ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``.  A no-op
     for one process, as JAX's is, and when already initialised.  The backend
     is ``backend_for(device, LOCAL_WORLD_SIZE)`` (default: the number of
-    processes); on a card, this rank's device becomes the current one."""
+    processes); ``device`` defaults to ``default_device()``, which raises
+    without a card; on a card, this rank's device becomes the current one."""
     import torch.distributed as dist
 
+    device = torch.device(device) if device is not None else default_device()
     if num_processes is None:
         num_processes = int(os.environ.get("WORLD_SIZE", "1"))
     if num_processes <= 1 or _is_initialized():
@@ -206,7 +219,6 @@ def init_distributed(coordinator_address: Optional[str] = None,
         process_id = int(os.environ["RANK"])
     if coordinator_address is None:
         coordinator_address = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
-    device = torch.device(device) if device is not None else default_device()
     backend = backend_for(device, int(os.environ.get("LOCAL_WORLD_SIZE", num_processes)))
     if device.type == "cuda":
         torch.cuda.set_device(device)

@@ -51,11 +51,12 @@ def key_mask_rows(mask, S_local: int, name: str):
 
 
 def ulysses_attention(q, k, v, mesh, axis: str = "sp", base_impl: str = "auto", mask=None):
-    """Attention over this rank's sequence slice: q, k, v (B, H, S/sp, D) of
-    a (B, H, S, D) sequence sharded on ``axis``; returns the slice's
-    (B, H, S/sp, D) output.  ``mask``: this rank's slice of a key-side
-    boolean, (B, S/sp) or (B, 1, 1, S/sp), True = attend.  Query-dependent
-    masks are not supported under sequence parallelism."""
+    """Attention over this rank's sequence slice: q (B, H, S/sp, D) and k, v
+    (B, H, Sk/sp, D) of sequences sharded on ``axis`` (Sk = S for
+    self-attention); returns the slice's (B, H, S/sp, D) output.  ``mask``:
+    this rank's slice of a key-side boolean, (B, Sk/sp) or (B, 1, 1, Sk/sp),
+    True = attend.  Query-dependent masks are not supported under sequence
+    parallelism."""
     from mixgrpo_tpu_torch.ops.attention import attention
 
     sp = mesh.size(axis)
@@ -66,7 +67,7 @@ def ulysses_attention(q, k, v, mesh, axis: str = "sp", base_impl: str = "auto", 
         raise ValueError(f"seq {S} not divisible by sp={sp}")
     local_mask = None
     if mask is not None:
-        m = key_mask_rows(mask, q.shape[2], "ulysses")
+        m = key_mask_rows(mask, k.shape[2], "ulysses")
         local_mask = C.gather_along(m, mesh, axis, dim=1)[:, None, None, :]
     q, k, v = (C.all_to_all_heads_to_seq(t, mesh, axis) for t in (q, k, v))
     o = attention(q, k, v, mask=local_mask, impl=base_impl)
@@ -79,17 +80,19 @@ def sequence_parallel(q, k, v, mesh, axis: str, impl: str, mask=None):
     (whose backward gathers the slices' gradients), attends with ``impl``,
     and the output slices are all-gathered (whose backward is this rank's
     slice), so the residual stream around attention keeps its full
-    sequence, as JAX's ``constrain_residual`` layout does.  ``mask``: a
-    key-side boolean over the S keys."""
+    sequence, as JAX's ``constrain_residual`` layout does.  q and k are
+    split by their own lengths (S queries, Sk keys: Mochi's final block
+    attends its visual queries over visual and text keys).  ``mask``: a
+    key-side boolean over the Sk keys."""
     from mixgrpo_tpu_torch.parallel.ring import ring_attention
 
-    B, S = q.shape[0], q.shape[2]
+    B, S, Sk = q.shape[0], q.shape[2], k.shape[2]
     sp = mesh.size(axis)
-    if S % sp:
-        raise ValueError(f"seq {S} not divisible by sp={sp}")
+    if S % sp or Sk % sp:
+        raise ValueError(f"seq {S} and keys {Sk} must divide by sp={sp}")
     m = None
     if mask is not None:
-        m = key_mask_rows(mask, S, impl).to(q.device).expand(B, S)
+        m = key_mask_rows(mask, Sk, impl).to(q.device).expand(B, Sk)
         m = C.slice_along(m, mesh, axis, dim=1)
     ql, kl, vl = (C.split_seq(t, mesh, axis, dim=2) for t in (q, k, v))
     if impl == "ring":

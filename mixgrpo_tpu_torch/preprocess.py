@@ -6,13 +6,17 @@ passes none for FLUX); ``pooled`` is CLIP-L's final-LN hidden state at the
 end-of-text token before the projection (the HF ``pooler_output``).  The T5
 tokenizer is read from ``tokenizer_2/tokenizer.json`` by the port's own
 reader (``models/text/tokenizer_json.py``), the CLIP one from
-``tokenizer/merges.txt``.  One process encodes every prompt (JAX shards the
-list by ``jax.process_index``) and writes through ``EmbeddingCacheWriter``.
-The CLIs compute in bf16 on a card and in f32 on the CPU (``compute_dtype``).
+``tokenizer/merges.txt``.  Each process encodes every ``process_count``-th
+prompt from its ``process_index``-th, as JAX's does by
+``jax.process_index``, and writes through ``EmbeddingCacheWriter``: one
+process writes the cache at ``output_dir``, several each write
+``output_dir/host_<i>``.  The CLIs compute in bf16 on a card and in f32 on
+the CPU (``compute_dtype``).
 
 Run: ``python -m mixgrpo_tpu_torch.preprocess --prompt_dir prompts.txt
 --output_dir cache --model_path FLUX.1-dev`` (``--device cpu`` on a machine
-without a card).
+without a card); under ``torchrun --nproc_per_node N -m
+mixgrpo_tpu_torch.preprocess ...`` each rank takes its card and its share.
 """
 
 from __future__ import annotations
@@ -74,16 +78,22 @@ class PromptEncoder:
 
 
 def run_preprocess(prompts: List[str], encoder: PromptEncoder, output_dir: str,
-                   batch_size: int = 8) -> str:
-    """Encode every prompt and write the cache at ``output_dir``; returns
+                   batch_size: int = 8, process_index: int = 0,
+                   process_count: int = 1) -> str:
+    """Encode this process's share, every ``process_count``-th prompt from
+    the ``process_index``-th, and write its cache: at ``output_dir`` for one
+    process, at ``output_dir/host_<process_index>`` for several.  Returns
     the manifest's path."""
-    w = EmbeddingCacheWriter(output_dir)
-    for i in range(0, len(prompts), batch_size):
-        chunk = prompts[i:i + batch_size]
+    mine = prompts[process_index::process_count]
+    out = output_dir if process_count == 1 else os.path.join(output_dir,
+                                                             f"host_{process_index}")
+    w = EmbeddingCacheWriter(out)
+    for i in range(0, len(mine), batch_size):
+        chunk = mine[i:i + batch_size]
         emb, pooled = encoder(chunk)
         for j, c in enumerate(chunk):
             w.add(emb[j], pooled[j], c)
-        main_print(f"encoded {i + len(chunk)}/{len(prompts)}")
+        main_print(f"encoded {i + len(chunk)}/{len(mine)}")
     return w.finish()
 
 
@@ -127,13 +137,19 @@ def main(argv=None, family=None):
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_len", type=int, default=512)
     p.add_argument("--clip_bpe_path", type=str, default=os.environ.get("CLIP_BPE_PATH"))
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (each rank takes cuda:<LOCAL_RANK mod cards>) or cpu")
     args = p.parse_args(argv)
+    from mixgrpo_tpu_torch.parallel.mesh import init_distributed, resolve_device
+    from mixgrpo_tpu_torch.utils.logging import process_count, process_index
+
+    dev = resolve_device(args.device)  # raises without a card unless --device cpu
+    init_distributed(device=dev)  # torchrun; no-op for one
     enc = build_prompt_encoder_from_dir(args.model_path, max_len=args.max_len,
                                         clip_bpe_path=args.clip_bpe_path, family=family,
-                                        device=args.device, dtype=compute_dtype(args.device))
+                                        device=dev, dtype=compute_dtype(dev))
     return run_preprocess(read_prompts(args.prompt_dir), enc, args.output_dir,
-                          args.batch_size)
+                          args.batch_size, process_index(), process_count())
 
 
 if __name__ == "__main__":

@@ -82,6 +82,7 @@ class DualFluxPipeline:
         dtype=torch.bfloat16,
         attn_impl: str = "auto",
         quant: str = "none",
+        virtual_depth=None,  # benchmark aid: see flux_forward's docstring
         vae_tiling: str = "auto",  # auto | on | off
         max_steps_per_call: Optional[int] = None,
         device="cuda",
@@ -118,7 +119,7 @@ class DualFluxPipeline:
             flux_cfg, SamplerConfig(num_steps_max=cap(T), eta=0.0),
             height=height, width=width, text_len=text_len,
             guidance_scale=guidance_scale, dtype=dtype, attn_impl=attn_impl,
-            device=self.device,
+            virtual_depth=virtual_depth, device=self.device,
         )
         self._seg1 = sampler(self.mix_k) if self.mix_k > 0 else None
         self._seg2 = sampler(num_steps - self.mix_k) if num_steps > self.mix_k else None
@@ -205,7 +206,7 @@ def main(argv=None, family=None):
     from mixgrpo_tpu_torch.preprocess import (
         build_prompt_encoder_from_dir, compute_dtype, read_prompts,
     )
-    from mixgrpo_tpu_torch.parallel.mesh import default_device, init_distributed
+    from mixgrpo_tpu_torch.parallel.mesh import init_distributed, resolve_device
     from mixgrpo_tpu_torch.presets import flux_family
     from mixgrpo_tpu_torch.utils.logging import main_print, process_count, process_index
 
@@ -231,9 +232,9 @@ def main(argv=None, family=None):
     args = p.parse_args(argv)
 
     fam = family or flux_family()
-    dev = default_device() if args.device == "cuda" else torch.device(args.device)
+    dev = resolve_device(args.device)  # raises without a card unless --device cpu
     init_distributed(device=dev)  # torchrun; no-op for one
-    dtype = compute_dtype(args.device)
+    dtype = compute_dtype(dev)
     flux_cfg, vae_cfg = fam["flux"], fam["vae"]
     kw = dict(dtype=dtype, device=dev)
     vae = load_vae_decoder_params(os.path.join(args.model_path, "vae"), vae_cfg, **kw)

@@ -41,10 +41,13 @@ def make_model_fn(
     *,
     dtype=torch.bfloat16,
     attn_impl: str = "auto",
+    remat=True,
     virtual_depth=None,
     tp=None,
 ):
-    """Close FLUX over conditioning -> ``(z, sigma) -> velocity``."""
+    """Close FLUX over conditioning -> ``(z, sigma) -> velocity``.
+    ``remat``: recompute each block in the backward when the call is
+    differentiated (``flux_forward``'s; no effect under ``torch.no_grad``)."""
 
     def model_fn(z, sigma):
         B = z.shape[0]
@@ -53,7 +56,7 @@ def make_model_fn(
         g = torch.full((B,), guidance_scale, dtype=torch.float32, device=z.device)
         return flux_forward(
             params, flux_cfg, z.to(dtype), txt, pooled, t, g,
-            rope_cos, rope_sin, dtype=dtype, attn_impl=attn_impl,
+            rope_cos, rope_sin, dtype=dtype, attn_impl=attn_impl, remat=remat,
             virtual_depth=virtual_depth, tp=tp,
         )
 

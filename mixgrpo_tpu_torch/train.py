@@ -26,6 +26,8 @@ DPM-Solver step.  ``use_lora=True`` trains a LoRA adapter (``lora.py``) over
 a frozen base (which can be bf16 and needs no grads): the rollout runs on
 the merged weights, made once per iteration and freed before the decode;
 the update merges each block's factors inside the block; EMA is off.
+On a mesh the frozen base is sharded as the trained tree is (below) and the
+factors stay whole on every rank.
 
 Randomness comes from ``torch.Generator``s seeded from (``sampler_seed``,
 ``global_step``, stream), so an iteration is reproducible on one device (the
@@ -67,10 +69,14 @@ draw the same noise and roll out, decode and score the same rows.  Only
 rank 0 logs, writes ``args.json`` and ``rewards.txt`` and exports; the rank
 at ``sp`` and ``tp`` index 0 of each batch rank writes its
 ``rewards_samples_rank{r}.jsonl`` and images; the checkpoint holds one file
-per (fsdp, tp) shard (``utils/checkpoint.py``).  Under LoRA the base and the
-adapter stay whole on every rank and the blocks run unsplit, so the ``tp``
-ranks compute alike (splitting the base over ``tp`` is a gap, ROADMAP).
-``tp > 1`` needs the heads and the MLP width to divide by ``tp``.
+per (fsdp, tp) shard (``utils/checkpoint.py``).  Under LoRA the frozen base
+is sharded by the same specs (each rank holds 1/fsdp of it, the blocks run
+on their ``tp`` slices, as JAX shards every leaf by its rules) and the
+adapter stays whole on every rank: the rollout merges each factor, cut to
+its leaf's ``tp`` slice (``lora.shard_factors``), into the base gathered
+over ``fsdp``; the update merges per block; the checkpoint holds the
+adapter and the export the whole base.  ``tp > 1`` needs the heads and the
+MLP width to divide by ``tp``.
 """
 
 from __future__ import annotations
@@ -89,7 +95,7 @@ import torch
 
 from mixgrpo_tpu_torch.config import TrainConfig, window_state_from_config
 from mixgrpo_tpu_torch.data.dataset import PromptLoader
-from mixgrpo_tpu_torch.lora import apply_lora, init_lora
+from mixgrpo_tpu_torch.lora import apply_lora, init_lora, shard_factors
 from mixgrpo_tpu_torch.models.flux.latents import denormalize_latents, unpack_latents
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, init_flux, param_leaves
 from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, postprocess_images, vae_decode
@@ -176,8 +182,14 @@ class GRPOTrainer:
         if params is None:
             params = init_flux(self.flux_cfg, device=self.device,
                                generator=torch.Generator(self.device).manual_seed(cfg.grpo.seed))
-        # (fsdp, tp) shards of the trained tree (the LoRA base stays whole)
-        self.sharded = self.mesh.world > 1 and not use_lora
+        self.use_lora = use_lora
+        if use_lora:  # the adapter of the whole base, whole on every rank
+            lora = init_lora(torch.Generator(self.device).manual_seed(cfg.grpo.seed + 1),
+                             params, rank=lora_rank, alpha=lora_alpha)
+            self.lora_factors = lora["factors"]
+            self.lora_meta = {"rank": lora["rank"], "alpha": lora["alpha"]}
+        # (fsdp, tp) shards of the trained tree, or of the frozen LoRA base
+        self.sharded = self.mesh.world > 1
         if self.sharded:
             _check_tp(self.flux_cfg, self.mesh.size("tp"))
         # the blocks run on tp slices (None: whole leaves)
@@ -212,16 +224,12 @@ class GRPOTrainer:
         kw = dict(guidance_scale=cfg.grpo.guidance_scale, dtype=dtype, attn_impl=attn_impl,
                   remat="dots" if o.gradient_checkpointing else False,
                   loss_scale=float(cfg.grpo.loss_coef))
-        self.use_lora = use_lora
         if use_lora:
-            lora = init_lora(torch.Generator(self.device).manual_seed(cfg.grpo.seed + 1),
-                             self.params, rank=lora_rank, alpha=lora_alpha)
-            self.lora_factors = lora["factors"]
-            self.lora_meta = {"rank": lora["rank"], "alpha": lora["alpha"]}
             self.opt_state = self.optimizer.init(self.lora_factors)
             self.lora_update = make_lora_update_fns(
                 self.flux_cfg, self.sampler_cfg, cfg.ppo_config(), self.optimizer,
-                self.sampler.rope_cos, self.sampler.rope_sin, mesh=self.mesh, **kw)
+                self.sampler.rope_cos, self.sampler.rope_sin, mesh=self.mesh,
+                param_specs=self.param_specs, **kw)
         else:
             self.opt_state = self.optimizer.init(self.params)
             self.update_step, self.accum_step, self.apply_step = make_update_fns(
@@ -237,9 +245,10 @@ class GRPOTrainer:
 
         self.run_dir = os.path.join(cfg.run.output_dir,
                                     f"{cfg.grpo.training_strategy}_{cfg.run.experiment_name}")
+        # under LoRA the checkpoint holds the adapter, whole on every rank
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "checkpoints"),
                                       mesh=self.mesh if self.mesh.world > 1 else None,
-                                      specs=self.param_specs)
+                                      specs=None if use_lora else self.param_specs)
         # wandb run id: made once, kept in args.json, reused on resume
         self.wandb_run_id = self._load_or_create_run_id()
         self.metrics = MetricLogger(self.run_dir, run_name=cfg.run.experiment_name,
@@ -384,8 +393,11 @@ class GRPOTrainer:
                                                self.dtype, axes=("fsdp",))
             if self.use_lora:
                 with torch.no_grad():
-                    rollout_params = apply_lora(self.params, {**self.lora_meta,
-                                                              "factors": self.lora_factors})
+                    factors = self.lora_factors
+                    if self.sharded:
+                        factors = shard_factors(factors, self.param_specs, self.mesh)
+                    rollout_params = apply_lora(rollout_params, {**self.lora_meta,
+                                                                 "factors": factors})
             if cfg.grpo.rollout_quant == "int8":
                 rollout_params = quantize_flux_params(rollout_params, tp=self.tp)
             out = self.sampler.chunked_rollout(rollout_params, z0, txt, pooled, sigmas, det,
@@ -702,7 +714,7 @@ def main(argv=None, family=None):
     from mixgrpo_tpu_torch.config import build_arg_parser, config_from_args
     from mixgrpo_tpu_torch.data.dataset import LatentDataset
     from mixgrpo_tpu_torch.models.flux.load import load_flux_params, load_vae_decoder_params
-    from mixgrpo_tpu_torch.parallel.mesh import default_device
+    from mixgrpo_tpu_torch.parallel.mesh import resolve_device
     from mixgrpo_tpu_torch.preprocess import compute_dtype
     from mixgrpo_tpu_torch.presets import flux_family
 
@@ -713,10 +725,10 @@ def main(argv=None, family=None):
     cfg = config_from_args(args)
 
     fam = family or flux_family()
-    dev = default_device() if args.device == "cuda" else torch.device(args.device)
+    dev = resolve_device(args.device)  # raises without a card unless --device cpu
     # rendezvous from torchrun's environment; a no-op for one process
     init_distributed(device=dev)
-    dtype = compute_dtype(args.device)
+    dtype = compute_dtype(dev)
     root = cfg.paths.pretrained_model_name_or_path
     flux_cfg, vae_cfg = fam["flux"], fam["vae"]
     reward_models = build_reward_models(cfg, device=dev)

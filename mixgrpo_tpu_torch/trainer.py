@@ -33,9 +33,11 @@ the mean over the update group's global rows, as in JAX, the global norm
 sums each leaf's squares over the axes that shard it (so every rank takes
 the same clip decision), AdamW steps each rank's shards, and the metrics are
 the batch ranks' mean.  The ranks of one ``tp`` group take the same rows.
-The LoRA update keeps its base and factors whole on every rank (the blocks
-run unsplit, and the ``tp`` ranks compute alike) and averages the factors'
-gradients over the batch ranks.
+The LoRA update takes its frozen base sharded the same way (gathered over
+``fsdp`` per block, the blocks on their ``tp`` slices) and its factors
+whole on every rank, each cut to its leaf's ``tp`` slice where it merges
+(``lora.shard_factors``), and averages the factors' gradients over the
+batch ranks.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from mixgrpo_tpu_torch.lora import lora_blocks
+from mixgrpo_tpu_torch.lora import lora_blocks, shard_factors
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, flux_forward, param_leaves
 from mixgrpo_tpu_torch.parallel.collectives import all_reduce_
 from mixgrpo_tpu_torch.parallel.sharding import flatten_specs, fsdp_view, reduce_grads
@@ -360,24 +362,36 @@ def make_lora_update_fns(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig,
                          ppo_cfg: PPOConfig, optimizer: Optimizer, rope_cos, rope_sin, *,
                          guidance_scale: float = 3.5, dtype=torch.bfloat16,
                          attn_impl: str = "auto", remat="dots", loss_scale: float = 1.0,
-                         virtual_depth=None, mesh=None):
+                         virtual_depth=None, mesh=None, param_specs=None):
     """LoRA variant of ``make_update_fns``: ``update_step(factors, opt_state,
     lora_meta, base_params, batch, sigmas) -> (factors, opt_state, metrics)``.
     Gradients flow into the factors only (``opt_state`` is ``optimizer.init``
     of the factor tree) and ``grad_norm`` is their global norm before
     clipping.  The base tree is read, never written, and needs no
     ``requires_grad``.  On a ``mesh`` the factors' gradients are averaged
-    over the batch ranks."""
+    over the batch ranks; with ``param_specs`` (the base's
+    ``flux_param_specs``) ``base_params`` are this rank's shards, gathered
+    over ``fsdp`` block by block, and the blocks run on their ``tp`` slices
+    with the factors cut alike (``lora.shard_factors``)."""
     grads_of = _make_grads_of(flux_cfg, sampler_cfg, ppo_cfg, rope_cos, rope_sin,
                               guidance_scale, dtype, attn_impl, remat, loss_scale,
                               virtual_depth)
+    on_mesh = mesh is not None and mesh.world > 1
+    tp = mesh if on_mesh and param_specs is not None else None
 
     def update_step(factors, opt_state, lora_meta, base_params, batch: UpdateBatch, sigmas):
         leaves = [t.requires_grad_(True) for t in param_leaves(factors)]
+        gather = None
         with torch.enable_grad():  # merges outside the blocks are on the graph too
-            params, merge_block = lora_blocks(base_params, {**lora_meta, "factors": factors})
-        grads, metrics = grads_of(params, leaves, batch, sigmas, block_params=merge_block)
-        if mesh is not None and mesh.world > 1:
+            used = factors
+            if tp is not None:
+                base_params, gather = fsdp_view(base_params, mesh, param_specs)
+                used = shard_factors(factors, param_specs, mesh)
+            params, merge_block = lora_blocks(base_params, {**lora_meta, "factors": used})
+        hook = merge_block if gather is None else (
+            lambda stack, i, p: merge_block(stack, i, gather(stack, i, p)))
+        grads, metrics = grads_of(params, leaves, batch, sigmas, block_params=hook, tp=tp)
+        if on_mesh:
             grads = reduce_grads(grads, [()] * len(grads), mesh)
             metrics = _batch_mean(metrics, mesh)
         metrics["grad_norm"] = optimizer.apply(opt_state, grads)

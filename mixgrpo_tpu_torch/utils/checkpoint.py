@@ -26,7 +26,10 @@ Tensors are copied to the host before the write.  ``blocking=False`` lets the
 disk write run in a background thread (joined by the next save, ``wait`` or
 ``close``) on one process; across ranks the save blocks, since the manifest
 waits for every rank's file.  Each file is written under a temporary name,
-then renamed.
+then renamed.  ``max_to_keep`` (JAX's Orbax option) keeps only the newest
+steps: once a save's manifest is written (inside the background thread,
+when there is one), the writer of the manifest removes the oldest step
+directories beyond it.
 
 ``export_flux_safetensors`` writes FLUX parameters under diffusers
 ``FluxTransformer2DModel`` names in F32, as JAX's does, so trained weights
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 from typing import Any, Dict, Optional, Tuple
 
@@ -64,12 +68,18 @@ def _to_host(tree):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, mesh=None, specs=None):
-        """``mesh``: the ``parallel.mesh.Mesh`` the state is sharded on (None:
-        one process).  ``specs``: the tree of ``sharding.flux_param_specs``
-        the parameters are cut by on ``mesh`` (None: whole on every rank)."""
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None, mesh=None,
+                 specs=None):
+        """``max_to_keep``: the number of newest steps kept (None: every
+        step).  ``mesh``: the ``parallel.mesh.Mesh`` the state is sharded on
+        (None: one process).  ``specs``: the tree of
+        ``sharding.flux_param_specs`` the parameters are cut by on ``mesh``
+        (None: whole on every rank)."""
+        if max_to_keep is not None and max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be at least 1, got {max_to_keep}")
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
         self.mesh = mesh
         self.specs = specs
         self._thread: Optional[threading.Thread] = None
@@ -166,7 +176,15 @@ class CheckpointManager:
             with open(tmp, "w") as fh:
                 json.dump(manifest, fh)
             os.replace(tmp, os.path.join(d, _MANIFEST))
+            self._prune()
         self._barrier()
+
+    def _prune(self):
+        """Remove the oldest steps beyond ``max_to_keep``."""
+        if self.max_to_keep is None:
+            return
+        for step in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(step)), ignore_errors=True)
 
     def wait(self) -> None:
         """Join an in-flight background save; raise what it raised."""
@@ -365,7 +383,7 @@ def export_flux_safetensors(params: Any, cfg, path: str, mesh=None, specs=None) 
     ``specs`` (the tree of ``parallel.sharding.flux_param_specs``) is given,
     ``params`` are this rank's shards: every rank takes part in gathering
     each leaf in turn, and rank 0 keeps it on the host; without ``specs`` the
-    tree is whole on every rank (the LoRA base)."""
+    tree is whole on every rank."""
     if mesh is not None and mesh.world > 1:
         if specs is not None:
             from mixgrpo_tpu_torch.parallel.sharding import gather_leaf

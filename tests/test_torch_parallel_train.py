@@ -22,9 +22,16 @@ virtual CPU devices of ``tests/conftest.py`` or against one rank.
   (JAX's ``tests/test_checkpoint.py::test_mesh_migration_restore``).
 - An int8 rollout on tp=2 equals one rank's bit for bit, and the iteration
   on it one rank's.
-- The same under LoRA (base and factors whole on every rank), on fsdp=2 and
-  on tp=2: the factors after the step on both ranks against 1 rank, and the
-  export written by rank 0 alone.
+- The same under LoRA (the frozen base sharded as the trained tree is, the
+  factors whole on every rank), on fsdp=2 and on tp=2: the factors after the
+  step on both ranks against 1 rank, each rank holding 1/fsdp (and 1/tp) of
+  every sharded base leaf, and the export, written by rank 0 alone, equal
+  to the whole base.
+- One LoRA ``update_step`` over the sharded base at fsdp=2 and at tp=2
+  against JAX's ``make_lora_update_fns`` over ``shard_params`` of the base
+  on the same mesh (what JAX's ``GRPOTrainer(use_lora=True)`` runs): the
+  factors after it within 1e-5 relative or ``ADAM_ATOL``, grad_norm and loss
+  (1e-5 relative).
 - ``sample.main`` and ``eval_rewards.main`` on 2 ranks: JAX's file names
   (``img_p<pi>_<i>.png``, ``metadata_<pi>.json``, ``rewards_<pi>.json``),
   seeds ``seed + pi * 100000 + i``, and rank 0's summary equal to JAX's
@@ -398,6 +405,21 @@ def test_int8_rollout_tp_matches_one_rank(weights, tmp_path):
         np.testing.assert_allclose(a.numpy(), b.detach().numpy(), rtol=1e-5, atol=ADAM_ATOL)
 
 
+def _check_base_shards(shards, whole, mesh):
+    """Every sharded base leaf holds 1/n of the whole leaf, n the product of
+    the sizes of the mesh axes in its spec, and some leaf is cut by each
+    axis of more than one rank."""
+    cut_by = set()
+    for path, (shape, spec) in shards.items():
+        t = whole
+        for k in path.split("/"):
+            t = t[k]
+        n = int(np.prod([mesh.get(a, 1) for a in spec if a is not None]))
+        assert n > 1 and int(np.prod(shape)) * n == t.numel(), path
+        cut_by |= {a for a in spec if a is not None}
+    assert cut_by == {a for a in ("fsdp", "tp") if mesh.get(a, 1) > 1}
+
+
 def _lora_matches_one_rank(weights, tmp_path, mesh):
     d2 = tmp_path / "two"
     d2.mkdir()
@@ -416,6 +438,7 @@ def _lora_matches_one_rank(weights, tmp_path, mesh):
         for i, w in enumerate(want):
             np.testing.assert_allclose(got[f"f{i}"], w, rtol=1e-5, atol=ADAM_ATOL)
         assert j["export_writes"] == (1 if r == 0 else 0)
+        _check_base_shards(j["base_shards"], load_tree("p", z), mesh)
     from mixgrpo_tpu_torch.models.flux.load import load_flux_params
 
     exp = load_flux_params(str(d2 / "run" / "part_test" / "export_1"), M.FluxConfig.tiny(),
@@ -425,16 +448,73 @@ def _lora_matches_one_rank(weights, tmp_path, mesh):
 
 
 def test_lora_train_step_two_ranks_matches_one_rank(weights, tmp_path):
-    """LoRA on a mesh keeps the base and the factors whole on every rank: 2
-    ranks (one prompt each) against 1 rank on the same global batch and
-    noise, and the export written by rank 0 alone."""
+    """LoRA on fsdp = 2: each rank holds half of the frozen base, the
+    factors whole; 2 ranks (one prompt each) against 1 rank on the same
+    global batch and noise, and the export written by rank 0 alone."""
     _lora_matches_one_rank(weights, tmp_path, dict(dp=1, fsdp=2))
 
 
 def test_lora_train_step_tp_matches_one_rank(weights, tmp_path):
-    """LoRA on tp = 2: the base and the factors whole on both ranks, the
-    blocks unsplit, both ranks on every row: each equals one rank."""
+    """LoRA on tp = 2: the base cut into its tp slices, the blocks split,
+    the factors whole and cut where they merge, both ranks on every row:
+    each equals one rank."""
     _lora_matches_one_rank(weights, tmp_path, dict(dp=1, tp=2))
+
+
+@pytest.mark.parametrize("mesh", [dict(dp=1, fsdp=2), dict(dp=1, tp=2)])
+def test_lora_update_step_matches_jax_on_mesh(mesh, weights, tmp_path):
+    from mixgrpo_tpu import lora as JLoRA
+
+    jparams = weights
+    b, sig, cos, sin, scfg = _update_inputs(jparams)
+    hp = dict(lr=1e-4, wd=1e-2, max_grad_norm=1.0)
+    meta = {"rank": 4, "alpha": 8.0}
+    rng = np.random.default_rng(9)
+    lora = JLoRA.init_lora(jax.random.key(3), jax.tree.map(jnp.asarray, jparams), rank=4,
+                           alpha=8.0)
+    # b drawn too, so that a's gradient and the row-parallel cut of a count
+    factors = {p: {"a": np.asarray(f["a"]),
+                   "b": (0.05 * rng.standard_normal(f["b"].shape)).astype(np.float32)}
+               for p, f in lora["factors"].items()}
+    z = dict(sigmas=sig, rope_cos=cos, rope_sin=sin, **{f"b_{k}": v for k, v in b.items()},
+             **{f"f.{p.replace('/', '|')}.{k}": v for p, f in factors.items()
+                for k, v in f.items()})
+    save_tree("p", jparams, z)
+    np.savez(tmp_path / "in.npz", **z)
+    (tmp_path / "in.json").write_text(json.dumps(dict(
+        mesh=mesh, sampler=dataclasses.asdict(scfg), meta=meta, **hp)))
+    ranks = spawn_ranks("update_lora", 2, str(tmp_path))
+
+    jm = JMesh.make_mesh(JMesh.MeshConfig(**mesh), devices=jax.devices()[:2])
+    JSh.set_activation_mesh(jm)
+    try:
+        jopt = JT.make_optimizer(learning_rate=hp["lr"], weight_decay=hp["wd"],
+                                 max_grad_norm=hp["max_grad_norm"])
+        step = JT.make_lora_update_fns(
+            JM.FluxConfig.tiny(), JR.SamplerConfig(**dataclasses.asdict(scfg)),
+            JPPO(clip_range=0.2), jopt, jnp.asarray(cos), jnp.asarray(sin),
+            dtype=jnp.float32, attn_impl="xla", remat=False)
+        base = JSh.shard_params(jax.tree.map(jnp.asarray, jparams), jm)
+        ub = JT.UpdateBatch(**{k: jax.device_put(jnp.asarray(b[k]),
+                                                 JSh.data_spec(jm, b[k].ndim))
+                               for k in UpdateBatch._fields})
+        jf = jax.tree.map(jnp.asarray, factors)
+        with jm:
+            want, _, wm = step(jf, jopt.init(jf), meta, base, ub, jnp.asarray(sig))
+    finally:
+        JSh.set_activation_mesh(None)
+    moved = 0.0
+    for got, j in ranks:
+        _check_base_shards(j["base_shards"], load_tree("p", z), mesh)
+        for p, f in want.items():
+            for k in ("a", "b"):
+                w = np.asarray(f[k])
+                np.testing.assert_allclose(got[f"f.{p.replace('/', '|')}.{k}"], w, rtol=1e-5,
+                                           atol=ADAM_ATOL, err_msg=f"{p} {k}")
+                moved = max(moved, float(np.abs(w - factors[p][k]).max()))
+        assert j["metrics"]["grad_norm"] == pytest.approx(float(wm["grad_norm"]), rel=1e-5)
+        assert j["metrics"]["loss"] == pytest.approx(float(wm["loss"]), rel=1e-5, abs=1e-7)
+    assert moved > 1e-5  # the step moved the factors
 
 
 # ----------------------------------------------------------------------------

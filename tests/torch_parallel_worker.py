@@ -72,10 +72,13 @@ def spawn_ranks(case: str, world: int, d: str, timeout: float = 240.0):
 def save_tree(prefix: str, tree, out: dict):
     """A parameter tree into ``out`` as ``prefix.path.to.leaf`` -> numpy (a
     copy: a trainer built on ``load_tree`` of it updates its leaves in
-    place)."""
+    place).  A list's items are keyed ``#<index>``."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             save_tree(f"{prefix}.{k}", v, out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            save_tree(f"{prefix}.#{i}", v, out)
     else:
         out[prefix] = np.array(tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree)
 
@@ -90,7 +93,17 @@ def load_tree(prefix: str, z) -> dict:
         for p in parts[:-1]:
             t = t.setdefault(p, {})
         t[parts[-1]] = torch.as_tensor(np.asarray(z[key]))
-    return tree
+    return _lists(tree)
+
+
+def _lists(tree):
+    """``save_tree``'s ``#<index>`` keys back into lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and all(k.startswith("#") for k in out):
+        return [out[f"#{i}"] for i in range(len(out))]
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -183,6 +196,39 @@ def case_attention(mesh, z, cfg, out, info):
     info["transport"] = C.transport_record()
 
 
+def case_video_sp(mesh, z, cfg, out, info):
+    """HunyuanVideo (a text mask and pad keys) and Mochi (the final block's
+    Sq != Sk) with ``attn_impl="ulysses"`` and ``"ring"`` on whole inputs
+    that every rank holds; then HunyuanVideo's pipeline under Ulysses."""
+    from mixgrpo_tpu_torch.models.hunyuan import model as HM
+    from mixgrpo_tpu_torch.models.hunyuan.pipeline import HunyuanVideoPipeline
+    from mixgrpo_tpu_torch.models.mochi import model as MM
+    from mixgrpo_tpu_torch.parallel import collectives as C
+    from mixgrpo_tpu_torch.parallel.ulysses import set_sp_context
+
+    t = lambda k: torch.as_tensor(z[k])
+    hp, mp = load_tree("h", z), load_tree("m", z)
+    hcfg, mcfg = HM.HunyuanVideoConfig.tiny(), MM.MochiConfig.tiny()
+    set_sp_context(mesh, "sp")
+    with torch.no_grad():
+        for impl in ("ulysses", "ring"):
+            out[f"h_{impl}"] = HM.hunyuan_video_forward(
+                hp, hcfg, t("h_z"), t("h_txt"), t("h_pooled"), t("h_t"), t("h_g"),
+                t("h_mask"), dtype=torch.float32, attn_impl=impl,
+                pad_seq_multiple=cfg["pad"]).numpy()
+            out[f"m_{impl}"] = MM.mochi_forward(
+                mp, mcfg, t("m_z"), t("m_txt"), t("m_t"), t("m_mask"), dtype=torch.float32,
+                attn_impl=impl).numpy()
+    pipe = HunyuanVideoPipeline(hcfg, hp, num_steps=2, dtype=torch.float32,
+                                attn_impl="ulysses", device="cpu")
+    z0 = t("h_z")[:1]
+    out["h_pipeline"] = pipe(t("h_txt")[:1], t("h_pooled")[:1], video_length=1,
+                             height=z0.shape[2] * 8, width=z0.shape[3] * 8,
+                             text_mask=t("h_mask")[:1], z0=z0).numpy()
+    set_sp_context(None)
+    info["transport"] = C.transport_record()
+
+
 def case_tp_ops(mesh, z, cfg, out, info):
     """Megatron's ``f`` (``tp_enter``) and ``g`` (``tp_reduce``) over the tp
     axis: values and gradients under this rank's cotangent."""
@@ -265,6 +311,50 @@ def case_update(mesh, z, cfg, out, info):
     full = gather_params(params, mesh, specs)
     if mesh.rank == 0:
         save_tree("p", full, out)
+
+
+def base_shards(params, specs) -> dict:
+    """Each sharded leaf's local shape and spec, by path."""
+    from mixgrpo_tpu_torch.models.flux.model import param_leaves
+    from mixgrpo_tpu_torch.parallel.sharding import flatten_specs, leaf_paths
+
+    return {p: [list(t.shape), list(s)] for p, t, s in
+            zip(leaf_paths(params), param_leaves(params), flatten_specs(specs)) if any(s)}
+
+
+def case_update_lora(mesh, z, cfg, out, info):
+    """One LoRA ``update_step`` over this rank's shards of the frozen base
+    (the factors whole, from the test); writes the factors after it, the
+    metrics and the base's shard shapes."""
+    from mixgrpo_tpu_torch.models.flux.model import FluxConfig
+    from mixgrpo_tpu_torch.parallel.sharding import flux_param_specs, shard_params
+    from mixgrpo_tpu_torch.rl.ppo import PPOConfig
+    from mixgrpo_tpu_torch.solvers.rollout import SamplerConfig
+    from mixgrpo_tpu_torch.trainer import UpdateBatch, make_lora_update_fns, make_optimizer
+
+    params = load_tree("p", z)
+    specs = flux_param_specs(params, mesh)
+    base = shard_params(params, mesh, specs)
+    factors = {}
+    for key in z:
+        if key.startswith("f."):
+            path, kind = key[2:].rsplit(".", 1)
+            factors.setdefault(path.replace("|", "/"), {})[kind] = torch.as_tensor(z[key])
+    rows = lambda a: torch.as_tensor(a).chunk(mesh.batch_size)[mesh.batch_index]
+    ub = UpdateBatch(*(rows(z[f"b_{f}"]) for f in UpdateBatch._fields))
+    opt = make_optimizer(learning_rate=cfg["lr"], weight_decay=cfg["wd"],
+                         max_grad_norm=cfg["max_grad_norm"])
+    step = make_lora_update_fns(
+        FluxConfig.tiny(), SamplerConfig(**cfg["sampler"]), PPOConfig(clip_range=0.2), opt,
+        torch.as_tensor(z["rope_cos"]), torch.as_tensor(z["rope_sin"]), dtype=torch.float32,
+        attn_impl="eager", remat=True, mesh=mesh, param_specs=specs)
+    state = opt.init(factors)
+    factors, state, m = step(factors, state, cfg["meta"], base, ub, torch.as_tensor(z["sigmas"]))
+    info["metrics"] = {k: float(v) for k, v in m.items()}
+    info["base_shards"] = base_shards(base, specs)
+    for path, f in factors.items():
+        for kind, t in f.items():
+            out[f"f.{path.replace('/', '|')}.{kind}"] = t.detach().numpy()
 
 
 def _trainer(mesh, z, cfg, d, **over):
@@ -409,9 +499,9 @@ def case_rollout_int8(mesh, z, cfg, out, info):
 
 
 def case_train_lora(mesh, z, cfg, out, info):
-    """One LoRA iteration on the mesh (the base and the factors whole on
-    every rank); then a checkpoint with the export, counting this rank's
-    safetensors writes."""
+    """One LoRA iteration on the mesh (the frozen base sharded, the factors
+    whole on every rank); then a checkpoint with the export, counting this
+    rank's safetensors writes, and the base's shard shapes."""
     from mixgrpo_tpu_torch.utils import checkpoint as CK
 
     writes = []
@@ -423,6 +513,7 @@ def case_train_lora(mesh, z, cfg, out, info):
 
     CK.save_file = counted
     tr = _trainer(mesh, z, cfg, cfg["out_dir"], export="required")
+    info["base_shards"] = base_shards(tr.params, tr.param_specs)
     m = run_train_step(tr, mesh, z, cfg)
     info["metrics"] = {k: float(v) for k, v in m.items() if np.isscalar(v)}
     for j, t in enumerate(_leaves(tr.lora_factors)):
@@ -451,6 +542,15 @@ def case_train_main(mesh, z, cfg, out, info):
                 run_files=sorted(os.listdir(tr.run_dir)))
 
 
+def case_preprocess(mesh, z, cfg, out, info):
+    """``preprocess.main`` under torchrun's environment: each rank encodes
+    its share into ``host_<rank>``."""
+    from mixgrpo_tpu_torch import preprocess as Pre
+    from mixgrpo_tpu_torch import presets as P
+
+    info["manifest"] = Pre.main(cfg["argv"], family=P.flux_family("tiny"))
+
+
 def case_cli(mesh, z, cfg, out, info):
     """``sample.main`` then ``eval_rewards.main`` under torchrun's
     environment (each rank its own prompts and entries)."""
@@ -476,7 +576,8 @@ CASES = {"collectives": case_collectives, "attention": case_attention,
          "update": case_update, "train": case_train, "train_lora": case_train_lora,
          "tp_ops": case_tp_ops, "roundtrip": case_roundtrip, "restore": case_restore,
          "rollout_int8": case_rollout_int8, "forward": case_forward,
-         "train_main": case_train_main,
+         "train_main": case_train_main, "video_sp": case_video_sp,
+         "update_lora": case_update_lora, "preprocess": case_preprocess,
          "cli": case_cli}
 
 
