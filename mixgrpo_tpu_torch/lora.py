@@ -31,6 +31,9 @@ factor enters the tp region through ``collectives.tp_enter``, whose
 backward sums the ranks' gradients, so every rank holds the whole factor
 gradient.
 
+Both merges are ``merge`` spans (``utils/profiling.py``): ``apply_lora``
+once per call, ``merge_block`` once per block.
+
 ``save_lora``/``load_lora`` write and read safetensors files through the
 port's ``utils/safetensors_io.py`` (f32 factors, ``__metadata__`` {rank,
 alpha}), so they interchange with JAX's ``save_lora``, which goes through
@@ -44,6 +47,7 @@ from typing import Any, Dict
 
 import torch
 
+from mixgrpo_tpu_torch.utils import profiling
 from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsFile, save_file
 
 DEFAULT_TARGETS = r"(qkv|linear1|linear2|attn_out|mlp_in|mlp_out)/w$"
@@ -99,7 +103,8 @@ def apply_lora(params: Any, lora: Dict[str, Any]) -> Any:
             flat[i] = w + (fa[i] @ fb[i] * scale).to(leaf.dtype)
         return out
 
-    return _map_with_paths(merge, params)
+    with profiling.span("merge"):
+        return _map_with_paths(merge, params)
 
 
 def merge_lora(params: Any, lora: Dict[str, Any]) -> Any:
@@ -122,7 +127,8 @@ def lora_blocks(params: Any, lora: Dict[str, Any], stacks=("double", "single")):
         def merge(path, w):
             f = inside.get(f"{stack}/{path}")
             return w if f is None else w + (f["a"][i] @ f["b"][i] * scale).to(w.dtype)
-        return _map_with_paths(merge, p)
+        with profiling.span("merge"):
+            return _map_with_paths(merge, p)
 
     return apply_lora(params, {**lora, "factors": outside}), merge_block
 

@@ -7,6 +7,8 @@ converting weights is a tree map:
   - LayerNorms inside blocks have no affine (eps 1e-6); RMS QK-norm has a
     per-head-dim scale; statistics in fp32.
 ``linear`` dispatches on ``w_q`` to the int8 product of ``ops/quant.py``.
+Each matrix product runs inside a ``gemm`` span (``utils/profiling.py``);
+the input casts and the bias add lie outside it.
 ``row_linear`` is the row-parallel product of a block split over ``tp``
 (``parallel/sharding.py``): this rank's partial product, summed over ``tp``,
 then the bias, once.
@@ -18,6 +20,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from mixgrpo_tpu_torch.utils import profiling
 
 
 def linear_init(generator, in_dim: int, out_dim: int, bias: bool = True, *,
@@ -39,7 +43,9 @@ def linear(p, x, dtype=None):
         from mixgrpo_tpu_torch.ops.quant import qlinear
 
         return qlinear(p, x, dtype)
-    y = x.to(dtype) @ p["w"].to(dtype)
+    x, w = x.to(dtype), p["w"].to(dtype)
+    with profiling.span("gemm"):
+        y = x @ w
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
@@ -59,7 +65,10 @@ def row_linear(p, x, dtype=None, tp=None):
         from mixgrpo_tpu_torch.ops.quant import qlinear
 
         return qlinear(p, x, dtype, tp=tp)
-    y = tp_reduce(x.to(dtype) @ p["w"].to(dtype), tp)
+    x, w = x.to(dtype), p["w"].to(dtype)
+    with profiling.span("gemm"):
+        y = x @ w
+    y = tp_reduce(y, tp)
     return y + p["b"].to(dtype) if "b" in p else y
 
 

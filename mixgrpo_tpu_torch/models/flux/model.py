@@ -32,6 +32,14 @@ summed over ``tp`` before its bias is added (``layers.row_linear``): four
 all-reduces per double block and one per single block.  Attention runs on
 the rank's heads, so Ulysses (``sp``) splits those again.
 
+Spans (``utils/profiling.py``, recorded only while a profiler runs): each
+forward is a ``dit`` span; inside the blocks the disjoint stages ``gemm``
+(``layers.linear``), ``attn`` (``ops/attention.py``), ``norm_mod`` (the
+LayerNorm and its modulation), ``qk_rope`` (QK-norm, RoPE and the joint
+concatenation), ``gate_res`` (gate and residual) and ``act`` (GELU), recorded
+in one call of every ``profiling.SAMPLE_EVERY``.  What a ``dit`` span holds
+outside ``gemm`` and ``attn`` is the call's pointwise time.
+
 ``MIXGRPO_ATTN_LAYOUT=bshd`` keeps q/k/v as (B, S, H, D) (the head split is a
 free reshape and the attention kernel reads per-head strides); the default
 is bhsd, as in JAX.
@@ -51,6 +59,7 @@ from mixgrpo_tpu_torch.models.flux import layers as L
 from mixgrpo_tpu_torch.models.flux.rope import apply_rope
 from mixgrpo_tpu_torch.ops.attention import attention
 from mixgrpo_tpu_torch.parallel.collectives import tp_enter, tp_split
+from mixgrpo_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,21 +242,23 @@ def _double_block(p, cfg: FluxConfig, img, txt, vec, rope_cos, rope_sin,
         p["txt_mod"], vec, 6, dtype
     )
 
-    img_mod = L.modulate(L.layer_norm(img, eps), i_shift1, i_scale1)
-    txt_mod = L.modulate(L.layer_norm(txt, eps), t_shift1, t_scale1)
+    with span("norm_mod"):
+        img_mod = L.modulate(L.layer_norm(img, eps), i_shift1, i_scale1)
+        txt_mod = L.modulate(L.layer_norm(txt, eps), t_shift1, t_scale1)
 
     iq, ik, iv = L.linear(p["img_qkv"], enter(img_mod), dtype).chunk(3, dim=-1)
     tq, tk, tv = L.linear(p["txt_qkv"], enter(txt_mod), dtype).chunk(3, dim=-1)
     iq, ik, iv = (_split_heads(x, H, layout) for x in (iq, ik, iv))
     tq, tk, tv = (_split_heads(x, H, layout) for x in (tq, tk, tv))
-    iq, ik = _qk_norm(iq, ik, enter(p["img_qnorm"]), enter(p["img_knorm"]), eps)
-    tq, tk = _qk_norm(tq, tk, enter(p["txt_qnorm"]), enter(p["txt_knorm"]), eps)
+    with span("qk_rope"):
+        iq, ik = _qk_norm(iq, ik, enter(p["img_qnorm"]), enter(p["img_knorm"]), eps)
+        tq, tk = _qk_norm(tq, tk, enter(p["txt_qnorm"]), enter(p["txt_knorm"]), eps)
 
-    # joint sequence: [text | image] (diffusers FLUX ordering)
-    seq = 1 if layout == "bshd" else 2
-    q = apply_rope(torch.cat([tq, iq], dim=seq), rope_cos, rope_sin)
-    k = apply_rope(torch.cat([tk, ik], dim=seq), rope_cos, rope_sin)
-    v = torch.cat([tv, iv], dim=seq)
+        # joint sequence: [text | image] (diffusers FLUX ordering)
+        seq = 1 if layout == "bshd" else 2
+        q = apply_rope(torch.cat([tq, iq], dim=seq), rope_cos, rope_sin)
+        k = apply_rope(torch.cat([tk, ik], dim=seq), rope_cos, rope_sin)
+        v = torch.cat([tv, iv], dim=seq)
 
     out = attention(q, k, v, mask=attn_mask, kv_valid=attn_valid,
                     impl=attn_impl, layout=layout)
@@ -255,18 +266,31 @@ def _double_block(p, cfg: FluxConfig, img, txt, vec, rope_cos, rope_sin,
     Lt = txt.shape[1]
     txt_attn, img_attn = out[:, :Lt], out[:, Lt:]
 
-    img = img + i_gate1[:, None, :] * L.row_linear(p["img_attn_out"], img_attn, dtype, tp)
-    txt = txt + t_gate1[:, None, :] * L.row_linear(p["txt_attn_out"], txt_attn, dtype, tp)
+    y = L.row_linear(p["img_attn_out"], img_attn, dtype, tp)
+    with span("gate_res"):
+        img = img + i_gate1[:, None, :] * y
+    y = L.row_linear(p["txt_attn_out"], txt_attn, dtype, tp)
+    with span("gate_res"):
+        txt = txt + t_gate1[:, None, :] * y
 
-    img_mlp = L.modulate(L.layer_norm(img, eps), i_shift2, i_scale2)
-    img = img + i_gate2[:, None, :] * L.row_linear(
-        p["img_mlp_out"], L.gelu_tanh(L.linear(p["img_mlp_in"], enter(img_mlp), dtype)),
-        dtype, tp)
-    txt_mlp = L.modulate(L.layer_norm(txt, eps), t_shift2, t_scale2)
-    txt = txt + t_gate2[:, None, :] * L.row_linear(
-        p["txt_mlp_out"], L.gelu_tanh(L.linear(p["txt_mlp_in"], enter(txt_mlp), dtype)),
-        dtype, tp)
+    img = _mlp(p["img_mlp_in"], p["img_mlp_out"], img, i_shift2, i_scale2, i_gate2, eps, dtype,
+               tp)
+    txt = _mlp(p["txt_mlp_in"], p["txt_mlp_out"], txt, t_shift2, t_scale2, t_gate2, eps, dtype,
+               tp)
     return img, txt
+
+
+def _mlp(p_in, p_out, x, shift, scale, gate, eps, dtype, tp):
+    """A double block's modulated, gated GELU MLP on one stream, with its
+    residual."""
+    with span("norm_mod"):
+        h = L.modulate(L.layer_norm(x, eps), shift, scale)
+    h = L.linear(p_in, tp_enter(h, tp), dtype)
+    with span("act"):
+        h = L.gelu_tanh(h)
+    h = L.row_linear(p_out, h, dtype, tp)
+    with span("gate_res"):
+        return x + gate[:, None, :] * h
 
 
 def _single_block(p, cfg: FluxConfig, x, vec, rope_cos, rope_sin, attn_impl,
@@ -279,22 +303,25 @@ def _single_block(p, cfg: FluxConfig, x, vec, rope_cos, rope_sin, attn_impl,
     h = (_out_width(p["linear1"]) - l2_in) // 2  # this rank's attention channels
     H = _local_heads(cfg, h, tp)
     shift, scale, gate = L.modulation(p["mod"], vec, 3, dtype)
-    x_mod = L.modulate(L.layer_norm(x, eps), shift, scale)
+    with span("norm_mod"):
+        x_mod = L.modulate(L.layer_norm(x, eps), shift, scale)
 
     proj = L.linear(p["linear1"], tp_enter(x_mod, tp), dtype)
     qkv, mlp = proj[..., : 3 * h], proj[..., 3 * h :]
     q, k, v = (_split_heads(t, H, layout) for t in qkv.chunk(3, dim=-1))
-    q, k = _qk_norm(q, k, tp_enter(p["qnorm"], tp), tp_enter(p["knorm"], tp), eps)
-    q = apply_rope(q, rope_cos, rope_sin)
-    k = apply_rope(k, rope_cos, rope_sin)
+    with span("qk_rope"):
+        q, k = _qk_norm(q, k, tp_enter(p["qnorm"], tp), tp_enter(p["knorm"], tp), eps)
+        q = apply_rope(q, rope_cos, rope_sin)
+        k = apply_rope(k, rope_cos, rope_sin)
 
     attn_out = attention(q, k, v, mask=attn_mask, kv_valid=attn_valid,
                          impl=attn_impl, layout=layout)
     attn_out = _merge_heads(attn_out, layout)
-    out = L.row_linear(
-        p["linear2"], torch.cat([attn_out, L.gelu_tanh(mlp)], dim=-1), dtype, tp
-    )
-    return x + gate[:, None, :] * out
+    with span("act"):
+        mlp = L.gelu_tanh(mlp)
+    out = L.row_linear(p["linear2"], torch.cat([attn_out, mlp], dim=-1), dtype, tp)
+    with span("gate_res"):
+        return x + gate[:, None, :] * out
 
 
 # ----------------------------------------------------------------------------
@@ -324,6 +351,7 @@ def _pad_joint(x, rope_cos, rope_sin, S_total: int, multiple: int):
             torch.cat([rope_sin, rope_sin.new_zeros((npad, D))]), npad)
 
 
+@spanned("dit")
 def flux_forward(
     params: Dict[str, Any],
     cfg: FluxConfig,

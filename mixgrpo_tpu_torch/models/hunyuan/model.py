@@ -35,6 +35,8 @@ so the residual stream stays whole on every rank, as JAX's
 local.  S must divide by the axis' size (the 128-multiple padding gives
 that for 2, 4 and 8 ranks).  ``remat`` recomputes each block in the backward
 under autograd (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint``.
+Each forward is a ``dit`` span (``utils/profiling.py``), holding the FLUX
+blocks' spans.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from mixgrpo_tpu_torch.models.flux.model import (
 )
 from mixgrpo_tpu_torch.models.flux.rope import rope_tables
 from mixgrpo_tpu_torch.ops.attention import attention
+from mixgrpo_tpu_torch.utils.profiling import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,6 +241,7 @@ def _unpatchify(x, cfg: HunyuanVideoConfig, shape):
     return x.reshape(B, T, H, W, C)
 
 
+@spanned("dit")
 def hunyuan_video_forward(
     params: Dict[str, Any],
     cfg: HunyuanVideoConfig,

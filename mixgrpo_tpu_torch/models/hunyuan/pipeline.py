@@ -19,6 +19,9 @@ make the mesh (``parallel.make_mesh(MeshConfig(dp=1, sp=-1))``) and call
 ``parallel.ulysses.set_sp_context(mesh)`` first.  Every rank then draws the
 same noise from the same seed, runs the DiT with the joint attention split
 over the ranks, and decodes the same video.
+
+Spans (``utils/profiling.py``): a call is a ``video`` unit holding
+``denoise`` (the Euler loop) and ``decode`` (the VAE).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from mixgrpo_tpu_torch.models.hunyuan.vae3d import (
     CausalVAEConfig, causal_vae_decode, causal_vae_decode_tiled,
 )
 from mixgrpo_tpu_torch.solvers.rollout import SamplerConfig, run_rollout
+from mixgrpo_tpu_torch.utils.profiling import span, spanned
 
 
 class HunyuanVideoPipeline:
@@ -100,10 +104,11 @@ class HunyuanVideoPipeline:
                 t, g, text_mask, dtype=self.dtype, attn_impl=self.attn_impl, remat=False)
             return out.reshape(B, -1)
 
-        out = run_rollout(SamplerConfig(num_steps_max=self.num_steps, eta=0.0), model_fn,
-                          z0.reshape(B, -1).float(), sigmas=self.sigmas,
-                          deterministic=np.ones(self.num_steps, bool),
-                          num_steps=self.num_steps)
+        with span("denoise"):
+            out = run_rollout(SamplerConfig(num_steps_max=self.num_steps, eta=0.0), model_fn,
+                              z0.reshape(B, -1).float(), sigmas=self.sigmas,
+                              deterministic=np.ones(self.num_steps, bool),
+                              num_steps=self.num_steps)
         return out.final_latents.reshape(B, T, H, W, C)
 
     def encode_prompt(self, prompts, data_type: str = "video"):
@@ -131,10 +136,12 @@ class HunyuanVideoPipeline:
         """Final latents -> video in [0, 1]."""
         lat = lat / self.vae_cfg.scaling_factor
         decode = causal_vae_decode_tiled if self.tiles(lat.shape) else causal_vae_decode
-        video = decode(self.vae_params, self.vae_cfg, lat, dtype=self.dtype)
+        with span("decode"):
+            video = decode(self.vae_params, self.vae_cfg, lat, dtype=self.dtype)
         return torch.clamp(video * 0.5 + 0.5, 0.0, 1.0)
 
     @torch.no_grad()
+    @spanned("video")
     def __call__(self, txt, pooled, *, video_length: int, height: int, width: int,
                  text_mask=None, generator: Optional[torch.Generator] = None,
                  z0: Optional[torch.Tensor] = None) -> torch.Tensor:

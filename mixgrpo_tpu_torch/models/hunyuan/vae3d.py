@@ -23,7 +23,8 @@ they run (B, C, T, H, W) for ``F.pad(mode="replicate")`` and ``F.conv3d``
 (cuDNN; XLA computed these convolutions outside any Pallas kernel).  The mid
 block's attention at C = 512 is eager (no kernel covers D = 512).
 ``causal_vae_decode_tiled`` decodes overlapping tiles one at a time
-(``models/video_tiling.py``).
+(``models/video_tiling.py``).  Spans (``utils/profiling.py``): ``tile``
+per decoded tile, ``norm`` around each GroupNorm with its SiLU.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from mixgrpo_tpu_torch.utils import profiling
 from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir, read_tensor
 
 
@@ -182,15 +184,18 @@ def _causal_conv3d(p, x, dtype=None, strides=(1, 1, 1)):
     return y + p["b"].to(dtype)[:, None, None, None]
 
 
-def _group_norm(p, x, groups, eps=1e-6):
-    """Statistics over (C/g, T, H, W) in f32, the affine in f32."""
-    y = F.group_norm(x.float(), groups, p["scale"].float(), p["bias"].float(), eps)
-    return y.to(x.dtype)
+def _group_norm(p, x, groups, eps=1e-6, silu=False):
+    """Statistics over (C/g, T, H, W) in f32, the affine in f32; ``silu``
+    applies SiLU to the result.  A ``norm`` span."""
+    with profiling.span("norm"):
+        y = F.group_norm(x.float(), groups, p["scale"].float(), p["bias"].float(), eps)
+        y = y.to(x.dtype)
+        return F.silu(y) if silu else y
 
 
 def _resnet(p, x, groups, dtype):
-    h = _causal_conv3d(p["conv1"], F.silu(_group_norm(p["norm1"], x, groups)), dtype)
-    h = _causal_conv3d(p["conv2"], F.silu(_group_norm(p["norm2"], h, groups)), dtype)
+    h = _causal_conv3d(p["conv1"], _group_norm(p["norm1"], x, groups, silu=True), dtype)
+    h = _causal_conv3d(p["conv2"], _group_norm(p["norm2"], h, groups, silu=True), dtype)
     skip = _causal_conv3d(p["shortcut"], x, dtype) if "shortcut" in p else x
     return skip + h
 
@@ -246,7 +251,7 @@ def causal_vae_decode(params, cfg: CausalVAEConfig, latents: torch.Tensor,
         if "upsample" in blk:
             up_s, up_t = _block_upsample_factors(cfg, bi)
             x = _causal_conv3d(blk["upsample"], _upsample(x, up_t, up_s), dtype)
-    x = F.silu(_group_norm(params["norm_out"], x, g))
+    x = _group_norm(params["norm_out"], x, g, silu=True)
     return _causal_conv3d(params["conv_out"], x).float().permute(0, 2, 3, 4, 1)
 
 
@@ -257,10 +262,15 @@ def causal_vae_decode_tiled(params, cfg: CausalVAEConfig, latents: torch.Tensor,
     """Memory-bounded decode: overlapping spatio-temporal tiles (32 latent
     pixels, 16 + 1 latent frames, 25% overlap) decoded one at a time and
     ramp-blended (``models/video_tiling.py``).  ``_decode_fn`` replaces the
-    per-tile decoder (a test hook)."""
+    per-tile decoder (a test hook).  Each tile is a ``tile`` span."""
     from mixgrpo_tpu_torch.models.video_tiling import tiled_causal_decode
 
-    decode = _decode_fn or (lambda z: causal_vae_decode(params, cfg, z, dtype))
+    inner = _decode_fn or (lambda z: causal_vae_decode(params, cfg, z, dtype))
+
+    def decode(z):
+        with profiling.span("tile"):
+            return inner(z)
+
     return tiled_causal_decode(decode, latents, rt=cfg.time_compression_ratio,
                                rs=cfg.spatial_compression_ratio, tile_latent=tile_latent,
                                tile_latent_t=tile_latent_t, overlap_factor=overlap_factor)
@@ -282,7 +292,7 @@ def causal_vae_encode(params, cfg: CausalVAEConfig, video: torch.Tensor,
             x = _causal_conv3d(blk["downsample"], x, dtype,
                                strides=_block_downsample_strides(cfg, bi))
     x = _mid(params, x, g, dtype)
-    x = F.silu(_group_norm(params["norm_out"], x, g))
+    x = _group_norm(params["norm_out"], x, g, silu=True)
     moments = _causal_conv3d(params["conv_out"], x).float()
     moments = _causal_conv3d(params["quant_conv"], moments).permute(0, 2, 3, 4, 1)
     mean, logvar = moments.chunk(2, dim=-1)

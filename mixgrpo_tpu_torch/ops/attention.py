@@ -13,7 +13,8 @@ Port of mixgrpo_tpu/ops/attention.py.  Backends:
     of the sequence, and the slices are gathered back.  A ``kv_valid`` prefix
     becomes the equivalent key mask, and bshd goes through a transpose, as
     in JAX.
-Gradients flow through every backend.
+Gradients flow through every backend.  The kernel call (flash or eager)
+runs inside an ``attn`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from mixgrpo_tpu_torch.ops.flash_attention import flash_attention
+from mixgrpo_tpu_torch.utils import profiling
 
 
 def _eager_attention(q, k, v, mask=None, scale=None, layout="bhsd"):
@@ -70,9 +72,11 @@ def attention(q, k, v, mask=None, impl: str = "auto", layout: str = "bhsd",
             raise ValueError(f"attention(impl={impl!r}) needs parallel.set_sp_context")
         return sequence_parallel(q, k, v, ctx[0], ctx[1], impl, mask=mask)
     if impl == "flash":
-        return flash_attention(q, k, v, mask=mask, layout=layout, kv_valid=kv_valid)
+        with profiling.span("attn"):
+            return flash_attention(q, k, v, mask=mask, layout=layout, kv_valid=kv_valid)
     if impl != "eager":
         raise ValueError(f"unknown attention impl {impl!r}")
     if kv_valid is not None:
         mask = (torch.arange(Sk, device=q.device) < int(kv_valid))[None, None, None, :]
-    return _eager_attention(q, k, v, mask=mask, layout=layout)
+    with profiling.span("attn"):
+        return _eager_attention(q, k, v, mask=mask, layout=layout)

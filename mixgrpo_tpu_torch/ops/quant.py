@@ -45,6 +45,8 @@ from typing import Any, Dict
 
 import torch
 
+from mixgrpo_tpu_torch.utils import profiling
+
 # Per-token matmuls that carry nearly all of the forward FLOPs (model.py blocks).
 DOUBLE_QUANT_KEYS = (
     "img_qkv", "txt_qkv", "img_attn_out", "txt_attn_out",
@@ -110,7 +112,10 @@ def qlinear(p: Dict[str, Any], x: torch.Tensor, dtype=None, tp=None) -> torch.Te
     xf = x.float()
     xs = _scale(_tp_max_(xf.abs().amax(dim=-1, keepdim=True), tp))
     xq = torch.round(xf / xs).to(torch.int8)
-    y = tp_reduce(torch._int_mm(xq.reshape(-1, xq.shape[-1]), p["w_q"]), tp)
+    xq = xq.reshape(-1, xq.shape[-1])
+    with profiling.span("gemm"):
+        y = torch._int_mm(xq, p["w_q"])
+    y = tp_reduce(y, tp)
     y = y.reshape(*x.shape[:-1], y.shape[-1]).float() * xs * p["w_s"]
     if "b" in p:
         y = y + p["b"].float()

@@ -10,7 +10,8 @@ index into its key).  On a mesh the tensors are each rank's own rows, so
 ``chunk`` counts images per batch shard, as JAX's ``chunk`` does, and each
 rank's generators are its own (``train.GRPOTrainer._generator``); ``tp``
 (a mesh) runs the blocks on this rank's tensor-parallel slices
-(``flux_forward``'s ``tp``).
+(``flux_forward``'s ``tp``).  Each rollout of ``chunked_rollout`` is a
+``chunk`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from mixgrpo_tpu_torch.models.flux.model import FluxConfig, flux_forward
 from mixgrpo_tpu_torch.models.flux.rope import make_image_ids, make_text_ids, rope_tables
 from mixgrpo_tpu_torch.solvers.rollout import RolloutOutput, SamplerConfig, run_rollout
+from mixgrpo_tpu_torch.utils.profiling import span
 
 
 def quantized_timestep(sigma):
@@ -148,8 +150,9 @@ class FluxSampler:
         if not chunk or chunk <= 0 or B <= chunk or B % chunk:
             fn = None if noise_fn is None else (lambda i, shape: noise_fn(None, i, shape))
             gen = generators[0] if generators else None
-            return self.rollout(params, z0, txt, pooled, sigmas, deterministic, num_steps,
-                                generator=gen, noise_fn=fn, tp=tp)
+            with span("chunk"):
+                return self.rollout(params, z0, txt, pooled, sigmas, deterministic, num_steps,
+                                    generator=gen, noise_fn=fn, tp=tp)
         nc = B // chunk
         if generators is not None and len(generators) != nc:
             raise ValueError(f"{len(generators)} generators for {nc} chunks")
@@ -157,10 +160,11 @@ class FluxSampler:
         for j in range(nc):
             rows = slice(j * chunk, (j + 1) * chunk)
             fn = None if noise_fn is None else (lambda i, shape, j=j: noise_fn(j, i, shape))
-            outs.append(self.rollout(
-                params, z0[rows], txt[rows], pooled[rows], sigmas, deterministic, num_steps,
-                generator=None if generators is None else generators[j], noise_fn=fn,
-                tp=tp))
+            with span("chunk"):
+                outs.append(self.rollout(
+                    params, z0[rows], txt[rows], pooled[rows], sigmas, deterministic, num_steps,
+                    generator=None if generators is None else generators[j], noise_fn=fn,
+                    tp=tp))
         return RolloutOutput(
             final_latents=torch.cat([o.final_latents for o in outs]),
             all_latents=torch.cat([o.all_latents for o in outs]),

@@ -19,6 +19,17 @@ Port of mixgrpo_tpu/train.py's ``GRPOTrainer``.  One iteration
      periodic checkpoints with the window state, resume, and a profiler
      trace of ``profile_steps`` iterations (``utils/profiling.py``).
 
+Spans (``utils/profiling.py``, recorded only while a profiler runs): an
+iteration is an ``iteration`` unit holding ``rollout`` (the LoRA ``merge``
+and one ``chunk`` per rollout call, each of its DiT calls a ``dit``),
+``decode``, ``reward`` and ``update`` (one ``group`` per accumulation group:
+its ``dit`` forward, ``backward`` and ``optim``).  A traced iteration of
+``train`` logs its record as ``span/<path>/{count,timed,host_s,device_s}``.
+``host_time`` is the iteration's host seconds before the rollout and after
+the update, during which the device waits: with the four stage timers
+(``reward_time`` holds the image save, ``update_time`` the advantages) it
+splits the iteration.
+
 MixGRPO-Flash: with a DPM-Solver algorithm and the "post" strategy the
 schedule after the window is compressed (``flash_post_schedule``) and the
 rollout runs that tail with DPM-Solver ODE steps; "all" runs every step as a
@@ -357,11 +368,13 @@ class GRPOTrainer:
 
     # ------------------------------------------------------------------
 
+    @profiling.spanned("iteration")
     def train_one_step(self, batch, timesteps_train=None, *, z0=None,
                        noise_fn: Optional[Callable] = None) -> Dict[str, float]:
         """One GRPO iteration; returns its metrics.  ``z0`` (packed initial
         noise) and ``noise_fn(chunk, step, shape)`` (SDE draws, as
         ``chunked_rollout`` takes them) replace the trainer's own draws."""
+        t_in = time.perf_counter()
         cfg, dev = self.cfg, self.device
         G = cfg.grpo.num_generations if cfg.grpo.use_group else 1
         B = batch["prompt_embed"].shape[0] * G
@@ -385,7 +398,7 @@ class GRPOTrainer:
                                                   for j in range(n_chunks)]
 
         t0 = time.perf_counter()
-        with profiling.annotate("rollout"):
+        with profiling.span("rollout"):
             # the LoRA policy: merged once, freed before the decode and update
             rollout_params = self.params
             if self.sharded:  # gathered over fsdp; the blocks stay tp slices
@@ -406,7 +419,7 @@ class GRPOTrainer:
             del rollout_params
             self._sync()
         t1 = time.perf_counter()
-        with profiling.annotate("decode"):
+        with profiling.span("decode"):
             images01 = self._decode(out.final_latents) if self.vae_params is not None \
                 else out.final_latents
             self._sync()
@@ -415,7 +428,7 @@ class GRPOTrainer:
         if self.vae_params is not None and self.save_images and self.writer:
             self._save_first_image(images01)
 
-        with profiling.annotate("reward"):
+        with profiling.span("reward"):
             rewards_dict, successes_dict = self._compute_rewards(images01, captions)
             self._sync()
         t_r = time.perf_counter()
@@ -468,26 +481,27 @@ class GRPOTrainer:
         n_updates = 0
         sig_dev = torch.as_tensor(sigmas, dtype=torch.float32, device=dev)
         adv_dev = adv.to(dev)
-        with profiling.annotate("update"):
+        with profiling.span("update"):
             for gstart in range(0, B if W > 0 else 0, accum):
-                gidx = order[gstart : gstart + accum]
-                sample_idx = np.repeat(gidx, W)
-                if cfg.grpo.training_strategy == "all":
-                    t_idx = np.concatenate([perms[i][:W] for i in gidx])
-                else:
-                    t_idx = np.tile(np.asarray(train_ts), len(gidx))
-                ub = build_update_batch(out.all_latents, out.all_log_probs, adv_dev, txt,
-                                        pooled, sample_idx, t_idx)
-                if self.use_lora:
-                    self.lora_factors, self.opt_state, m = self.lora_update(
-                        self.lora_factors, self.opt_state, self.lora_meta, self.params, ub,
-                        sig_dev)
-                else:
-                    self.params, self.opt_state, m = self.update_step(
-                        self.params, self.opt_state, ub, sig_dev)
-                n_updates += 1
-                for k, v in m.items():
-                    agg[k] = agg.get(k, 0.0) + float(v)
+                with profiling.span("group"):
+                    gidx = order[gstart : gstart + accum]
+                    sample_idx = np.repeat(gidx, W)
+                    if cfg.grpo.training_strategy == "all":
+                        t_idx = np.concatenate([perms[i][:W] for i in gidx])
+                    else:
+                        t_idx = np.tile(np.asarray(train_ts), len(gidx))
+                    ub = build_update_batch(out.all_latents, out.all_log_probs, adv_dev, txt,
+                                            pooled, sample_idx, t_idx)
+                    if self.use_lora:
+                        self.lora_factors, self.opt_state, m = self.lora_update(
+                            self.lora_factors, self.opt_state, self.lora_meta, self.params, ub,
+                            sig_dev)
+                    else:
+                        self.params, self.opt_state, m = self.update_step(
+                            self.params, self.opt_state, ub, sig_dev)
+                    n_updates += 1
+                    for k, v in m.items():
+                        agg[k] = agg.get(k, 0.0) + float(v)
             self._sync()
         t3 = time.perf_counter()
 
@@ -512,6 +526,7 @@ class GRPOTrainer:
         metrics["update_time"] = t3 - t_r
         metrics["num_steps"] = num_steps
         self._dump_reward_stream(captions, rewards_dict, sd, rewards, metrics)
+        metrics["host_time"] = (t0 - t_in) + (time.perf_counter() - t3)
         return metrics
 
     # ------------------------------------------------------------------
@@ -595,6 +610,8 @@ class GRPOTrainer:
             if self.ema_params is not None:
                 ema_update(self.ema_params, self.params, cfg.optim.ema_decay,
                            step=self.global_step, start_step=cfg.optim.ema_start_step)
+            if prof_until is not None:
+                metrics.update(profiling.unit_metrics(profiling.last_unit()))
             metrics.update(self.metrics.tick())
             self.metrics.log(self.global_step, metrics)
             main_print(f"step {self.global_step}: loss={metrics.get('loss', 0):.5f} "

@@ -38,6 +38,10 @@ The LoRA update takes its frozen base sharded the same way (gathered over
 whole on every rank, each cut to its leaf's ``tp`` slice where it merges
 (``lora.shard_factors``), and averages the factors' gradients over the
 batch ranks.
+
+Spans (``utils/profiling.py``): ``backward`` around ``torch.autograd.grad``
+(the checkpointed blocks' recompute lands under it) and ``optim`` around
+``Optimizer.apply``.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from mixgrpo_tpu_torch.solvers.rollout import SamplerConfig
 from mixgrpo_tpu_torch.solvers.steps import (
     dance_grpo_step, flow_grpo_step, gaussian_log_prob,
 )
+from mixgrpo_tpu_torch.utils.profiling import span
 
 
 class UpdateBatch(NamedTuple):
@@ -156,19 +161,20 @@ class Optimizer:
         """One update with ``grads`` (in the order of the state's params);
         returns their global norm before clipping (``global_norm``'s
         ``mesh`` and ``sharded``)."""
-        group = state.param_groups[0]
-        norm = global_norm(grads, mesh, sharded)
-        if float(norm) >= self.max_grad_norm:  # optax: where(norm < max, g, g / norm * max)
-            grads = [g / norm * self.max_grad_norm for g in grads]
-        for p, g in zip(group["params"], grads):
-            p.grad = g.to(p.dtype)
-        count = group["count"]
-        group["lr"] = float(self.schedule(count))
-        state.step()
-        group["count"] = count + 1
-        for p in group["params"]:
-            p.grad = None
-        return norm
+        with span("optim"):
+            group = state.param_groups[0]
+            norm = global_norm(grads, mesh, sharded)
+            if float(norm) >= self.max_grad_norm:  # optax: where(norm < max, g, g / norm * max)
+                grads = [g / norm * self.max_grad_norm for g in grads]
+            for p, g in zip(group["params"], grads):
+                p.grad = g.to(p.dtype)
+            count = group["count"]
+            group["lr"] = float(self.schedule(count))
+            state.step()
+            group["count"] = count + 1
+            for p in group["params"]:
+                p.grad = None
+            return norm
 
 
 def _polynomial(init, end, power, steps):
@@ -279,7 +285,8 @@ def _make_grads_of(flux_cfg: FluxConfig, sampler_cfg: SamplerConfig, ppo_cfg: PP
     def grads_of(params, leaves, batch, sigmas, block_params=None, tp=None):
         with torch.enable_grad():
             loss, metrics = loss_fn(params, batch, sigmas, block_params, tp)
-            grads = torch.autograd.grad(loss, leaves)
+            with span("backward"):
+                grads = torch.autograd.grad(loss, leaves)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     return grads_of

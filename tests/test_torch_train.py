@@ -26,7 +26,7 @@ the final one, a resume into a new trainer (parameters, optimizer count,
 EMA, window and step restored) and one more iteration; and a rerun from the
 same seeds repeats an iteration's metrics exactly.
 ``test_lora_flash_train_resume_and_profile`` does the same under LoRA and
-Flash, with a profiler trace of the second iteration.
+Flash, with a profiler trace of the second iteration and its spans logged.
 """
 
 import dataclasses
@@ -429,6 +429,10 @@ def test_lora_flash_train_resume_and_profile(tmp_path, weights):
     assert any(not torch.equal(f["b"], b) for f, b in zip(tr.lora_factors.values(), b0))
     lines = [json.loads(x) for x in open(tr.metrics.path)]
     assert all(np.isfinite(x["loss"]) and x["num_steps"] < T_STEPS for x in lines)
+    # the traced iteration's spans are logged beside its metrics
+    assert not any(k.startswith("span/") for k in lines[0])
+    assert lines[1]["span/iteration/rollout/chunk/dit/count"] == 2 * lines[1]["num_steps"]
+    assert lines[1]["span/iteration/update/group/backward/device_s"] > 0
     factors = {p: {k: v.detach().clone() for k, v in f.items()}
                for p, f in tr.lora_factors.items()}
 
