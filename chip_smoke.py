@@ -29,7 +29,11 @@ a non-zero exit code.  Phases:
    dk, dv and dq (fused's dq, summed in an order that changes from run to
    run, within ``close_bf16``); the profiler's device time of each kernel of
    the split pair at 1024px (pre-passes included); then autograd through
-   the kernels;
+   the kernels; then the QK-norm + RoPE kernels (``csrc/qk_rope.cu``,
+   forward and backward) against their plain version at D 32, 64, 128,
+   both layouts, bf16 and f32, and timed (CUDA graphs of 10 launches)
+   beside their byte bound and the plain version at the FLUX 720px and
+   HunyuanVideo blocks;
 4. serve: the first slice's path at full FLUX.1-dev width and depth with
    random bf16 weights (``DualFluxPipeline`` at 1024x1024, 4 steps, behind
    ``RequestBatcher`` and ``InferenceServer``; then one 720px call), the
@@ -173,7 +177,8 @@ A rank that fails or outlives its phase's timeout fails the run (every rank
 is killed, each failed rank's log printed).  Times of ranks sharing one card
 say nothing of separate cards.
 Each path's kernel launches are counted from 0 just before it runs and read
-just after, and must equal the prediction exactly.  Each phase ends with a
+just after, and must equal the prediction exactly (every FLUX or HunyuanVideo
+block also one QK-norm + RoPE forward a DiT call).  Each phase ends with a
 ``phase_time`` record of its wall seconds.  Last come the
 ``kernels`` line, the ``nvidia-smi`` line, and the final status line.
 
@@ -225,6 +230,21 @@ def time_ms(torch, fn, n, warmup=2):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def graph_ms(torch, fn, n=10, replays=5):
+    """Device ms of one ``fn()`` call: ``n`` calls captured in one CUDA
+    graph, replayed, so the wrapper's host time does not hide the kernel's."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return time_ms(torch, graph.replay, replays, warmup=1) / n
 
 
 def sm_clock_mhz():
@@ -575,17 +595,141 @@ def check_autograd(torch, FA, dev, bwd, layout="bhsd"):
         raise AssertionError(f"autograd through the kernels disagrees: {rec}")
 
 
-def check_launches(FA, path, launches, per_call, dit_calls):
+def qk_rope_inputs(torch, dev, kind, B, Lt, Li, npad, H, D, dtype, seed=11):
+    """A FLUX block's projection outputs (the double block's txt and img qkv,
+    or the single block's ``linear1`` view, row stride 7HD), scales near 1 and
+    RoPE tables over [text | image | pad]: zero text ids, identity pad rows."""
+    import numpy as np
+
+    from mixgrpo_tpu_torch.models.flux.rope import rope_tables
+
+    g = torch.Generator(dev).manual_seed(seed)
+    S = Lt + Li
+    ids = np.zeros((S, 3), np.float32)
+    ids[Lt:S - npad, 1:] = np.random.default_rng(seed).integers(0, 64, (Li - npad, 2))
+    third = D // 8 * 2
+    cos, sin = rope_tables(ids, (D - 2 * third, third, third), device=dev)
+    cos[S - npad:], sin[S - npad:] = 1.0, 0.0
+    rand = lambda *s: (2 * torch.randn(s, generator=g, device=dev)).to(dtype)
+    if kind == "double":
+        sources = [rand(B, Lt, 3 * H * D), rand(B, Li, 3 * H * D)]
+    else:
+        sources = [rand(B, S, 7 * H * D)[..., : 3 * H * D]]
+    scale = lambda: (1 + 0.2 * torch.randn(D, generator=g, device=dev)).to(dtype)
+    return sources, [scale() for _ in sources], [scale() for _ in sources], cos, sin
+
+
+def qk_pair_error(got, want):
+    """max |got - want| over eps x the larger |entry| of each rotated pair of
+    ``want``, eps the dtype's: the QK-norm + RoPE forward keeps the plain
+    version's roundings, and only the row's sum of squares runs in another
+    order, which can move a normalised entry to its neighbour; the rotation
+    spreads that over both entries of a pair (at most one eps of each and
+    of the rounded result)."""
+    import torch
+
+    w = want.float().unflatten(-1, (-1, 2))
+    pair = w.abs().amax(dim=-1, keepdim=True).expand_as(w).flatten(-2)
+    ratio = (got.float() - want.float()).abs() / pair.clamp_min(1e-30)
+    return ratio.max().item() / torch.finfo(want.dtype).eps
+
+
+def check_qk_rope(torch, dev, card, kind, B, Lt, Li, npad, *, H=24, D=128, layout="bhsd",
+                  dtype=None, timed=False):
+    """The QK-norm + RoPE kernels against their plain version on the same
+    card tensors: the forward's q and k within 4 eps x the larger |entry| of
+    each rotated pair (only the rsqrt's sum runs in another order), v bit for
+    bit; the backward (every scale trainable) against autograd through the
+    plain version (``close_bf16``; d(scale) relative L2 <= 2e-2).  Timed:
+    each kernel, the plain version (the backward: autograd's backward alone)
+    and the bound, its bytes at the HBM peak (forward: q, k, v read and
+    written once and the f32 tables; backward: dq, dk, dv, x_q and x_k read,
+    d(qkv) written, the tables and the stored rsqrt)."""
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
+    dtype = dtype or torch.bfloat16
+    sources, qs, ks, cos, sin = qk_rope_inputs(torch, dev, kind, B, Lt, Li, npad, H, D, dtype)
+    if layout == "bshd":
+        cos, sin = cos[:, None, :], sin[:, None, :]
+    S = Lt + Li
+    args = (cos, sin, 1e-6, H, layout)
+    with torch.no_grad():
+        got = QR.qk_rope(sources, qs, ks, *args)
+        want = QR.qk_rope_reference(sources, qs, ks, *args)
+    torch.cuda.synchronize()
+    fwd_err = max(qk_pair_error(a, b) for a, b in zip(got[:2], want[:2]))
+    ok = (torch.equal(got[2], want[2]) and fwd_err <= 4
+          and all(bool(torch.isfinite(a).all()) for a in got[:2]))
+    leaves = [t.detach().requires_grad_() for t in (*sources, *qs, *ks)]
+    n = len(sources)
+    gen = torch.Generator(dev).manual_seed(12)
+    douts = [torch.randn(t.shape, generator=gen, device=dev).to(dtype) for t in got]
+    outs = QR.qk_rope(leaves[:n], leaves[n:2 * n], leaves[2 * n:], *args)
+    dgot = torch.autograd.grad(outs, leaves, douts)
+    plain_outs = QR.qk_rope_reference(leaves[:n], leaves[n:2 * n], leaves[2 * n:], *args)
+    dwant = torch.autograd.grad(plain_outs, leaves, douts, retain_graph=timed)
+    checks = [close_bf16(a, b) for a, b in zip(dgot[:n], dwant[:n])]
+    scale_rel = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for a, b in zip(dgot[n:], dwant[n:]))
+    ok = ok and all(c[0] for c in checks) and scale_rel <= 2e-2
+    rec = {"phase": "qk_rope_check", "kind": kind, "B": B, "H": H, "S": S, "L_txt": Lt,
+           "pad_rows": npad, "D": D, "layout": layout, "dtype": str(dtype).split(".")[-1],
+           "fwd_max_err_eps_of_pair": fwd_err, "bwd_rel_l2": [c[2] for c in checks],
+           "bwd_max_abs_err": [c[1] for c in checks], "dscale_rel_l2": scale_rel, "ok": ok}
+    if timed:
+        item, rows = torch.finfo(dtype).bits // 8, B * S * H * D
+        tables = 2 * S * D * 4
+        with torch.no_grad():
+            rec["fwd_ms"] = graph_ms(torch, lambda: QR.qk_rope(sources, qs, ks, *args))
+            rec["fwd_plain_ms"] = time_ms(torch, lambda: QR.qk_rope_reference(
+                sources, qs, ks, *args), 5)
+            _, _, _, rq, rk = QR.qk_rope_fwd(sources, qs, ks, cos, sin, 1e-6, H, layout,
+                                             with_rstd=True)
+            rec["bwd_ms"] = graph_ms(torch, lambda: QR.qk_rope_bwd(
+                sources, qs, ks, cos, sin, rq, rk, *douts, H, layout))
+            rec["bwd_scale_ms"] = graph_ms(torch, lambda: QR.qk_rope_bwd(
+                sources, qs, ks, cos, sin, rq, rk, *douts, H, layout, want_scale=True))
+        rec["bwd_plain_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            plain_outs, leaves, douts, retain_graph=True), 5)
+        rec["fwd_bound_ms"] = (6 * rows * item + tables) / PEAK_HBM_BYTES * 1e3
+        rec["bwd_bound_ms"] = (8 * rows * item + tables + 2 * B * H * S * 4) \
+            / PEAK_HBM_BYTES * 1e3
+        rec["bound_by"] = "bytes"
+        rec["sm_clock_mhz"] = sm_clock_mhz()
+        rec["device"] = card
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"QK-norm + RoPE kernels disagree with their plain version: {rec}")
+    return rec
+
+
+def reset_launches(FA):
+    """Count every hand-written kernel's launches from 0: the flash kernels'
+    and the QK-norm + RoPE kernels'."""
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
+    FA.reset_launches()
+    QR.reset_launches()
+
+
+def check_launches(FA, path, launches, per_call, dit_calls, flux_blocks=True):
     """One path's kernel launches, counted from 0 just before it ran, must be
     one forward without lse per DiT block per DiT call, and nothing else: the
-    sampling paths take no gradient."""
+    sampling paths take no gradient.  Where the blocks are the FLUX blocks
+    (FLUX and HunyuanVideo; not Mochi), each one also takes its q, k and v
+    from one QK-norm + RoPE forward launch."""
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
     others = {n: f.launches for n, f in FA.KERNEL_WRAPPERS.items() if n != "flash_attn_fwd"}
+    qk = {n: f.launches for n, f in QR.KERNEL_WRAPPERS.items()}
+    qk_want = {"qk_rope_fwd": per_call * dit_calls if flux_blocks else 0, "qk_rope_bwd": 0}
     emit({"phase": "launch_count", "path": path, "kernel": FA.KERNEL,
           "launches": launches, "dit_calls": dit_calls, "expected": per_call * dit_calls,
-          "other_kernels": others})
-    if launches != per_call * dit_calls or any(others.values()):
+          "other_kernels": others, "qk_rope": qk, "qk_rope_expected": qk_want})
+    if launches != per_call * dit_calls or any(others.values()) or qk != qk_want:
         raise AssertionError(f"{path}: {launches} launches != {per_call} x {dit_calls} "
-                             f"DiT calls, or other kernels launched: {others}")
+                             f"DiT calls, or other kernels launched: {others}, or QK-norm + "
+                             f"RoPE launches {qk} != {qk_want}")
 
 
 def encode_fn_for(cfg, text_len):
@@ -815,6 +959,29 @@ def kernel_phase(torch, FA, F, dev, card, rows):
     for bwd in ("fused", "split"):
         for layout in ("bhsd", "bshd"):
             check_autograd(torch, FA, dev, bwd, layout)
+    # QK-norm + RoPE: small shapes at every head dim, both layouts and dtypes,
+    # then the main paths' blocks, timed: FLUX at 720px (B = 2, 512 text +
+    # 2025 image tokens padded to 2560) and HunyuanVideo at 192x336, 129
+    # frames (B = 1, 256 text + 8316 video tokens padded to 8576)
+    for D, layout, dtype in ((32, "bshd", torch.bfloat16), (64, "bhsd", torch.bfloat16),
+                             (64, "bhsd", torch.float32), (32, "bshd", torch.float32)):
+        for kind in ("double", "single"):
+            check_qk_rope(torch, dev, card, kind, 2, 7, 130, 3, H=3, D=D, layout=layout,
+                          dtype=dtype)
+    qk = [check_qk_rope(torch, dev, card, kind, B, Lt, Li, npad, layout=layout, timed=True)
+          for kind in ("double", "single")
+          for B, Lt, Li, npad, layout in ((2, 512, 2048, 23, "bhsd"), (1, 256, 8320, 4, "bhsd"),
+                                          (2, 512, 2048, 23, "bshd"))]
+    for name, key in (("qk_rope_fwd", "fwd"), ("qk_rope_bwd", "bwd")):
+        main = qk[0]  # the FLUX double block at 720px
+        rows[name] = {"ms": main[f"{key}_ms"], "plain_ms": main[f"{key}_plain_ms"],
+                      "bound_ms": main[f"{key}_bound_ms"], "bound_by": "bytes",
+                      "library_ms": None,
+                      "max_abs_err": max(max(r["bwd_max_abs_err"]) for r in qk)
+                      if key == "bwd" else max(r["fwd_max_err_eps_of_pair"] for r in qk),
+                      "shapes": [{k: r[k] for k in ("kind", "B", "S", "layout", f"{key}_ms",
+                                                    f"{key}_plain_ms", f"{key}_bound_ms")}
+                                 for r in qk]}
 
 
 def serve_phase(torch, FA, F, M, dev, card, rows):
@@ -908,7 +1075,7 @@ def serve_phase(torch, FA, F, M, dev, card, rows):
     emit({"phase": "warmup", "batch": 2, "seconds": time.perf_counter() - t0,
           "shape": list(warm.shape), "device": card})
 
-    FA.reset_launches()
+    reset_launches(FA)
     torch.cuda.reset_peak_memory_stats()
     batcher = RequestBatcher(generate, batch_size=2, max_wait_ms=500.0,
                              generate_fn_single=generate)
@@ -959,7 +1126,7 @@ def serve_phase(torch, FA, F, M, dev, card, rows):
     pipe720 = DualFluxPipeline(cfg, base, tuned, height=720, width=720, num_steps=2,
                                mix_sampling_steps=1, dtype=torch.bfloat16, device=dev)
     txt, pooled = encode(["a mountain lake"])
-    FA.reset_launches()
+    reset_launches(FA)
     t0 = time.perf_counter()
     lat720 = pipe720(torch.as_tensor(txt, device=dev).bfloat16(),
                      torch.as_tensor(pooled, device=dev).bfloat16(),
@@ -1064,7 +1231,7 @@ def continuous_serve(torch, FA, dev, card, cfg, base, tuned, vae, vcfg, encode, 
 
     srv = InferenceServer(cb, host="127.0.0.1", port=0).start()
     try:
-        FA.reset_launches()
+        reset_launches(FA)
         results, starts, wall = staggered_posts(
             srv.port, burst, (after(0.0), after(0.05), after_round(1), after_round(2)))
         torch.cuda.synchronize()
@@ -1072,7 +1239,7 @@ def continuous_serve(torch, FA, dev, card, cfg, base, tuned, vae, vcfg, encode, 
         check_launches(FA, "continuous_burst", burst_launches, per_call,
                        chunk * burst_stats["batches"]
                        + SERVE_STEPS * burst_stats["single_dispatches"])
-        FA.reset_launches()
+        reset_launches(FA)
         lone = post(srv.port, {"prompt": "a lighthouse at dusk", "seed": 7})
         torch.cuda.synchronize()
         stats = dict(cb.stats)
@@ -1217,7 +1384,7 @@ def int8_serve(torch, FA, M, dev, card, cfg, base, tuned, vae, vcfg, encode, ref
     torch.cuda.synchronize()
     pipe_quant_s = time.perf_counter() - t0
     gen = make_generate_fn(pipe, encode)
-    FA.reset_launches()
+    reset_launches(FA)
     t0 = time.perf_counter()
     image = gen(["a lighthouse at dusk"], [7])
     torch.cuda.synchronize()
@@ -1612,7 +1779,7 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
                 for dt in (torch.float32, bf16)}
         ids = encs[bf16].t5_tok(list(CKPT_PROMPTS), padding="max_length", truncation=True,
                                 max_length=512, return_tensors="np")["input_ids"]
-        FA.reset_launches()
+        reset_launches(FA)
         out = {dt: e(list(CKPT_PROMPTS)) for dt, e in encs.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1647,7 +1814,7 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
         with open(prompts, "w") as f:
             f.write("\n".join(CKPT_PROMPTS) + "\n")
         outdir = os.path.join(tmp, "samples")
-        FA.reset_launches()
+        reset_launches(FA)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         Sa.main(["--model_path", d, "--new_model_ckpt", tuned_path, "--prompt_path", prompts,
@@ -1674,7 +1841,7 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
 
         # -- 3b. sample.main --quant int8 ----------------------------------------------
         outq = os.path.join(tmp, "samples_int8")
-        FA.reset_launches()
+        reset_launches(FA)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         Sa.main(["--model_path", d, "--new_model_ckpt", tuned_path, "--prompt_path", prompts,
@@ -1710,7 +1877,7 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
         srv = Se.build_server(args, family=fam)
         build_s = time.perf_counter() - t0
         results = {}
-        FA.reset_launches()
+        reset_launches(FA)
         torch.cuda.reset_peak_memory_stats()
         srv.start()
         try:
@@ -1755,7 +1922,7 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
         t0 = time.perf_counter()
         srv = Se.build_server(args, family=fam)
         build_q_s = time.perf_counter() - t0
-        FA.reset_launches()
+        reset_launches(FA)
         srv.start()
         try:
             res_q = post(srv.port, {"prompt": CKPT_PROMPTS[2], "seed": 7})
@@ -1785,7 +1952,7 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
         t0 = time.perf_counter()
         srv = Se.build_server(args, family=fam)
         build_c_s = time.perf_counter() - t0
-        FA.reset_launches()
+        reset_launches(FA)
         srv.start()
         try:
             res_c, _, wall_c = staggered_posts(
@@ -1810,7 +1977,7 @@ def checkpoints_phase(torch, FA, M, dev, card, root, fam=None, res=1024, keep=Fa
         # -- 5. vae_encode of two decoded images -------------------------------------
         enc_p = load_vae_encoder_params(vdir, fam["vae"], dtype=bf16, device=dev)
         imgs = torch.from_numpy(np.stack(pngs[:2]).astype(np.float32) / 127.5 - 1.0).to(dev)
-        FA.reset_launches()
+        reset_launches(FA)
         t0 = time.perf_counter()
         lat = vae_encode(enc_p, fam["vae"], imgs, dtype=bf16, sample=False)
         torch.cuda.synchronize()
@@ -2233,7 +2400,7 @@ def rewards_phase(torch, FA, dev, card, root, geo=None, res=720):
             torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
         weights_gb = torch.cuda.memory_allocated() / 1e9
-        FA.reset_launches()
+        reset_launches(FA)
         model(images, prompts)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2386,7 +2553,7 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
         T.masked_mix_advantages
 
     def counted_step(self, *a, **k):
-        FA.reset_launches()
+        reset_launches(FA)
         torch.cuda.synchronize()
         t = time.perf_counter()
         m = step(self, *a, **k)
@@ -2485,7 +2652,7 @@ def train_main_phase(torch, FA, M, dev, card, root, paths, fam=None, res=720):
 
     # -- tsne_probe.main on the same directory ------------------------------------------
     probe = os.path.join(tmp, "probe")
-    FA.reset_launches()
+    reset_launches(FA)
     t0 = time.perf_counter()
     TP.main(["--model_path", d, "--data_json_path", cache, "--output_dir", probe,
              "--num_prompts", "1", "--num_generations", "2", "--SDE_sampling_start_step", "0",
@@ -2628,7 +2795,7 @@ def train_phase(torch, FA, M, dev, card, root):
             timesteps = trainer.window.get_current_timesteps()
             trainer.window.update_iteration(rng=g.seed + trainer.global_step)
             batch = next(loader)
-            FA.reset_launches()
+            reset_launches(FA)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             m = trainer.train_one_step(batch, timesteps)
@@ -2668,7 +2835,7 @@ def train_phase(torch, FA, M, dev, card, root):
         timesteps = trainer.window.get_current_timesteps()
         trainer.window.update_iteration(rng=g.seed + trainer.global_step)
         batch = next(loader)
-        FA.reset_launches()
+        reset_launches(FA)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         m = trainer.train_one_step(batch, timesteps)
@@ -2730,7 +2897,7 @@ def update_full_depth_phase(torch, FA, M, dev, card):
             advantages=torch.randn((N,), generator=g, device=dev),
             txt=torch.randn((N, 512, cfg.context_dim), generator=g, device=dev).bfloat16(),
             pooled=torch.randn((N, cfg.pooled_dim), generator=g, device=dev).bfloat16())
-        FA.reset_launches()
+        reset_launches(FA)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2887,6 +3054,7 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
         EmbeddingCacheWriter, LatentDataset, PromptLoader,
     )
     from mixgrpo_tpu_torch.models.flux.vae import VAEConfig, init_vae_decoder
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
     from mixgrpo_tpu_torch.train import GRPOTrainer
 
     flux_cfg = dataclasses.replace(M.FluxConfig.flux_dev(), depth_double=FLASH_LORA_DEPTH[0],
@@ -2938,7 +3106,7 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
 
         def counted(batch, timesteps):
             _, _, n = trainer._schedule_for_window(timesteps)
-            FA.reset_launches()
+            reset_launches(FA)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2946,6 +3114,7 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             used = {k: f.launches for k, f in FA.KERNEL_WRAPPERS.items()}
+            used.update({k: f.launches for k, f in QR.KERNEL_WRAPPERS.items()})
             for k, c in used.items():
                 launches[k] = launches.get(k, 0) + c
             n_groups = -(-g.num_generations // cfg.optim.gradient_accumulation_steps)
@@ -2957,6 +3126,10 @@ def train_flash_lora_phase(torch, FA, M, dev, card, root):
                     "flash_attn_bwd_fused": n_groups * blocks if bwd == "fused" else 0,
                     "flash_attn_bwd_dkv": n_groups * blocks if bwd == "split" else 0,
                     "flash_attn_bwd_dq": n_groups * blocks if bwd == "split" else 0}
+            # one QK-norm + RoPE forward a block wherever attention runs (the
+            # update's forward and its recompute included), one backward a block
+            want["qk_rope_fwd"] = want["flash_attn_fwd"] + want["flash_attn_fwd_lse"]
+            want["qk_rope_bwd"] = n_groups * blocks
             rec = {"phase": "train_flash_lora_iteration", "iteration": len(iters),
                    "window": list(timesteps), "num_steps": m["num_steps"],
                    "predicted_num_steps": n, "seconds": wall, "rollout_s": m["rollout_time"],
@@ -3181,7 +3354,7 @@ def rank_attention(torch, FA, C, dev, rank, world, d, rec, extra):
 
             run()  # warm-up: allocations and first calls
             torch.cuda.synchronize()
-            FA.reset_launches()
+            reset_launches(FA)
             C.reset_transport()
             t0 = time.perf_counter()
             got = run()
@@ -3369,7 +3542,7 @@ def rank_train(torch, FA, C, dev, rank, world, d, rec, extra):
         np.save(os.path.join(d, f"before_{case}.npy"),
                 sampled_leaves(param_leaves(trainer.params)))
     timesteps = [int(t) for t in trainer.window.get_current_timesteps()]
-    FA.reset_launches()
+    reset_launches(FA)
     C.reset_transport()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3495,7 +3668,7 @@ def rank_sample(torch, FA, C, dev, rank, world, d, rec, extra):
     from mixgrpo_tpu_torch.models.flux import model as M
 
     model, tuned, prompts, out = extra
-    FA.reset_launches()
+    reset_launches(FA)
     t0 = time.perf_counter()
     Sa.main(["--model_path", model, "--new_model_ckpt", tuned, "--prompt_path", prompts,
              "--output_dir", out, "--h", "1024", "--w", "1024", "--sampling_steps",
@@ -4231,7 +4404,7 @@ def hunyuan_video_phase(torch, FA, dev, card, root, rows, geo=None):
         pipe.text_encoder.max_length = L_txt = geo["text_len"]
         h, w, frames = geo["size"]
         lat_shape = (1, (frames - 1) // 4 + 1, h // 8, w // 8, cfg.in_channels)
-        FA.reset_launches()
+        reset_launches(FA)
         t0 = time.perf_counter()
         out = HunyuanVideoSampler(pipe).predict(list(HV_PROMPTS), height=h, width=w,
                                                 video_length=frames, seed=list(HV_SEEDS))
@@ -4281,7 +4454,7 @@ def hunyuan_video_phase(torch, FA, dev, card, root, rows, geo=None):
         torch.cuda.empty_cache()
 
         # -- 2. the model path through the kernel against eager attention --------
-        FA.reset_launches()
+        reset_launches(FA)
         with torch.no_grad():
             v_flash = fwd("flash")
             torch.cuda.synchronize()
@@ -4302,7 +4475,7 @@ def hunyuan_video_phase(torch, FA, dev, card, root, rows, geo=None):
         z5 = torch.randn((1, (f5 - 1) // 4 + 1, h5 // 8, w5 // 8, cfg.in_channels),
                          generator=g, device=dev).bfloat16()
         torch.cuda.reset_peak_memory_stats()
-        FA.reset_launches()
+        reset_launches(FA)
         call_ms = []
         for _ in range(2):  # the first call at this shape is cold: new blocks, GEMM set-up
             torch.cuda.synchronize()
@@ -4420,7 +4593,7 @@ def hunyuan_files_phase(torch, FA, dev, card, tmp, tok_dir, merges, geo):
 
     h, w, frames = geo["size"]
     enc.max_length = geo["text_len"]
-    FA.reset_launches()
+    reset_launches(FA)
     t0 = time.perf_counter()
     out = HunyuanVideoSampler(pipe).predict(HV_PROMPTS[0], height=h, width=w,
                                             video_length=frames, seed=7)
@@ -4575,7 +4748,7 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
         tiles.append(1)
         return decode(*a, **k)
 
-    FA.reset_launches()
+    reset_launches(FA)
     t0 = time.perf_counter()
     MV.mochi_vae_decode = count_tiles
     try:
@@ -4588,7 +4761,8 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
     n, calls = len(videos), len(videos) * MOCHI_STEPS * 2
     launches["flash_attn_fwd"] = FA.flash_attn_fwd.launches
     peak = torch.cuda.max_memory_allocated()
-    check_launches(FA, "mochi_video_pipeline", launches["flash_attn_fwd"], per_call, calls)
+    check_launches(FA, "mochi_video_pipeline", launches["flash_attn_fwd"], per_call, calls,
+                   flux_blocks=False)
     check_videos(videos, (1 + (lat_shape[1] - 1) * 6, h, w, 3))
     S_vis = lat_shape[1] * (h // 16) * (w // 16)
     emit({"phase": "mochi_video_pipeline", "height": h, "width": w, "frames": frames,
@@ -4647,13 +4821,14 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
     variants = {"plain": (plain, bf16), "eager_rounded_q": (eager_qs, bf16),
                 "eager": (eager, bf16), "f32": (eager, torch.float32),
                 "planted_fault": (planted, bf16)}
-    FA.reset_launches()
+    reset_launches(FA)
     with torch.no_grad():
         try:
             MM.attention = checked
             outs = {"kernel": fwd()}
             torch.cuda.synchronize()
-            check_launches(FA, "mochi_flash_vs_eager", FA.flash_attn_fwd.launches, per_call, 1)
+            check_launches(FA, "mochi_flash_vs_eager", FA.flash_attn_fwd.launches, per_call, 1,
+                           flux_blocks=False)
             for name, (attend, dt) in variants.items():
                 MM.attention = attend
                 outs[name] = fwd(dtype=dt)
@@ -4694,7 +4869,7 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
     # and kernel outputs, held afterwards against the plain version
     zl = mochi_inputs(torch, dev, geo, 52, frames=geo["size_long"][2])[0]
     torch.cuda.reset_peak_memory_stats()
-    FA.reset_launches()
+    reset_launches(FA)
     call_ms, kept, seen = [], [], []
 
     def keep(q, k, v, **kw):
@@ -4715,7 +4890,8 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
             MM.attention = attention
         torch.cuda.synchronize()
         call_ms.append((time.perf_counter() - t0) * 1e3)
-    check_launches(FA, "mochi_163_forward", FA.flash_attn_fwd.launches, per_call, 2)
+    check_launches(FA, "mochi_163_forward", FA.flash_attn_fwd.launches, per_call, 2,
+                   flux_blocks=False)
     peak, finite = torch.cuda.max_memory_allocated(), bool(torch.isfinite(vl).all())
     del vl
     plain_long, blocks = by_heads(torch, FA.flash_attention_reference, geo["long_heads"]), []
@@ -4758,7 +4934,7 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
         return out.detach(), zz.grad, cut["final_block"]["qkv"]["w"].grad
 
     torch.cuda.reset_peak_memory_stats()
-    FA.reset_launches()
+    reset_launches(FA)
     got = grads(None)
     torch.cuda.synchronize()
     grad_launches = {k: f.launches for k, f in FA.KERNEL_WRAPPERS.items()}
@@ -4965,7 +5141,7 @@ def hunyuan_gradient(torch, FA, dev, card):
         return out.detach(), zz.grad, leaf.grad[0]
 
     torch.cuda.reset_peak_memory_stats()
-    FA.reset_launches()
+    reset_launches(FA)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = grads("auto")
@@ -5033,7 +5209,7 @@ def rank_video_sp(torch, FA, C, dev, rank, world, d, rec, extra):
                 with torch.no_grad():
                     call()  # warm-up: allocations and first calls
                     torch.cuda.synchronize()
-                    FA.reset_launches()
+                    reset_launches(FA)
                     C.reset_transport()
                     local_heads.clear()
                     torch.cuda.reset_peak_memory_stats()
@@ -5219,7 +5395,7 @@ def lora_run(torch, FA, C, dev, rank, d, tag, mesh_cfg, per_rank, resume):
     if trainer.mesh.world == 1:
         np.save(os.path.join(d, "before_lora.npy"), sampled_leaves(factors))
     timesteps = [int(t) for t in trainer.window.get_current_timesteps()]
-    FA.reset_launches()
+    reset_launches(FA)
     C.reset_transport()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -5416,6 +5592,7 @@ def main() -> int:
     from mixgrpo_tpu_torch.models.flux import model as M
     from mixgrpo_tpu_torch.ops import build
     from mixgrpo_tpu_torch.ops import flash_attention as FA
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5431,7 +5608,7 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together ------------------------
     t0 = time.perf_counter()
-    names = (FA.KERNEL, FA.BWD_KERNEL)
+    names = (FA.KERNEL, FA.BWD_KERNEL, QR.KERNEL)
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(build.load, names))
     for name in names:
@@ -5518,7 +5695,10 @@ def run_later_phases(torch, FA, M, dev, card, root, only, rows, ckpt, paths):
             rows.setdefault(n, {})["launches"] = full[1024]["launches"][n]
         torch.cuda.empty_cache()
     if "train_flash_lora" in only:
-        timed_phase("train_flash_lora", train_flash_lora_phase, torch, FA, M, dev, card, root)
+        lora = timed_phase("train_flash_lora", train_flash_lora_phase, torch, FA, M, dev, card,
+                           root)
+        for n in ("qk_rope_fwd", "qk_rope_bwd"):
+            rows.setdefault(n, {})["launches"] = lora[n]
         torch.cuda.empty_cache()
     if "hunyuan_video" in only:
         timed_phase("hunyuan_video", hunyuan_video_phase, torch, FA, dev, card, root, rows)
@@ -5555,6 +5735,8 @@ def final_lines(torch, FA, rows, card, kind):
                 "flash_attn_bwd_fused": "mixgrpo_tpu/ops/flash_attention.py:186",
                 "flash_attn_bwd_dkv": "mixgrpo_tpu/ops/flash_attention.py:123",
                 "flash_attn_bwd_dq": "mixgrpo_tpu/ops/flash_attention.py:257"}
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name in FA.KERNEL_WRAPPERS:
@@ -5567,6 +5749,14 @@ def final_lines(torch, FA, rows, card, kind):
                         "replaces": replaces[name], **{k: row[k] for k in keys},
                         "mochi_launches": row.get("mochi_launches"),
                         "hunyuan_gradient_launches": row.get("hunyuan_gradient_launches")})
+    for name in QR.KERNEL_WRAPPERS:  # per train_flash_lora iteration pair
+        row = rows[name]
+        if not row.get("launches"):
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "mixgrpo_tpu_torch/csrc/qk_rope.cu",
+                        "replaces": "none: XLA fused the QK-norm, RoPE and joint concatenation",
+                        **{k: row[k] for k in keys}, "shapes": row["shapes"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -36,7 +36,8 @@ Spans (``utils/profiling.py``, recorded only while a profiler runs): each
 forward is a ``dit`` span; inside the blocks the disjoint stages ``gemm``
 (``layers.linear``), ``attn`` (``ops/attention.py``), ``norm_mod`` (the
 LayerNorm and its modulation), ``qk_rope`` (QK-norm, RoPE and the joint
-concatenation), ``gate_res`` (gate and residual) and ``act`` (GELU), recorded
+concatenation: ``ops/qk_rope.py``, one kernel launch a block on the card),
+``gate_res`` (gate and residual) and ``act`` (GELU), recorded
 in one call of every ``profiling.SAMPLE_EVERY``.  What a ``dit`` span holds
 outside ``gemm`` and ``attn`` is the call's pointwise time.
 
@@ -56,8 +57,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from mixgrpo_tpu_torch.models.flux import layers as L
-from mixgrpo_tpu_torch.models.flux.rope import apply_rope
 from mixgrpo_tpu_torch.ops.attention import attention
+from mixgrpo_tpu_torch.ops.qk_rope import qk_rope
 from mixgrpo_tpu_torch.parallel.collectives import tp_enter, tp_split
 from mixgrpo_tpu_torch.utils.profiling import span, spanned
 
@@ -195,22 +196,12 @@ def param_leaves(params):
 # ----------------------------------------------------------------------------
 
 
-def _split_heads(x, num_heads, layout):
-    b, s, _ = x.shape
-    x = x.reshape(b, s, num_heads, -1)
-    return x if layout == "bshd" else x.transpose(1, 2)
-
-
 def _merge_heads(x, layout):
     if layout == "bshd":
         b, s, h, d = x.shape
         return x.reshape(b, s, h * d)
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)
-
-
-def _qk_norm(q, k, qscale, kscale, eps):
-    return L.rms_norm(q, qscale, eps), L.rms_norm(k, kscale, eps)
 
 
 def _out_width(p) -> int:
@@ -246,19 +237,13 @@ def _double_block(p, cfg: FluxConfig, img, txt, vec, rope_cos, rope_sin,
         img_mod = L.modulate(L.layer_norm(img, eps), i_shift1, i_scale1)
         txt_mod = L.modulate(L.layer_norm(txt, eps), t_shift1, t_scale1)
 
-    iq, ik, iv = L.linear(p["img_qkv"], enter(img_mod), dtype).chunk(3, dim=-1)
-    tq, tk, tv = L.linear(p["txt_qkv"], enter(txt_mod), dtype).chunk(3, dim=-1)
-    iq, ik, iv = (_split_heads(x, H, layout) for x in (iq, ik, iv))
-    tq, tk, tv = (_split_heads(x, H, layout) for x in (tq, tk, tv))
+    iqkv = L.linear(p["img_qkv"], enter(img_mod), dtype)
+    tqkv = L.linear(p["txt_qkv"], enter(txt_mod), dtype)
     with span("qk_rope"):
-        iq, ik = _qk_norm(iq, ik, enter(p["img_qnorm"]), enter(p["img_knorm"]), eps)
-        tq, tk = _qk_norm(tq, tk, enter(p["txt_qnorm"]), enter(p["txt_knorm"]), eps)
-
         # joint sequence: [text | image] (diffusers FLUX ordering)
-        seq = 1 if layout == "bshd" else 2
-        q = apply_rope(torch.cat([tq, iq], dim=seq), rope_cos, rope_sin)
-        k = apply_rope(torch.cat([tk, ik], dim=seq), rope_cos, rope_sin)
-        v = torch.cat([tv, iv], dim=seq)
+        q, k, v = qk_rope([tqkv, iqkv], [enter(p["txt_qnorm"]), enter(p["img_qnorm"])],
+                          [enter(p["txt_knorm"]), enter(p["img_knorm"])], rope_cos, rope_sin,
+                          eps, H, layout)
 
     out = attention(q, k, v, mask=attn_mask, kv_valid=attn_valid,
                     impl=attn_impl, layout=layout)
@@ -308,11 +293,9 @@ def _single_block(p, cfg: FluxConfig, x, vec, rope_cos, rope_sin, attn_impl,
 
     proj = L.linear(p["linear1"], tp_enter(x_mod, tp), dtype)
     qkv, mlp = proj[..., : 3 * h], proj[..., 3 * h :]
-    q, k, v = (_split_heads(t, H, layout) for t in qkv.chunk(3, dim=-1))
     with span("qk_rope"):
-        q, k = _qk_norm(q, k, tp_enter(p["qnorm"], tp), tp_enter(p["knorm"], tp), eps)
-        q = apply_rope(q, rope_cos, rope_sin)
-        k = apply_rope(k, rope_cos, rope_sin)
+        q, k, v = qk_rope([qkv], [tp_enter(p["qnorm"], tp)], [tp_enter(p["knorm"], tp)],
+                          rope_cos, rope_sin, eps, H, layout)
 
     attn_out = attention(q, k, v, mask=attn_mask, kv_valid=attn_valid,
                          impl=attn_impl, layout=layout)

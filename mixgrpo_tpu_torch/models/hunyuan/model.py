@@ -51,10 +51,11 @@ import torch.nn.functional as F
 from mixgrpo_tpu_torch.models.flux import layers as L
 from mixgrpo_tpu_torch.models.flux.model import (
     FluxConfig, _attn_layout, _double_block, _double_blocks_init, _merge_heads,
-    _pad_joint, _single_block, _single_blocks_init, _split_heads, _unstack,
+    _pad_joint, _single_block, _single_blocks_init, _unstack,
 )
 from mixgrpo_tpu_torch.models.flux.rope import rope_tables
 from mixgrpo_tpu_torch.ops.attention import attention
+from mixgrpo_tpu_torch.ops.qk_rope import split_heads
 from mixgrpo_tpu_torch.utils.profiling import spanned
 
 
@@ -158,7 +159,7 @@ def _ln_affine(p, x, eps):
 def _refiner_block(p, cfg, x, c, mask, dtype, layout):
     gate_msa, gate_mlp = L.modulation(p["mod"], c, 2, dtype)
     h = _ln_affine(p["norm1"], x, cfg.eps)
-    q, k, v = (_split_heads(t, cfg.num_heads, layout)
+    q, k, v = (split_heads(t, cfg.num_heads, layout)
                for t in L.linear(p["qkv"], h, dtype).chunk(3, dim=-1))
     attn_mask = None
     if mask is not None:

@@ -42,8 +42,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from mixgrpo_tpu_torch.models.flux import layers as L
-from mixgrpo_tpu_torch.models.flux.model import _merge_heads, _split_heads, _unstack
+from mixgrpo_tpu_torch.models.flux.model import _merge_heads, _unstack
 from mixgrpo_tpu_torch.ops.attention import attention
+from mixgrpo_tpu_torch.ops.qk_rope import split_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,7 +215,7 @@ def _mochi_block(p, cfg: MochiConfig, x, c, temb, rope_cos, rope_sin, context_pr
         sc_msa, gc_msa, sc_mlp, gc_mlp = L.modulation(p["mod_c"], temb, 4, dtype)
         cn = _rms(c, eps) * (1.0 + sc_msa[:, None, :])
 
-    split = lambda t: _split_heads(t, H, "bhsd")
+    split = lambda t: split_heads(t, H, "bhsd")
     q, k, v = (split(t) for t in L.linear(p["qkv"], xn, dtype).chunk(3, dim=-1))
     q = _apply_mochi_rope(L.rms_norm(q, p["qnorm"], eps), rope_cos, rope_sin)
     k = _apply_mochi_rope(L.rms_norm(k, p["knorm"], eps), rope_cos, rope_sin)

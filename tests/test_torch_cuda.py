@@ -803,3 +803,168 @@ def test_tiny_mochi_pipeline_on_card(dev):
         grads[impl] = z.grad
     rel = (grads["flash"] - grads["eager"]).norm() / grads["eager"].norm()
     assert torch.isfinite(grads["flash"]).all() and rel < 2e-2, rel.item()
+
+
+# ----------------------------------------------------------------------------
+# QK-norm + RoPE + joint layout (ops/qk_rope.py, csrc/qk_rope.cu)
+# ----------------------------------------------------------------------------
+
+
+def _qk_rope_inputs(dev, kind, B, Lt, Li, npad, H, D, dtype):
+    """A block's projection outputs, scales and RoPE tables, as the smoke
+    run's QK-norm + RoPE checks make them (``chip_smoke.qk_rope_inputs``)."""
+    import chip_smoke
+
+    return chip_smoke.qk_rope_inputs(torch, dev, kind, B, Lt, Li, npad, H, D, dtype)
+
+
+def assert_within_pair_ulps(got, want):
+    """The forward keeps the plain version's roundings; only the row's sum of
+    squares runs in another order, which can move the f32 rsqrt by an ulp and
+    a normalised value to its dtype's neighbour.  The rotation spreads that
+    over both entries of a pair, so each entry is held within 4 eps x the
+    larger |entry| of its pair (``chip_smoke.qk_pair_error``)."""
+    import chip_smoke
+
+    assert torch.isfinite(got).all()
+    assert chip_smoke.qk_pair_error(got, want) <= 4
+    if want.dtype == torch.bfloat16:  # the rsqrt rarely crosses a rounding boundary
+        assert (got == want).float().mean() >= 0.99
+
+
+QK_ROPE_CASES = [
+    # FLUX at 720px: B = 2, 512 text + 2025 image tokens padded to 2560
+    ("double", 2, 512, 2048, 23, 24, 128, "bhsd", torch.bfloat16),
+    ("single", 2, 512, 2048, 23, 24, 128, "bhsd", torch.bfloat16),
+    # HunyuanVideo at 192x336, 129 frames: 256 text + 8316 video tokens -> 8576
+    ("double", 1, 256, 8320, 4, 24, 128, "bhsd", torch.bfloat16),
+    ("single", 1, 256, 8320, 4, 24, 128, "bshd", torch.bfloat16),
+    ("double", 2, 7, 130, 3, 3, 32, "bshd", torch.bfloat16),
+    ("single", 2, 9, 100, 0, 4, 64, "bhsd", torch.bfloat16),
+    ("double", 2, 7, 130, 3, 3, 64, "bhsd", torch.float32),
+    ("single", 1, 5, 77, 2, 2, 32, "bshd", torch.float32),
+    ("double", 1, 8, 56, 0, 2, 128, "bshd", torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", QK_ROPE_CASES)
+def test_qk_rope_kernels_match_plain(dev, case):
+    """The forward kernel against the plain version on the same card tensors
+    (``assert_within_pair_ulps``; v bit for bit), and the backward kernel
+    against autograd through the plain version with every scale trainable:
+    d(source) within the backward's tolerance (the dot product of each row
+    summed in another order; relative L2 <= 1e-2, |diff| <= 2e-2 max|want|;
+    f32 at 1e-5), d(scale) within 2e-2 relative L2 (a sum over B*S*H rows in
+    another order, both rounded to the working dtype).  One launch each."""
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
+    kind, B, Lt, Li, npad, H, D, layout, dtype = case
+    sources, qs, ks, cos, sin = _qk_rope_inputs(dev, kind, B, Lt, Li, npad, H, D, dtype)
+    if layout == "bshd":
+        cos, sin = cos[:, None, :], sin[:, None, :]
+    QR.reset_launches()
+    with torch.no_grad():
+        got = QR.qk_rope(sources, qs, ks, cos, sin, 1e-6, H, layout)
+        want = QR.qk_rope_reference(sources, qs, ks, cos, sin, 1e-6, H, layout)
+    torch.cuda.synchronize()
+    assert QR.qk_rope_fwd.launches == 1 and QR.qk_rope_bwd.launches == 0
+    for a, b in zip(got[:2], want[:2]):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert_within_pair_ulps(a, b)
+    assert torch.equal(got[2], want[2])
+
+    leaves = [t.detach().requires_grad_() for t in (*sources, *qs, *ks)]
+    n = len(sources)
+    args = (leaves[:n], leaves[n:2 * n], leaves[2 * n:], cos, sin, 1e-6, H, layout)
+    g = torch.Generator(dev).manual_seed(12)
+    w = [torch.randn(t.shape, generator=g, device=dev).to(dtype) for t in got]
+    dgot = torch.autograd.grad(sum((t * c).sum() for t, c in zip(QR.qk_rope(*args), w)), leaves)
+    dwant = torch.autograd.grad(
+        sum((t * c).sum() for t, c in zip(QR.qk_rope_reference(*args), w)), leaves)
+    torch.cuda.synchronize()
+    assert QR.qk_rope_fwd.launches == 2 and QR.qk_rope_bwd.launches == 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for a, b in zip(dgot[:n], dwant[:n]):
+        diff = a.float() - b.float()
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert diff.norm() / b.float().norm() <= tol
+        assert diff.abs().max() <= 2 * tol * b.float().abs().max()
+    for a, b in zip(dgot[n:], dwant[n:]):
+        assert (a.float() - b.float()).norm() / b.float().norm() <= 2 * tol
+
+
+def test_qk_rope_kernel_refuses_what_it_does_not_take(dev):
+    """No fallback: a head dim outside 32/64/128, fp16, or a row that is not
+    whole 16-byte vectors raise on the card instead of running the plain
+    version."""
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
+    sources, qs, ks, cos, sin = _qk_rope_inputs(dev, "single", 1, 4, 60, 0, 2, 32,
+                                                torch.bfloat16)
+    QR.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((1, 64, 3 * 2 * 24), device=dev, dtype=torch.bfloat16)
+        tab = torch.zeros((64, 24), device=dev)
+        QR.qk_rope([x], [x[0, 0, :24]], [x[0, 0, :24]], tab, tab, 1e-6, 2)
+    with pytest.raises(TypeError):
+        QR.qk_rope([s.half() for s in sources], qs, ks, cos, sin, 1e-6, 2)
+    with pytest.raises(ValueError):
+        x = torch.zeros((1, 64, 3 * 2 * 32 + 1), device=dev, dtype=torch.bfloat16)
+        QR.qk_rope([x[..., 1:]], qs, ks, cos, sin, 1e-6, 2)  # base off 16 bytes
+    assert QR.qk_rope_fwd.launches == 0
+
+
+@pytest.mark.parametrize("dtype,attn", [(torch.bfloat16, "auto"), (torch.float32, "eager")])
+def test_qk_rope_one_launch_per_block(dev, dtype, attn):
+    """Over one tiny DiT call on the card (FLUX at D = 32: 2 double + 4
+    single blocks; HunyuanVideo's tiny config at D = 32: 1 + 2), every
+    block's q, k and v come from the forward kernel, once a block, in bf16
+    with the flash kernels and in f32 with eager attention; one backward
+    launch a block under autograd."""
+    from mixgrpo_tpu_torch.models.hunyuan import model as HM
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+    from mixgrpo_tpu_torch.sampler import FluxSampler
+
+    cfg = M.FluxConfig.tiny()
+    params = M.init_flux(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev,
+                         dtype=dtype)
+    sampler = FluxSampler(cfg, SamplerConfig(num_steps_max=4), height=64, width=64,
+                          text_len=8, dtype=dtype, attn_impl=attn, device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    x = torch.randn((2, sampler.num_image_tokens, cfg.in_channels), generator=g, device=dev)
+    txt = torch.randn((2, 8, cfg.context_dim), generator=g, device=dev).to(dtype)
+    pooled = torch.randn((2, cfg.pooled_dim), generator=g, device=dev).to(dtype)
+    t, gd = torch.full((2,), 0.5, device=dev), torch.full((2,), 3.5, device=dev)
+    run = lambda: M.flux_forward(params, cfg, x.to(dtype), txt, pooled, t, gd,
+                                 sampler.rope_cos, sampler.rope_sin, dtype=dtype,
+                                 attn_impl=attn)
+    QR.reset_launches()
+    with torch.no_grad():
+        run()
+    assert QR.qk_rope_fwd.launches == cfg.depth_double + cfg.depth_single
+    assert QR.qk_rope_bwd.launches == 0
+    for leaf in M.param_leaves(params):
+        leaf.requires_grad_(True)
+    QR.reset_launches()
+    run().float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert QR.qk_rope_fwd.launches == QR.qk_rope_bwd.launches == \
+        cfg.depth_double + cfg.depth_single
+    assert all(torch.isfinite(leaf.grad).all() for leaf in M.param_leaves(params))
+
+    hcfg = HM.HunyuanVideoConfig(**{**vars(HM.HunyuanVideoConfig.tiny()), "hidden_size": 128,
+                                    "rope_dim_list": (8, 12, 12)})
+    hp = HM.init_hunyuan_video(hcfg, generator=torch.Generator(dev).manual_seed(2),
+                               device=dev, dtype=dtype)
+    lat = torch.randn((1, 2, 4, 4, hcfg.in_channels), generator=g, device=dev)
+    htxt = torch.randn((1, 6, hcfg.text_states_dim), generator=g, device=dev)
+    mask = torch.ones((1, 6), dtype=torch.int64, device=dev)
+    mask[:, 4:] = 0
+    QR.reset_launches()
+    with torch.no_grad():
+        out = HM.hunyuan_video_forward(hp, hcfg, lat, htxt, torch.zeros((1, 16), device=dev),
+                                       torch.full((1,), 0.5, device=dev),
+                                       torch.full((1,), 6.0, device=dev), mask, dtype=dtype,
+                                       attn_impl=attn)
+    assert QR.qk_rope_fwd.launches == hcfg.depth_double + hcfg.depth_single
+    assert torch.isfinite(out).all()

@@ -171,3 +171,100 @@ def test_bshd_layout_matches_jax(tiny_model, monkeypatch):
     monkeypatch.setenv("MIXGRPO_ATTN_LAYOUT", "bshd")
     got, want = _both_forwards(tiny_model, 2, 8, 8, 6, pad=128)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=ATOL)
+
+
+def _old_qk_stage(kind, sources, qscales, kscales, cos, sin, eps, H, layout):
+    """The blocks' QK-norm, RoPE and joint concatenation as written before
+    ``ops/qk_rope.py`` (split heads, ``rms_norm``, ``cat``, ``apply_rope``)."""
+    from mixgrpo_tpu_torch.ops.qk_rope import split_heads
+
+    split = lambda x: (split_heads(t, H, layout) for t in x.chunk(3, dim=-1))
+    if kind == "single":
+        q, k, v = split(sources[0])
+        q, k = L.rms_norm(q, qscales[0], eps), L.rms_norm(k, kscales[0], eps)
+        return R.apply_rope(q, cos, sin), R.apply_rope(k, cos, sin), v
+    tq, tk, tv = split(sources[0])
+    iq, ik, iv = split(sources[1])
+    iq, ik = L.rms_norm(iq, qscales[1], eps), L.rms_norm(ik, kscales[1], eps)
+    tq, tk = L.rms_norm(tq, qscales[0], eps), L.rms_norm(tk, kscales[0], eps)
+    seq = 1 if layout == "bshd" else 2
+    return (R.apply_rope(torch.cat([tq, iq], dim=seq), cos, sin),
+            R.apply_rope(torch.cat([tk, ik], dim=seq), cos, sin), torch.cat([tv, iv], dim=seq))
+
+
+@pytest.mark.parametrize("case", [
+    *[(kind, layout, pad, torch.float32) for kind in ("double", "single")
+      for layout in ("bhsd", "bshd") for pad in (False, True)],
+    ("double", "bhsd", True, torch.bfloat16), ("single", "bshd", True, torch.bfloat16),
+    "head_dim_24",
+])
+def test_qk_rope_on_cpu_is_the_eager_composition(case):
+    """On CPU tensors ``ops.qk_rope.qk_rope`` is the eager composition the
+    FLUX blocks ran before the kernel, bit for bit, forward and gradient (of
+    the sources and of trainable scales), for the double block's two streams
+    and the single block's ``linear1`` view (row stride 3h + mlp), in both
+    layouts, with and without ``_pad_joint``'s pad rows (identity RoPE); and
+    the kernel wrapper refuses a head dim outside 32/64/128 before it looks
+    at the device (the CPU path itself takes any head dim: the tiny
+    HunyuanVideo runs D = 24)."""
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
+    if case == "head_dim_24":
+        x = torch.zeros((1, 4, 3 * 2 * 24))
+        tab = torch.zeros((4, 24))
+        with pytest.raises(ValueError, match="head dim"):
+            QR.qk_rope_fwd([x], [torch.ones(24)], [torch.ones(24)], tab, tab, 1e-6, 2)
+        x, tab = torch.zeros((1, 4, 3 * 2 * 32)), torch.zeros((4, 32))
+        with pytest.raises(ValueError, match="CUDA"):
+            QR.qk_rope_fwd([x], [torch.ones(32)], [torch.ones(32)], tab, tab, 1e-6, 2)
+        got = QR.qk_rope([torch.randn((1, 4, 3 * 2 * 24))], [torch.ones(24)], [torch.ones(24)],
+                         tab[:, :24], tab[:, :24], 1e-6, 2)
+        assert [tuple(t.shape) for t in got] == [(1, 2, 4, 24)] * 3
+        return
+    kind, layout, pad, dtype = case
+    g = torch.Generator().manual_seed(5)
+    B, H, D, Lt, Li, mh = 2, 3, 32, 5, 48, 40
+    ids = np.concatenate([R.make_text_ids(Lt), R.make_image_ids(12, 16)])
+    cos, sin = R.rope_tables(ids, (8, 12, 12), device="cpu")
+    img = torch.randn((B, Li, 3 * H * D), generator=g)
+    if pad:  # a multiple of 4 over 8 x 4 tokens: 53 -> 56, as flux_forward pads
+        img, cos, sin, npad = M._pad_joint(img, cos, sin, Lt + Li, 4)
+        assert npad == 3 and float(cos[-1].min()) == 1.0 and float(sin[-1].abs().max()) == 0.0
+    if kind == "double":
+        sources = [torch.randn((B, Lt, 3 * H * D), generator=g), img]
+    else:  # the single block's [qkv | mlp] projection, read through a view
+        S = Lt + img.shape[1]
+        proj = torch.randn((B, S, 3 * H * D + mh), generator=g)
+        sources = [proj[..., : 3 * H * D]]
+    sources = [x.to(dtype).requires_grad_() for x in sources]
+    qscales = [(1 + 0.1 * torch.randn(D, generator=g)).requires_grad_() for _ in sources]
+    kscales = [(1 + 0.1 * torch.randn(D, generator=g)).requires_grad_() for _ in sources]
+    if layout == "bshd":
+        cos, sin = cos[:, None, :], sin[:, None, :]
+    got = QR.qk_rope(sources, qscales, kscales, cos, sin, 1e-6, H, layout)
+    want = _old_qk_stage(kind, sources, qscales, kscales, cos, sin, 1e-6, H, layout)
+    S = sum(x.shape[1] for x in sources)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and tuple(a.shape) == ((B, S, H, D) if layout == "bshd"
+                                                       else (B, H, S, D))
+        assert torch.equal(a, b)
+    leaves = [*sources, *qscales, *kscales]
+    w = [torch.randn(t.shape, generator=g).to(dtype) for t in got]
+    dgot = torch.autograd.grad(sum((t * c).sum() for t, c in zip(got, w)), leaves)
+    dwant = torch.autograd.grad(sum((t * c).sum() for t, c in zip(want, w)), leaves)
+    for a, b in zip(dgot, dwant):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows,D,itemsize,sms,blocks", [
+    (2 * 2560 * 24, 128, 2, 132, 1056),  # FLUX at 720px: 16 rows a block, capped at 8 an SM
+    (2 * 2560 * 24, 128, 4, 132, 1056),
+    (100, 32, 2, 132, 2),  # 64 rows a block at bf16 D = 32
+    (1, 128, 4, 132, 1),
+])
+def test_qk_rope_grid(rows, D, itemsize, sms, blocks):
+    """The kernels' grid: one row per lane group of 16-byte vectors, 256
+    threads a block, at most 8 blocks a streaming multiprocessor."""
+    from mixgrpo_tpu_torch.ops import qk_rope as QR
+
+    assert QR._grid(rows, D, itemsize, sms) == blocks
