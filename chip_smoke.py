@@ -102,9 +102,10 @@ a non-zero exit code.  Phases:
 12. mochi_video: Mochi-1 text-to-video at full width and depth with random
    bf16 weights (the asymmetric DiT's 48 blocks, 10.03 B parameters, and
    the causal VAE decoder): ``MochiPipeline`` at the published 480x848, 37
-   frames (7 x 60 x 106 latents, S = 11,130 + 256 text tokens), 2 steps (cut
-   from 64) of real CFG 4.5, two prompts of random T5 features with 40 of
-   256 tokens valid (B = 1 per video), the tiled decode; its seconds per
+   frames (7 x 60 x 106 latents, S = 11,130 + 40 text tokens: the 216
+   padded of 256 cut before the blocks), 2 steps (cut from 64) of real CFG
+   4.5, two prompts of random T5 features with 40 of 256 tokens valid
+   (B = 1 per video), the tiled decode; its seconds per
    video split into denoising and decode, DiT calls, tiles, peak and
    launches (48 forwards per DiT call, the final block's at Sq != Sk); the
    profile of one DiT call and one decode tile; one DiT forward at that
@@ -115,9 +116,9 @@ a non-zero exit code.  Phases:
    kernel takes it: no two bf16 attentions meet ``close_bf16`` at 48
    blocks), and against the model's in f32, while a planted fault stands
    further; its distance to the plain version's is recorded;
-   two forwards at 163 frames (S = 44,776), cold then warm, the first and
-   the final block's kernel calls of the cold one (S = Sk = 44,776; 44,520
-   queries over 44,776 keys) held against the kernel's plain version on the
+   two forwards at 163 frames (S = 44,560), cold then warm, the first and
+   the final block's kernel calls of the cold one (S = Sk = 44,560; 44,520
+   queries over 44,560 keys) held against the kernel's plain version on the
    same inputs (``close_bf16``); a gradient through
    ``mochi_forward`` at 2 + the final block, full width, against eager (the
    forward with lse, dkv and dq at Sq != Sk); then a transformer directory
@@ -4768,7 +4769,7 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
     emit({"phase": "mochi_video_pipeline", "height": h, "width": w, "frames": frames,
           "frames_out": videos[0].shape[0], "latents": list(lat_shape[1:4]),
           "steps": MOCHI_STEPS, "guidance": 4.5, "videos": n, "dit_calls": calls,
-          "seq": S_vis + geo["text_len"], "seq_final_block_q": S_vis,
+          "seq": S_vis + geo["text_kept"], "seq_final_block_q": S_vis,
           "tiled_decode": pipe.tiles(lat_shape), "tiles_per_video": len(tiles) / n,
           "wall_s": wall, "s_per_video": wall / n, "denoise_s_per_video": stage_s["denoise"],
           "decode_s_per_video": stage_s["decode"], "flash_launches": launches["flash_attn_fwd"],
@@ -4845,8 +4846,8 @@ def mochi_video_phase(torch, FA, dev, card, root, rows, geo=None):
           and rel["kernel_vs_f32"] <= MOCHI_FLOOR_SLACK * rel["eager_vs_f32"]
           and rel["planted_fault_vs_eager"] > MOCHI_FLOOR_SLACK * floor)
     emit({"phase": "reference", "what": f"mochi forward at {h}x{w}x{frames}, full depth, "
-          f"{geo['text_len'] - geo['text_kept']} of {geo['text_len']} text tokens masked in "
-          "the pooler, bf16, kernel vs eager attention: each block's attention on its own "
+          f"{geo['text_len'] - geo['text_kept']} of {geo['text_len']} text tokens masked (cut "
+          "before the blocks), bf16, kernel vs eager attention: each block's attention on its own "
           "inputs; the output against eager's, the plain version's and the f32 model's",
           "blocks_checked": len(per_block), "blocks_ok": sum(c[0] for c in per_block),
           "block_rel_l2_max": max(c[2] for c in per_block),
@@ -5073,7 +5074,8 @@ def sp_inputs(torch, dev, kind, seed):
     """One DiT call's inputs at the full sizes: HunyuanVideo at 192x336, 129
     frames (33 x 24 x 42 latents, S = 256 + 8316, run as 8576) with 40 of
     256 text tokens kept; Mochi at 480x848, 37 frames (7 x 60 x 106 latents,
-    11,130 visual tokens and 256 text tokens, 40 kept in its pooler)."""
+    11,130 visual tokens and 256 text tokens, 40 valid: under sequence
+    parallelism nothing is cut, and the 216 padded enter as a key mask)."""
     from mixgrpo_tpu_torch.models.hunyuan.model import HunyuanVideoConfig
     from mixgrpo_tpu_torch.models.mochi.model import MochiConfig
 

@@ -15,13 +15,22 @@ every order a copy can get wrong quietly:
     (context_pre_only) takes q from the visual tokens alone, so there
     Sq = L_visual and Sk = L_visual + L_text, and its text stream gets
     (scale, shift) and no update;
-  - the attention takes no text mask: JAX applies ``text_mask`` only in the
-    caption pooler (``_attention_pool``: the masked mean as the single query
-    over [mean | tokens], 8 heads, padded keys filled with finfo(f32).min);
+  - the caption pooler (``_attention_pool``) takes the masked mean as the
+    single query over [mean | tokens], 8 heads, padded keys filled with
+    finfo(f32).min;
   - the timestep enters as ``timestep * 1000`` with no floor; the final
     layer is layer_norm then modulate(shift, scale) with the modulation
     split as (scale, shift);
   - patchify and unpatchify in the order (B, T, H/2, W/2, 2, 2, C).
+The text mask, unlike JAX's (which applies it in the pooler only), also
+keeps padded text tokens out of the joint attention for every query, as the
+published model does (genmo packs the valid tokens, diffusers selects each
+row's): where every row's mask is a prefix of ones, the text is cut to the
+batch's longest valid length before ``caption_proj``, the pooler and the
+blocks, and a row's remaining padding, or a mask that is no prefix, enters
+the attention as a key mask (the forward kernel's key-bias branch).  Under
+``"ulysses"`` and ``"ring"`` nothing is cut, so that the joint sequence
+keeps its length.  ``text_mask=None`` attends every text token.
 The SwiGLU feed-forwards stay torch ops (the reference's liger kernel is no
 TPU kernel, and JAX uses plain ops).  Attention goes through
 ``ops/attention.py``: the CUDA forward kernel on CUDA tensors with
@@ -29,6 +38,12 @@ TPU kernel, and JAX uses plain ops).  Attention goes through
 loads zero-fill rows past S and Sk).  ``remat`` recomputes each block in
 the backward (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint``.
 q, k and v are (B, H, S, D), as in JAX.
+Each forward is a ``dit`` span (``utils/profiling.py``); in its sampled
+calls a block records the stages ``norm_mod`` (the pre-norms with their
+``1 + scale``), ``qk_rope`` (the q, k, text-q and text-k RMSNorms, the
+learned RoPE and the joint concatenation), ``gate_res`` (the post-norm,
+the tanh gate and the residual add) and ``act`` (SiLU times up), beside the
+``gemm`` and ``attn`` spans of ``layers.py`` and ``ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ from mixgrpo_tpu_torch.models.flux import layers as L
 from mixgrpo_tpu_torch.models.flux.model import _merge_heads, _unstack
 from mixgrpo_tpu_torch.ops.attention import attention
 from mixgrpo_tpu_torch.ops.qk_rope import split_heads
+from mixgrpo_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +111,9 @@ def _rms(x, eps):
 def _swiglu(p_in, p_out, x, dtype):
     """SwiGLU FF: (silu(x W_g) * (x W_u)) W_o, the projection fused as [gate | up]."""
     gate, up = L.linear(p_in, x, dtype).chunk(2, dim=-1)
-    return L.linear(p_out, F.silu(gate) * up, dtype)
+    with span("act"):
+        h = F.silu(gate) * up
+    return L.linear(p_out, h, dtype)
 
 
 def mochi_positions(t: int, h: int, w: int, base_area: int) -> np.ndarray:
@@ -202,46 +220,79 @@ def init_mochi(cfg: MochiConfig, *, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 
 
-def _mochi_block(p, cfg: MochiConfig, x, c, temb, rope_cos, rope_sin, context_pre_only,
-                 attn_impl, dtype):
-    H, eps = cfg.num_heads, cfg.eps
-    sx_msa, gx_msa, sx_mlp, gx_mlp = L.modulation(p["mod_x"], temb, 4, dtype)
-    xn = _rms(x, eps) * (1.0 + sx_msa[:, None, :])
+def _gate_res(x, y, gate, eps):
+    """The sandwich norm's second half: x + rms(y) * tanh(gate)."""
+    with span("gate_res"):
+        return x + _rms(y, eps) * torch.tanh(gate)[:, None, :]
 
-    if context_pre_only:  # LayerNormContinuous-style: (scale, shift), no gates
-        sc, sh = L.modulation(p["mod_c"], temb, 2, dtype)
-        cn = _rms(c, eps) * (1.0 + sc[:, None, :]) + sh[:, None, :]
-    else:
-        sc_msa, gc_msa, sc_mlp, gc_mlp = L.modulation(p["mod_c"], temb, 4, dtype)
-        cn = _rms(c, eps) * (1.0 + sc_msa[:, None, :])
 
+def _joint_qkv(p, H, eps, qkv, ckv, cq, rope_cos, rope_sin):
+    """QK-norm and learned RoPE on the visual heads, QK-norm on the text
+    heads, joined as [visual | text]; ``cq`` None: visual queries only."""
     split = lambda t: split_heads(t, H, "bhsd")
-    q, k, v = (split(t) for t in L.linear(p["qkv"], xn, dtype).chunk(3, dim=-1))
+    q, k, v = (split(t) for t in qkv.chunk(3, dim=-1))
     q = _apply_mochi_rope(L.rms_norm(q, p["qnorm"], eps), rope_cos, rope_sin)
     k = _apply_mochi_rope(L.rms_norm(k, p["knorm"], eps), rope_cos, rope_sin)
-
-    ck, cv = (split(t) for t in L.linear(p["add_kv"], cn, dtype).chunk(2, dim=-1))
+    ck, cv = (split(t) for t in ckv.chunk(2, dim=-1))
     ck = L.rms_norm(ck, p["add_knorm"], eps)
-    if not context_pre_only:
-        cq = L.rms_norm(split(L.linear(p["add_q"], cn, dtype)), p["add_qnorm"], eps)
-        q = torch.cat([q, cq], dim=2)
-    k = torch.cat([k, ck], dim=2)
-    v = torch.cat([v, cv], dim=2)
+    if cq is not None:
+        q = torch.cat([q, L.rms_norm(split(cq), p["add_qnorm"], eps)], dim=2)
+    return q, torch.cat([k, ck], dim=2), torch.cat([v, cv], dim=2)
 
-    o = _merge_heads(attention(q, k, v, impl=attn_impl), "bhsd")
+
+def _mochi_block(p, cfg: MochiConfig, x, c, temb, rope_cos, rope_sin, context_pre_only,
+                 attn_impl, dtype, attn_mask=None):
+    """One asymmetric joint block; ``attn_mask`` a key mask over [visual |
+    text] (True = attend) or None."""
+    H, eps = cfg.num_heads, cfg.eps
+    sx_msa, gx_msa, sx_mlp, gx_mlp = L.modulation(p["mod_x"], temb, 4, dtype)
+    if context_pre_only:  # LayerNormContinuous-style: (scale, shift), no gates
+        sc_msa, sh = L.modulation(p["mod_c"], temb, 2, dtype)
+    else:
+        sc_msa, gc_msa, sc_mlp, gc_mlp = L.modulation(p["mod_c"], temb, 4, dtype)
+    with span("norm_mod"):
+        xn = _rms(x, eps) * (1.0 + sx_msa[:, None, :])
+        cn = _rms(c, eps) * (1.0 + sc_msa[:, None, :])
+        if context_pre_only:
+            cn = cn + sh[:, None, :]
+
+    qkv = L.linear(p["qkv"], xn, dtype)
+    ckv = L.linear(p["add_kv"], cn, dtype)
+    cq = None if context_pre_only else L.linear(p["add_q"], cn, dtype)
+    with span("qk_rope"):
+        q, k, v = _joint_qkv(p, H, eps, qkv, ckv, cq, rope_cos, rope_sin)
+
+    o = _merge_heads(attention(q, k, v, mask=attn_mask, impl=attn_impl), "bhsd")
     Lx = x.shape[1]
-    x = x + _rms(L.linear(p["attn_out"], o[:, :Lx], dtype), eps) * torch.tanh(gx_msa)[:, None, :]
-    xn2 = _rms(x, eps) * (1.0 + sx_mlp[:, None, :])
-    x = x + _rms(_swiglu(p["ff_in"], p["ff_out"], xn2, dtype), eps) * torch.tanh(
-        gx_mlp)[:, None, :]
+    x = _gate_res(x, L.linear(p["attn_out"], o[:, :Lx], dtype), gx_msa, eps)
+    with span("norm_mod"):
+        xn2 = _rms(x, eps) * (1.0 + sx_mlp[:, None, :])
+    x = _gate_res(x, _swiglu(p["ff_in"], p["ff_out"], xn2, dtype), gx_mlp, eps)
 
     if not context_pre_only:
-        c = c + _rms(L.linear(p["attn_out_c"], o[:, Lx:], dtype), eps) * torch.tanh(
-            gc_msa)[:, None, :]
-        cn2 = _rms(c, eps) * (1.0 + sc_mlp[:, None, :])
-        c = c + _rms(_swiglu(p["ff_c_in"], p["ff_c_out"], cn2, dtype), eps) * torch.tanh(
-            gc_mlp)[:, None, :]
+        c = _gate_res(c, L.linear(p["attn_out_c"], o[:, Lx:], dtype), gc_msa, eps)
+        with span("norm_mod"):
+            cn2 = _rms(c, eps) * (1.0 + sc_mlp[:, None, :])
+        c = _gate_res(c, _swiglu(p["ff_c_in"], p["ff_c_out"], cn2, dtype), gc_mlp, eps)
     return x, c
+
+
+def _text_keys(txt, text_mask, attn_impl):
+    """(text, mask, key mask) as the blocks take them: with every row's mask
+    a prefix of ones (T5 pads at the end) and the attention on one rank,
+    the text and its mask cut to the batch's longest valid length (at least
+    one token); the key mask (bool, True = a text token) where a kept
+    position is still padding, else None."""
+    if text_mask is None:
+        return txt, None, None
+    mask = torch.as_tensor(text_mask, device=txt.device)
+    valid = mask.cpu() != 0
+    n = valid.sum(dim=1)
+    prefix = bool((valid == (torch.arange(valid.shape[1]) < n[:, None])).all())
+    if prefix and attn_impl not in ("ulysses", "ring"):
+        keep = max(int(n.max()), 1)
+        txt, mask, valid = txt[:, :keep], mask[:, :keep], valid[:, :keep]
+    return txt, mask, None if bool(valid.all()) else mask != 0
 
 
 def _attention_pool(p, txt, text_mask, num_heads: int, dtype):
@@ -284,22 +335,25 @@ def _unpatchify(x, ps: int, shape):
     return x.reshape(B, T, H, W, C)
 
 
+@spanned("dit")
 def mochi_forward(
     params: Dict[str, Any],
     cfg: MochiConfig,
     video_latents: torch.Tensor,  # (B, T, H, W, C)
     txt: torch.Tensor,  # (B, L, text_embed_dim) T5 features
     timestep: torch.Tensor,  # (B,) in [0, 1]
-    text_mask: Optional[torch.Tensor] = None,  # (B, L), 1 = a text token (pooler only)
+    text_mask: Optional[torch.Tensor] = None,  # (B, L), 1 = a text token
     *,
     dtype=torch.bfloat16,
     attn_impl: str = "auto",
     remat: bool = True,
 ) -> torch.Tensor:
-    """Velocity for video latents, (B, T, H, W, C) f32."""
+    """Velocity for video latents, (B, T, H, W, C) f32.  Padded text tokens
+    (``text_mask`` 0) reach neither the pooler nor the joint attention."""
     shape = tuple(video_latents.shape)
     B, T, Hh, Ww, _ = shape
     ps = cfg.patch_size
+    txt, text_mask, text_keys = _text_keys(txt, text_mask, attn_impl)
     x = L.linear(params["patch_embed"], _patchify(video_latents, ps).to(dtype), dtype)
 
     temb = L.mlp_embedder(params["time_in"],
@@ -309,10 +363,14 @@ def mochi_forward(
 
     pos = mochi_positions(T, Hh // ps, Ww // ps, cfg.base_height * cfg.base_width)
     rope_cos, rope_sin = mochi_rope(params["pos_frequencies"], pos)
+    attn_mask = None
+    if text_keys is not None:  # over [visual | text]
+        visual = torch.ones((B, x.shape[1]), dtype=torch.bool, device=x.device)
+        attn_mask = torch.cat([visual, text_keys], dim=1)[:, None, None, :]
 
     def block(p, final):
         return lambda xh, ch: _mochi_block(p, cfg, xh, ch, temb, rope_cos, rope_sin, final,
-                                           attn_impl, dtype)
+                                           attn_impl, dtype, attn_mask)
 
     def run(body, *args):
         if remat and torch.is_grad_enabled():

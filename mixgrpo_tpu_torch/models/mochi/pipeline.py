@@ -11,11 +11,14 @@ statistics (``latents.py``) and decoded, in tiles when the latent exceeds
 ``enable_vae_tiling``), then mapped from [-1, 1] to [0, 1].
 
 Text enters as T5 features (B, L, 4096) with their mask, as in JAX; the
-unconditional branch defaults to zero features with an all-ones mask.  The
+DiT keeps masked tokens out of its pooler and its joint attention
+(``model.py``), where JAX masks the pooler only.  The unconditional branch
+defaults to zero features with an all-ones mask.  The
 initial noise is drawn from a ``torch.Generator`` (seed 0 unless given) on
 the pipeline's device, or injected as ``z0`` (the parity tests pass JAX's
 draw).  JAX traces the loop as one ``lax.fori_loop``; here it is a Python
-loop over the steps.
+loop over the steps.  A call is a ``video`` span, its Euler loop
+``denoise`` and its VAE decode ``decode`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from mixgrpo_tpu_torch.models.mochi.vae import (
     MochiVAEConfig, mochi_vae_decode, mochi_vae_decode_tiled,
 )
 from mixgrpo_tpu_torch.solvers.distill import linear_quadratic_schedule
+from mixgrpo_tpu_torch.utils.profiling import span, spanned
 
 
 class MochiPipeline:
@@ -92,14 +96,15 @@ class MochiPipeline:
             self.params, self.cfg, z.to(self.dtype), feats, t, mask, dtype=self.dtype,
             attn_impl=self.attn_impl, remat=False)
         z = z0
-        for i in range(self.num_steps):
-            sigma = self.sigmas[i]
-            t = torch.full((B,), float(sigma), dtype=torch.float32, device=z.device)
-            pred = fwd(z, t, txt, txt_mask)
-            if use_cfg:
-                uncond = fwd(z, t, neg_txt, neg_mask)
-                pred = uncond + self.guidance_scale * (pred - uncond)
-            z = z + float(self.sigmas[i + 1] - sigma) * pred.to(z.dtype)
+        with span("denoise"):
+            for i in range(self.num_steps):
+                sigma = self.sigmas[i]
+                t = torch.full((B,), float(sigma), dtype=torch.float32, device=z.device)
+                pred = fwd(z, t, txt, txt_mask)
+                if use_cfg:
+                    uncond = fwd(z, t, neg_txt, neg_mask)
+                    pred = uncond + self.guidance_scale * (pred - uncond)
+                z = z + float(self.sigmas[i + 1] - sigma) * pred.to(z.dtype)
         return z
 
     def tiles(self, latent_shape) -> bool:
@@ -114,10 +119,12 @@ class MochiPipeline:
         if lat.shape[-1] == 12:  # the published per-channel statistics are 12-channel
             lat = denormalize_dit_output(lat)
         decode = mochi_vae_decode_tiled if self.tiles(lat.shape) else mochi_vae_decode
-        video = decode(self.vae_params, self.vae_cfg, lat, dtype=self.dtype)
+        with span("decode"):
+            video = decode(self.vae_params, self.vae_cfg, lat, dtype=self.dtype)
         return torch.clamp(video * 0.5 + 0.5, 0.0, 1.0)
 
     @torch.no_grad()
+    @spanned("video")
     def __call__(self, txt, *, num_frames: int, height: int, width: int, text_mask=None,
                  neg_txt=None, neg_mask=None, generator: Optional[torch.Generator] = None,
                  z0: Optional[torch.Tensor] = None) -> torch.Tensor:

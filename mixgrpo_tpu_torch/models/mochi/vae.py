@@ -23,7 +23,8 @@ JAX's do, and keep JAX's (k, k, k, cin, cout) conv weights and (in, out)
 ``proj`` weights; inside they run (B, C, T, H, W) for ``F.conv3d`` (cuDNN;
 XLA computed these convolutions outside any Pallas kernel).  The decoder
 has no attention.  ``mochi_vae_decode_tiled`` decodes overlapping tiles one
-at a time (``models/video_tiling.py``).
+at a time (``models/video_tiling.py``).  GroupNorm with its SiLU is a
+``norm`` span and each tile a ``tile`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from mixgrpo_tpu_torch.utils import profiling
 from mixgrpo_tpu_torch.utils.safetensors_io import SafetensorsDir, read_tensor
 
 
@@ -122,18 +124,21 @@ def _causal_conv(p, x, dtype=None):
     return y + p["b"].to(dtype)[:, None, None, None]
 
 
-def _frame_group_norm(p, x, groups, eps=1e-5):
+def _frame_group_norm(p, x, groups, eps=1e-5, silu=False):
     """GroupNorm of each frame on its own: statistics over (C/g, H, W) in
-    f32, the affine in f32, cast back to x's dtype."""
-    b, c, t, h, w = x.shape
-    frames = x.transpose(1, 2).reshape(b * t, c, h, w).float()
-    y = F.group_norm(frames, groups, p["scale"].float(), p["bias"].float(), eps)
-    return y.to(x.dtype).reshape(b, t, c, h, w).transpose(1, 2)
+    f32, the affine in f32, cast back to x's dtype; ``silu`` applies SiLU
+    to the result.  A ``norm`` span."""
+    with profiling.span("norm"):
+        b, c, t, h, w = x.shape
+        frames = x.transpose(1, 2).reshape(b * t, c, h, w).float()
+        y = F.group_norm(frames, groups, p["scale"].float(), p["bias"].float(), eps)
+        y = y.to(x.dtype).reshape(b, t, c, h, w).transpose(1, 2)
+        return F.silu(y) if silu else y
 
 
 def _resnet(p, x, groups, dtype):
-    h = _causal_conv(p["conv1"], F.silu(_frame_group_norm(p["norm1"], x, groups)), dtype)
-    h = _causal_conv(p["conv2"], F.silu(_frame_group_norm(p["norm2"], h, groups)), dtype)
+    h = _causal_conv(p["conv1"], _frame_group_norm(p["norm1"], x, groups, silu=True), dtype)
+    h = _causal_conv(p["conv2"], _frame_group_norm(p["norm2"], h, groups, silu=True), dtype)
     return x + h
 
 
@@ -178,11 +183,16 @@ def mochi_vae_decode_tiled(params, cfg: MochiVAEConfig, latents: torch.Tensor,
     """Memory-bounded decode, the reference pipeline's ``enable_vae_tiling``
     (256 px / 16-frame tiles, 25% overlap), decoded one tile at a time and
     ramp-blended; Mochi's frame mapping (the first latent frame gives one
-    frame) is the one ``models/video_tiling.py`` tiles."""
+    frame) is the one ``models/video_tiling.py`` tiles.  Each tile is a
+    ``tile`` span."""
     from mixgrpo_tpu_torch.models.video_tiling import tiled_causal_decode
 
+    def decode(z):
+        with profiling.span("tile"):
+            return mochi_vae_decode(params, cfg, z, dtype)
+
     return tiled_causal_decode(
-        lambda z: mochi_vae_decode(params, cfg, z, dtype), latents,
+        decode, latents,
         rt=cfg.temporal_compression, rs=cfg.spatial_compression, tile_latent=tile_latent,
         tile_latent_t=tile_latent_t, overlap_factor=overlap_factor)
 

@@ -805,6 +805,47 @@ def test_tiny_mochi_pipeline_on_card(dev):
     assert torch.isfinite(grads["flash"]).all() and rel < 2e-2, rel.item()
 
 
+@pytest.mark.parametrize("rows", [[[1, 1, 1, 1, 0, 0], [1, 1, 0, 0, 0, 0]],
+                                  [[1, 0, 1, 1, 0, 1], [1, 1, 1, 0, 0, 0]]],
+                         ids=["cut", "key_mask"])
+def test_mochi_text_mask_on_card(dev, rows):
+    """``mochi_forward`` at the tiny config (D = 32) in bf16 with rows of
+    different valid text lengths: the text cut to the longest row and the
+    rest a key mask (masks that are prefixes), or a key mask alone, on the
+    forward kernel's key-bias branch, the final block at Sq != Sk: close to
+    eager attention's (rel L2 < 2e-2), one launch a block, and the padded
+    tokens' features changing no output bit; then the key-bias branch at
+    Sq != Sk against the plain version (``assert_close_bf16``)."""
+    from mixgrpo_tpu_torch.models.mochi import model as MM
+    from mixgrpo_tpu_torch.ops.attention import attention
+
+    cfg = MM.MochiConfig(**{**vars(MM.MochiConfig.tiny()), "head_dim": 32})
+    gen = lambda s: torch.Generator(dev).manual_seed(s)
+    params = MM.init_mochi(cfg, generator=gen(0), device=dev, dtype=torch.bfloat16)
+    mask = torch.tensor(rows, dtype=torch.int32, device=dev)
+    z = torch.randn((2, 2, 8, 8, cfg.in_channels), generator=gen(1), device=dev)
+    txt = torch.randn((2, 6, cfg.text_embed_dim), generator=gen(2), device=dev)
+    t = torch.tensor([0.7, 0.3], device=dev)
+    fwd = lambda feats, impl: MM.mochi_forward(params, cfg, z, feats, t, mask, attn_impl=impl,
+                                               remat=False)
+    with torch.no_grad():
+        FA.reset_launches()
+        got = fwd(txt, "flash")
+        assert FA.flash_attn_fwd.launches == cfg.num_layers
+        want = fwd(txt, "eager")
+        other = torch.where(mask.bool()[..., None], txt, txt + 3.0)
+        assert torch.equal(got, fwd(other, "flash"))
+    rel = (got - want).norm() / want.norm()
+    assert torch.isfinite(got).all() and rel < 2e-2, rel.item()
+    q = torch.randn((2, 4, 300, 64), generator=gen(3), device=dev).bfloat16()
+    k, v = (torch.randn((2, 4, 350, 64), generator=gen(4), device=dev).bfloat16()
+            for _ in range(2))
+    keys = torch.rand((2, 350), generator=gen(5), device=dev) < 0.8
+    out = attention(q, k, v, mask=keys[:, None, None, :], impl="flash")
+    assert_close_bf16(out, FA.flash_attention_reference(q, k, v, mask=keys[:, None, None, :]),
+                      350)
+
+
 # ----------------------------------------------------------------------------
 # QK-norm + RoPE + joint layout (ops/qk_rope.py, csrc/qk_rope.cu)
 # ----------------------------------------------------------------------------

@@ -14,15 +14,22 @@ JAX runs on the same numpy tree.
   (the kernel's plain version on the CPU) and ``eager``: atol 2e-4 (matmul sums in another order over 2 blocks, as the FLUX and
   HunyuanVideo tests); in bf16: within 2% of max |JAX| elementwise and rel
   L2 1e-2 (bf16 rounding of the residual stream, placed differently by the
-  two compilers); the caption and the pooler's mask change the output.
+  two compilers); the caption and the mask change the output, the padded
+  tokens' features change no bit of it.  The port keeps padded text out of
+  the joint attention as the published model does, where JAX masks the
+  pooler only: with a mask, each row is held against JAX fed that row's
+  valid tokens and an all-ones mask (exact for JAX's pooler, whose masked
+  keys get zero weight).
 - the gradient of a loss through ``mochi_forward`` (remat on) with respect
   to the latents and every weight, ``flash`` and ``eager``: atol 1e-4
   relative to each gradient's max.
-- the final block attends with Sq = visual tokens and Sk = visual + text,
-  and leaves the text stream as it was.
+- the final block attends with Sq = visual tokens and Sk = visual + the
+  valid text, and leaves the text stream as it was.
 - the loader and the export against JAX's, leaf for leaf (equal); the
   convert CLI round trip (equal); the inferred config.
-- the pipeline with CFG fed JAX's ``z0``: latents atol 2e-4; the decoded
+- the pipeline with CFG fed JAX's ``z0`` (a masked prompt: JAX fed its
+  valid tokens, and the port's unmasked negative prompt): latents atol
+  2e-4; the decoded
   video plain, and tiled by ``"auto"`` (a 34 x 34 latent): atol 1e-4.
 """
 
@@ -95,9 +102,18 @@ _JAX_FORWARD = jax.jit(lambda p, z, txt, t, mask, dtype: JM.mochi_forward(
 
 
 def _jax_forward(jp, x, mask=True, dtype=jnp.float32):
-    return np.asarray(_JAX_FORWARD(
-        jp, jnp.asarray(x["z"]), jnp.asarray(x["txt"]), jnp.asarray(x["t"]),
-        jnp.asarray(x["mask"]) if mask else None, dtype=dtype), np.float32)
+    """JAX's forward; with ``mask`` each row fed its valid tokens and an
+    all-ones mask."""
+    if not mask:
+        return np.asarray(_JAX_FORWARD(jp, jnp.asarray(x["z"]), jnp.asarray(x["txt"]),
+                                       jnp.asarray(x["t"]), None, dtype=dtype), np.float32)
+    rows = []
+    for b, keep in enumerate(x["mask"].astype(bool)):
+        rows.append(np.asarray(_JAX_FORWARD(
+            jp, jnp.asarray(x["z"][b:b + 1]), jnp.asarray(x["txt"][b:b + 1, keep]),
+            jnp.asarray(x["t"][b:b + 1]), jnp.ones((1, int(keep.sum())), jnp.int32),
+            dtype=dtype), np.float32))
+    return np.concatenate(rows)
 
 
 def _forward(tp, x, mask=True, dtype=torch.float32, impl="flash", **kw):
@@ -178,9 +194,10 @@ def test_forward_bf16_matches_jax(weights):
 
 
 def test_caption_and_pooler_mask_change_the_output(weights):
-    """As JAX: the caption reaches the output, and the text mask does too,
-    through the pooler only: the joint attention takes no text mask, so
-    the padded tokens' features still reach the visual stream."""
+    """The caption reaches the output, and the text mask does too; the
+    padded tokens' features do not, through the pooler or the joint
+    attention (JAX's joint attention would read them: it is fed the valid
+    tokens)."""
     _, jp, tp = weights
     x = _inputs()
     other = dict(x, txt=x["txt"] + 1.0)
@@ -189,7 +206,7 @@ def test_caption_and_pooler_mask_change_the_output(weights):
     pad = dict(x, txt=x["txt"].copy())
     pad["txt"][0, 4:] += 1.0  # row 0's padded tokens
     got = _forward(tp, pad)
-    assert np.abs(got - _forward(tp, x))[0].max() > 1e-3
+    np.testing.assert_array_equal(got, _forward(tp, x))
     np.testing.assert_allclose(got, _jax_forward(jp, pad), rtol=0, atol=ATOL)
 
 
@@ -205,7 +222,7 @@ def test_final_block_attends_visual_queries_over_joint_keys(weights, monkeypatch
 
     monkeypatch.setattr(M, "attention", spy)
     _forward(tp, x)
-    n_vis, n_txt = 2 * (8 // 2) * (6 // 2), 6
+    n_vis, n_txt = 2 * (8 // 2) * (6 // 2), int(x["mask"].sum())  # the text cut to its valid tokens
     assert seen == [(n_vis + n_txt, n_vis + n_txt)] * (CFG.num_layers - 1) + [
         (n_vis, n_vis + n_txt)]
     # the final block alone, against JAX's: the text stream comes out as it went in
@@ -236,11 +253,15 @@ def test_gradient_matches_jax(weights, impl):
     x = _inputs()
     w = _loss_weights(x["z"].shape)
 
-    def jloss(p, z):
-        out = JM.mochi_forward(p, JCFG, z, jnp.asarray(x["txt"]), jnp.asarray(x["t"]),
-                               jnp.asarray(x["mask"]), dtype=jnp.float32, attn_impl="xla",
-                               remat=True)
-        return jnp.sum(out * w)
+    def jloss(p, z):  # each row on its valid tokens
+        loss = 0.0
+        for b, keep in enumerate(x["mask"].astype(bool)):
+            out = JM.mochi_forward(p, JCFG, z[b:b + 1], jnp.asarray(x["txt"][b:b + 1, keep]),
+                                   jnp.asarray(x["t"][b:b + 1]),
+                                   jnp.ones((1, int(keep.sum())), jnp.int32), dtype=jnp.float32,
+                                   attn_impl="xla", remat=True)
+            loss = loss + jnp.sum(out * w[b:b + 1])
+        return loss
 
     jg_p, jg_z = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp, jnp.asarray(x["z"]))
     tp = from_jax_params(tree, "cpu")
@@ -334,8 +355,11 @@ def test_pipeline_matches_jax(size):
     j, p = _pipelines(jp, tp, None)
     np.testing.assert_array_equal(p.sigmas, j.sigmas)
     np.testing.assert_array_equal(p.sigmas[:-1], linear_quadratic_schedule(3, 0.025, 1))
-    if size == (16, 16):
-        want = np.asarray(j(jnp.asarray(txt), rng=rng, text_mask=jnp.asarray(x["mask"]), **kw))
+    if size == (16, 16):  # JAX fed the prompt's valid tokens and the port's negative prompt
+        keep = x["mask"][0].astype(bool)
+        want = np.asarray(j(jnp.asarray(txt[:, keep]), rng=rng,
+                            neg_txt=jnp.zeros(txt.shape, jnp.float32),
+                            neg_mask=jnp.ones(txt.shape[:2], jnp.int32), **kw))
         got = p(torch.from_numpy(txt), text_mask=torch.from_numpy(x["mask"]),
                 z0=torch.from_numpy(z0), **kw)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)

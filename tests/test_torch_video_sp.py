@@ -8,9 +8,13 @@ configurations in f32.
   block attends 24 queries over 30 keys) under ``attn_impl="ulysses"`` and
   ``"ring"`` on two ``gloo`` CPU ranks (``tests/torch_parallel_worker.py``,
   case ``video_sp``): each rank's output against one rank's eager forward
-  (rel L2 <= 1e-5) and the Ulysses outputs against JAX's forward with
-  ``attn_impl="ulysses"`` on a two-device CPU mesh (atol 1e-4); the
-  HunyuanVideo pipeline under Ulysses against one rank's (rel L2 <= 1e-5).
+  (rel L2 <= 1e-5) and the Ulysses outputs against JAX's forward (atol
+  1e-4): HunyuanVideo's with ``attn_impl="ulysses"`` on a two-device CPU
+  mesh; Mochi's, whose port keeps padded text out of the joint attention
+  where JAX masks the pooler only, one row at a time on that row's valid
+  tokens with an all-ones mask (rows of 28 and 29 tokens, which two ranks
+  cannot split, so with ``attn_impl="xla"``); the HunyuanVideo pipeline
+  under Ulysses against one rank's (rel L2 <= 1e-5).
 - The gradient of ``hunyuan_video_forward(remat=True)`` (latents and every
   parameter) against ``jax.grad`` of JAX's (atol 1e-4 times the gradient's
   largest entry, at least 1e-3), and ``remat=True`` equal to ``remat=False``.
@@ -81,8 +85,20 @@ def _mochi(tp, x, **kw):
                                 t(x["m_mask"]), dtype=torch.float32, **kw).numpy()
 
 
-def _jax_ulysses(htree, mtree, x):
-    """JAX's forwards with ``attn_impl="ulysses"`` on two CPU devices."""
+def _jax_mochi_rows(mtree, x):
+    """JAX's Mochi forward, each row on its valid tokens with an all-ones mask."""
+    p = jax.tree.map(jnp.asarray, mtree)
+    rows = []
+    for b, keep in enumerate(x["m_mask"].astype(bool)):
+        rows.append(np.asarray(JMM.mochi_forward(
+            p, JMCFG, jnp.asarray(x["m_z"][b:b + 1]), jnp.asarray(x["m_txt"][b:b + 1, keep]),
+            jnp.asarray(x["m_t"][b:b + 1]), jnp.ones((1, int(keep.sum())), jnp.int32),
+            dtype=jnp.float32, attn_impl="xla", remat=False)))
+    return np.concatenate(rows)
+
+
+def _jax_ulysses(htree, x):
+    """JAX's HunyuanVideo forward with ``attn_impl="ulysses"`` on two CPU devices."""
     jm = JMesh.make_mesh(JMesh.MeshConfig(dp=1, sp=2), devices=jax.devices()[:2])
     a = {k: jnp.asarray(v) for k, v in x.items()}
     JU.set_sp_context(jm, "sp")
@@ -91,10 +107,7 @@ def _jax_ulysses(htree, mtree, x):
             p, JHCFG, a["h_z"], a["h_txt"], a["h_pooled"], a["h_t"], a["h_g"], a["h_mask"],
             dtype=jnp.float32, attn_impl="ulysses", remat=False))(
             jax.tree.map(jnp.asarray, htree))
-        m = jax.jit(lambda p: JMM.mochi_forward(
-            p, JMCFG, a["m_z"], a["m_txt"], a["m_t"], a["m_mask"], dtype=jnp.float32,
-            attn_impl="ulysses", remat=False))(jax.tree.map(jnp.asarray, mtree))
-        return np.asarray(h), np.asarray(m)
+        return np.asarray(h)
     finally:
         JU.set_sp_context(None)
 
@@ -119,7 +132,7 @@ def test_video_dits_under_sp_match_one_rank_and_jax(trees, tmp_path):
     hp, mp = from_jax_params(htree, "cpu"), from_jax_params(mtree, "cpu")
     h1 = _hunyuan(hp, x, attn_impl="eager", pad_seq_multiple=PAD)
     m1 = _mochi(mp, x, attn_impl="eager")
-    jh, jm = _jax_ulysses(htree, mtree, x)
+    jh, jm = _jax_ulysses(htree, x), _jax_mochi_rows(mtree, x)
     assert np.abs(h1 - _hunyuan(hp, x, attn_impl="eager", pad_seq_multiple=0)).max() < 2e-4
     assert np.abs(jh).max() > 0.1 and np.abs(jm).max() > 0.1
     for got, _ in ranks:
